@@ -1,0 +1,463 @@
+"""Smoke run of the PyTorch/CUDA port (elasticdl_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure exits nonzero before the final line:
+1. device: the card's name and power limit (nvidia-smi); CUDA must be there.
+2. build: nvcc builds the flash-attention kernels from ops/csrc/ into
+   build/torch_ext/.
+3. kernels: each kernel against its plain PyTorch version at the flagship
+   attention shape (f32 [4, 8, 4096, 128], causal) and at ragged shapes
+   (S not a multiple of the 64-row tile), with kernel, plain-version and
+   library (scaled_dot_product_attention) times from CUDA events.
+4. reference: a small LM (head size 128, ragged S=300, float32) on the card,
+   through the kernels, against the same weights on the CPU through the
+   plain versions: logits, loss and every gradient.
+5. train + eval, the main path: LocalTrainer on the 222M flagship LM
+   (S=4096, batch 4) takes 5 Adam steps on synthetic Markov tokens, then
+   one evaluate_minibatch. Launch counts are reset just before and read
+   just after; every kernel must have run there.
+6. profile: one more train step under torch.profiler: device time by
+   kernel group and the device's busy share of the step.
+Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+"""
+
+import copy
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from elasticdl_tpu_torch.common.params import params_to_flax
+from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
+from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
+from elasticdl_tpu_torch.ops import _build
+from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.worker.trainer import LocalTrainer
+
+# H100 SXM data-sheet peaks (dense): the kernels do f32 FMA on the CUDA
+# cores, so their compute bound is the f32 (non-tensor-core) rate.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+FLAGSHIP_ATTN = (4, 8, 4096, 128)
+# Kernel vs plain version. float32: the same arithmetic summed in another
+# order (f32 FMA in the kernels, cuBLAS in the plain version). bfloat16:
+# outputs are rounded to bf16 (8-bit mantissa) on both sides, and values
+# reach magnitude ~2, where one bf16 ulp is 2**-6.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+RAGGED_CASES = [
+    ((2, 4, 1000, 128), False, torch.float32),
+    ((2, 3, 1000, 64), True, torch.float32),
+    ((1, 2, 333, 128), True, torch.bfloat16),
+]
+SOURCES = {
+    "flash_fwd": ("elasticdl_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "elasticdl_tpu/ops/flash_attention.py:107"),
+    "flash_fwd_lse": ("elasticdl_tpu_torch/ops/csrc/flash_fwd.cu",
+                      "elasticdl_tpu/ops/flash_attention.py:107"),
+    "flash_dq": ("elasticdl_tpu_torch/ops/csrc/flash_dq.cu",
+                 "elasticdl_tpu/ops/flash_attention.py:246"),
+    "flash_dkv": ("elasticdl_tpu_torch/ops/csrc/flash_dkv.cu",
+                  "elasticdl_tpu/ops/flash_attention.py:285"),
+}
+# Tile products per kernel: QK^T and PV; + dO V^T and dS K; + dO V^T and
+# dS^T Q beside P^T dO.
+PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_dq": 3,
+            "flash_dkv": 4}
+
+TRAIN_STEPS = 5
+BATCH = 4
+SEQ = 4096
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters):
+    """Mean device time of fn over `iters` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(got, want):
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err, err / max(scale, 1e-30)
+
+
+# ---------- phases ----------
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch sees no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    info = {
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+        "nvidia_smi": smi,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+    }
+    # Plain versions and the model's float32 products in full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "device", **info})
+    return info
+
+
+def phase_build():
+    start = time.perf_counter()
+    built = _build.build()
+    for name in _build.KERNELS:
+        _build.library(name)
+    emit({"phase": "build", "seconds": time.perf_counter() - start,
+          "built": built, "dir": _build.BUILD_DIR})
+
+
+def _attention_inputs(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            for _ in range(4)]
+
+
+def _run_all(q, k, v, g, causal):
+    """Every kernel and its plain version on one input set."""
+    out, lse = fa.flash_fwd(q, k, v, causal, emit_lse=True)
+    out_nolse, _ = fa.flash_fwd(q, k, v, causal, emit_lse=False)
+    ref_out, ref_lse = fa._fwd_plain(q, k, v, causal)
+    delta = fa._delta(g, out)
+    dq = fa.flash_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_dkv(q, k, v, g, lse, delta, causal)
+    ref_dq = fa._dq_plain(q, k, v, g, lse, delta, causal)
+    ref_dk, ref_dv = fa._dkv_plain(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    return {
+        "flash_fwd": [max_err(out_nolse, ref_out)],
+        "flash_fwd_lse": [max_err(out, ref_out), max_err(lse, ref_lse)],
+        "flash_dq": [max_err(dq, ref_dq)],
+        "flash_dkv": [max_err(dk, ref_dk), max_err(dv, ref_dv)],
+    }
+
+
+def _check_errors(errors, tol, where):
+    for name, pairs in errors.items():
+        worst = max(abs_err for abs_err, _ in pairs)
+        if not worst <= tol:
+            raise AssertionError(
+                f"{name} disagrees with its plain version at {where}: "
+                f"max abs err {worst} > {tol}"
+            )
+
+
+def _bound(name, shape, causal, dtype):
+    """(bound_ms, bound_by): the larger of the compulsory bytes over HBM
+    bandwidth and the tile-product FLOPs over the f32 peak."""
+    b, h, s, d = shape
+    bh = b * h
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    flops = PRODUCTS[name] * 2 * d * pairs
+    elem = torch.finfo(dtype).bits // 8
+    mat = bh * s * d * elem
+    row = bh * s * 4
+    nbytes = {
+        "flash_fwd": 4 * mat,
+        "flash_fwd_lse": 4 * mat + row,
+        "flash_dq": 5 * mat + 2 * row,
+        "flash_dkv": 6 * mat + 2 * row,
+    }[name]
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", flops, nbytes
+    return t_bytes, "bytes", flops, nbytes
+
+
+def _library_times(q, k, v, g, causal):
+    """One PyTorch call per function where one exists (timed here only as
+    a yardstick; the port never calls them)."""
+    lib = {"flash_fwd": None, "flash_fwd_lse": None, "flash_dq": None,
+           "flash_dkv": None}
+    with torch.no_grad():
+        lib["flash_fwd"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+            10,
+        )
+        try:  # the efficient-attention op also returns the log-sum-exp
+            lib["flash_fwd_lse"] = cuda_ms(
+                lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                    q, k, v, None, True, 0.0, causal
+                ),
+                10,
+            )
+        except (RuntimeError, AttributeError) as e:
+            print(f"no lse-returning attention op: {e}", file=sys.stderr)
+    # dQ alone and dK/dV alone have no single PyTorch call; SDPA's backward
+    # computes all three gradients in one call.
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+    sdpa_bwd = cuda_ms(
+        lambda: torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True),
+        5,
+    )
+    return lib, sdpa_bwd
+
+
+def phase_kernels():
+    emit({"phase": "kernels", "names": list(fa.KERNEL_NAMES)})
+    for shape, causal, dtype in RAGGED_CASES:
+        errors = _run_all(*_attention_inputs(shape, dtype, seed=1), causal)
+        _check_errors(errors, TOL[dtype], f"{shape} causal={causal}")
+        emit({"phase": "kernels", "shape": shape, "causal": causal,
+              "dtype": str(dtype), "tolerance": TOL[dtype],
+              "max_abs_rel_err": errors})
+
+    shape, causal, dtype = FLAGSHIP_ATTN, True, torch.float32
+    q, k, v, g = _attention_inputs(shape, dtype, seed=0)
+    errors = _run_all(q, k, v, g, causal)
+    _check_errors(errors, TOL[dtype], f"{shape} causal={causal}")
+
+    out, lse = fa.flash_fwd(q, k, v, causal, emit_lse=True)
+    delta = fa._delta(g, out)
+    kernel_fns = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal, False),
+        "flash_fwd_lse": lambda: fa.flash_fwd(q, k, v, causal, True),
+        "flash_dq": lambda: fa.flash_dq(q, k, v, g, lse, delta, causal),
+        "flash_dkv": lambda: fa.flash_dkv(q, k, v, g, lse, delta, causal),
+    }
+    plain_fns = {
+        "flash_fwd": lambda: fa.reference_attention(q, k, v, causal),
+        "flash_fwd_lse": lambda: fa._fwd_plain(q, k, v, causal),
+        "flash_dq": lambda: fa._dq_plain(q, k, v, g, lse, delta, causal),
+        "flash_dkv": lambda: fa._dkv_plain(q, k, v, g, lse, delta, causal),
+    }
+    library, sdpa_bwd_ms = _library_times(q, k, v, g, causal)
+    report = {}
+    for name in fa.KERNEL_NAMES:
+        ms = cuda_ms(kernel_fns[name], 10)
+        plain_ms = cuda_ms(plain_fns[name], 3)
+        bound_ms, bound_by, flops, nbytes = _bound(name, shape, causal,
+                                                   dtype)
+        report[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "launches": None,  # filled from the main path's run
+            "max_abs_err": max(e for e, _ in errors[name]),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library[name],
+        }
+        emit({"phase": "kernels", "kernel": name, "shape": shape,
+              "causal": causal, "dtype": str(dtype),
+              "tolerance": TOL[dtype], "max_abs_rel_err": errors[name],
+              "tflops": flops / ms / 1e9, "flops": flops, "bytes": nbytes,
+              **{k: report[name][k] for k in (
+                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+    emit({"phase": "kernels", "sdpa_backward_ms": sdpa_bwd_ms,
+          "flash_dq_plus_dkv_ms": report["flash_dq"]["ms"]
+          + report["flash_dkv"]["ms"]})
+    return report
+
+
+def phase_reference():
+    """The small LM through the kernels on the card against the same
+    weights through the plain versions on the CPU (float32 activations)."""
+    cfg = tlm.LMConfig(vocab=512, d_model=256, n_heads=2, n_layers=2,
+                       max_len=512, activation_dtype="float32")
+    cpu = tlm.custom_model(cfg).to_empty(device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    gpu = tlm.custom_model(cfg).to_empty(device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = synthetic_lm_tokens(2, 300, vocab=cfg.vocab, seed=1)
+    x, y = torch.from_numpy(tokens[:, :-1]), torch.from_numpy(tokens[:, 1:])
+
+    def run(model, device):
+        logits = model(x.to(device))
+        loss = tlm.loss(y.to(device), logits)
+        loss.backward()
+        return logits.detach().cpu(), loss.item()
+
+    fa.reset_launch_counts()
+    logits_gpu, loss_gpu = run(gpu, "cuda")
+    launched = dict(fa.launches)
+    logits_cpu, loss_cpu = run(cpu, "cpu")
+    logits_err = float((logits_gpu - logits_cpu).abs().max())
+    grads_gpu, grads_cpu = params_to_flax(_grads_as_params(gpu)), \
+        params_to_flax(_grads_as_params(cpu))
+    grad_rel = max(
+        float(np.abs(grads_gpu[n] - grads_cpu[n]).max())
+        / max(float(np.abs(grads_cpu[n]).max()), 1e-30)
+        for n in grads_cpu
+    )
+    result = {"phase": "reference", "launches": launched,
+              "logits_max_abs_err": logits_err,
+              "loss_gpu": loss_gpu, "loss_cpu": loss_cpu,
+              "grad_max_rel_err": grad_rel,
+              "tolerance": {"logits": 1e-4, "loss": 1e-5, "grad_rel": 1e-4}}
+    emit(result)
+    if not (logits_err <= 1e-4 and abs(loss_gpu - loss_cpu) <= 1e-5
+            and grad_rel <= 1e-4):
+        raise AssertionError("the LM on the card disagrees with the CPU")
+    if not all(launched.get(n) for n in
+               ("flash_fwd_lse", "flash_dq", "flash_dkv")):
+        raise AssertionError(f"the kernels did not run: {launched}")
+
+
+def _grads_as_params(model):
+    """A copy of `model` whose parameters hold its gradients."""
+    grads = copy.deepcopy(model)
+    for p, src in zip(grads.parameters(), model.parameters()):
+        p.data = src.grad
+    return grads
+
+
+def phase_main_path():
+    """LocalTrainer on the flagship LM: train steps, then one evaluation."""
+    cfg = tlm.flagship_config(SEQ)
+    trainer = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer())
+    tokens = synthetic_lm_tokens(4 * BATCH, SEQ, vocab=cfg.vocab,
+                                 branching=4, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        rows = slice((i % 4) * BATCH, (i % 4 + 1) * BATCH)
+        start = time.perf_counter()
+        _, version, loss = trainer.train_minibatch(tokens[rows, :-1],
+                                                   tokens[rows, 1:])
+        losses.append(loss.item())  # waits for the step
+        step_s.append(time.perf_counter() - start)
+    train_launches = dict(fa.launches)
+    start = time.perf_counter()
+    logits = trainer.evaluate_minibatch(tokens[:BATCH, :-1])
+    eval_s = time.perf_counter() - start
+    launches = dict(fa.launches)
+
+    n_params = sum(p.numel() for p in trainer._model.parameters())
+    steady = step_s[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    emit({"phase": "train", "params": n_params, "batch": BATCH,
+          "seq": SEQ, "losses": losses, "version": version,
+          "first_step_ms": 1e3 * step_s[0], "step_ms": step_ms,
+          "tokens_per_s": BATCH * SEQ / (step_ms / 1e3),
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": train_launches})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not decrease: {losses}")
+
+    metric = tlm.eval_metrics_fn()["token_ce"]
+    metric.update(logits, tokens[:BATCH, 1:])
+    emit({"phase": "eval", "shape": list(logits.shape),
+          "finite": bool(np.isfinite(logits).all()), "eval_ms": 1e3 * eval_s,
+          "token_ce": metric.result(), "launches": launches})
+    if logits.shape != (BATCH, SEQ, cfg.vocab):
+        raise AssertionError(f"eval logits have shape {logits.shape}")
+    if not np.isfinite(logits).all():
+        raise AssertionError("eval logits are not finite")
+
+    expected = {"flash_fwd_lse": cfg.n_layers * TRAIN_STEPS,
+                "flash_dq": cfg.n_layers * TRAIN_STEPS,
+                "flash_dkv": cfg.n_layers * TRAIN_STEPS,
+                "flash_fwd": cfg.n_layers}
+    if launches != expected:
+        raise AssertionError(
+            f"main-path launches {launches}, expected {expected}"
+        )
+    _profile_step(trainer, tokens[:BATCH])
+    return launches
+
+
+def _kernel_group(name):
+    if "edl_flash::" in name:
+        return name.split("edl_flash::")[1].split("<")[0]
+    low = name.lower()
+    for group, keys in (("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+                        ("optimizer", ("multi_tensor", "adam")),
+                        ("softmax_ce", ("softmax", "nll", "cross_entropy"))):
+        if any(key in low for key in keys):
+            return group
+    return "other"
+
+
+def _profile_step(trainer, rows):
+    """One more train step (after the main path's counts were read) under
+    torch.profiler: device time by kernel group and the device's busy
+    share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        trainer.train_minibatch(rows[:, :-1], rows[:, 1:])[2].item()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    groups, other = {}, []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        group = _kernel_group(evt.key)
+        groups[group] = groups.get(group, 0.0) + evt.self_device_time_total
+        if group == "other":
+            other.append((evt.self_device_time_total / 1e3, evt.count,
+                           evt.key[:90]))
+    busy_ms = sum(groups.values()) / 1e3
+    emit({"phase": "profile", "step_wall_ms": wall_ms,
+          "device_busy_ms": busy_ms if busy_ms else "not measured",
+          "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+          "device_ms_by_group": {
+              g: t / 1e3 for g, t in sorted(groups.items(),
+                                            key=lambda kv: -kv[1])},
+          "largest_other_ms_count_name": sorted(other, reverse=True)[:6]})
+
+
+def main():
+    phases = [("device", phase_device), ("build", phase_build),
+              ("kernels", phase_kernels), ("reference", phase_reference),
+              ("main_path", phase_main_path)]
+    results = {}
+    for name, fn in phases:
+        try:
+            results[name] = fn()
+        except Exception as e:  # report which phase failed, then stop
+            traceback.print_exc()
+            emit({"phase": name, "ok": False, "error": repr(e)})
+            return 1
+    report = results["kernels"]
+    for name, count in results["main_path"].items():
+        report[name]["launches"] = count
+    emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
+    device = results["device"]
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                 "count": device["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

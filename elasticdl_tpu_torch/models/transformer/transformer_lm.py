@@ -1,0 +1,280 @@
+"""Decoder-only transformer LM (counterpart of
+elasticdl_tpu/models/transformer/transformer_lm.py), the long-context
+flagship model.
+
+The port reproduces the flax model's arithmetic, so weights moved through
+common/params.py give the same outputs:
+- bfloat16 activations (activation_dtype) with float32 parameters; a Dense
+  casts its input, kernel and bias to the activation dtype, as flax
+  Dense(dtype=...) does, with explicit casts (no autocast);
+- LayerNorm computes its statistics in float32 with eps 1e-6 and
+  Var = E[x^2] - E[x]^2 (flax's fast variance), then casts to the
+  activation dtype;
+- GELU is the tanh approximation (flax nn.gelu);
+- attention runs in float32 through ops/flash_attention.py (the CUDA kernels
+  on the card), and the LM head in float32.
+Submodules carry flax's names (tok_emb, Block_0/MultiHeadAttention_0/qkv,
+...), which is what the weight bridge relies on.
+
+custom_model() returns the module on the meta device, without storage, as
+flax's custom_model() returns an unbound module: the trainer materializes it
+on its device and initializes it from its seed (init_weights) at the first
+batch. Initializers follow flax's defaults (truncated-normal fan-in for
+kernels and embeddings, zeros for biases, ones for LayerNorm scales), but
+draw other numbers: parity with the JAX package needs imported weights.
+
+Model spec contract (common/model_utils.py): custom_model / loss /
+optimizer / feed / eval_metrics_fn.
+"""
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from elasticdl_tpu_torch.common.evaluation_utils import MeanMetric
+from elasticdl_tpu_torch.common.model_utils import Modes
+from elasticdl_tpu_torch.ops import optimizers
+from elasticdl_tpu_torch.ops.flash_attention import flash_attention
+
+VOCAB = 256
+D_MODEL = 128
+N_HEADS = 4
+N_LAYERS = 2
+MAX_LEN = 256
+LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
+# flax's truncated-normal initializers divide the stddev by this, the std
+# of a unit normal truncated to [-2, 2].
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    vocab: int = VOCAB
+    d_model: int = D_MODEL
+    n_heads: int = N_HEADS
+    n_layers: int = N_LAYERS
+    max_len: int = MAX_LEN
+    dropout: float = 0.0
+    # attention(q, k, v) with causal masking baked in; None -> local flash.
+    attention: Optional[Callable] = None
+    activation_dtype: str = "bfloat16"
+    # Rematerialization (per-block activation recompute) is not ported yet.
+    remat: bool = False
+    remat_policy: Optional[str] = None
+
+    def __post_init__(self):
+        if self.remat_policy is not None and not self.remat:
+            raise ValueError(
+                "remat_policy is set but remat=False — the policy would be "
+                "silently ignored; enable remat or drop the policy"
+            )
+        if self.remat:
+            raise NotImplementedError(
+                "remat is not ported to elasticdl_tpu_torch yet"
+            )
+
+
+def flagship_config(max_len: int = 4096) -> LMConfig:
+    """The flagship long-context config (222M parameters: vocab 32768,
+    d_model 1024, 8 heads of 128, 12 layers), remat off."""
+    return LMConfig(
+        vocab=32768,
+        d_model=1024,
+        n_heads=8,
+        n_layers=12,
+        max_len=max_len,
+        remat=False,
+    )
+
+
+def _default_attention(q, k, v):
+    return flash_attention(q, k, v, True)
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.activation_dtype)
+
+
+class Dense(nn.Linear):
+    """flax Dense / DenseGeneral: input, kernel and bias cast to `dtype`.
+    `features`, when given, is a DenseGeneral's output shape (the weight
+    bridge reshapes its kernel to [in, *features])."""
+
+    def __init__(self, in_features, out_features, dtype, features=None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+        if features is not None:
+            self.features = tuple(features)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """flax LayerNorm: float32 statistics, fast variance, eps 1e-6."""
+
+    def __init__(self, features, dtype):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + LN_EPS) * self.weight
+        return ((xf - mean) * mul + self.bias).to(self.compute_dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, config: LMConfig):
+        super().__init__()
+        cfg = self.config = config
+        head_dim = cfg.d_model // cfg.n_heads
+        dtype = _dtype(cfg)
+        self.qkv = Dense(
+            cfg.d_model, 3 * cfg.d_model, dtype,
+            features=(3, cfg.n_heads, head_dim),
+        )
+        self.proj = Dense(cfg.d_model, cfg.d_model, dtype)
+
+    def forward(self, x):
+        cfg = self.config
+        b, s, _ = x.shape
+        qkv = self.qkv(x).view(b, s, 3, cfg.n_heads, -1)
+        # [B, S, 3, H, Dh] -> three [B, H, S, Dh]
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        attend = cfg.attention or _default_attention
+        # Softmax path in float32 for stability; back to compute dtype.
+        out = attend(q.float(), k.float(), v.float()).to(x.dtype)
+        out = out.transpose(1, 2).reshape(b, s, cfg.d_model)
+        return self.proj(out)
+
+
+class Block(nn.Module):
+    def __init__(self, config: LMConfig):
+        super().__init__()
+        cfg = self.config = config
+        dtype = _dtype(cfg)
+        self.LayerNorm_0 = LayerNorm(cfg.d_model, dtype)
+        self.MultiHeadAttention_0 = MultiHeadAttention(cfg)
+        self.LayerNorm_1 = LayerNorm(cfg.d_model, dtype)
+        self.Dense_0 = Dense(cfg.d_model, 4 * cfg.d_model, dtype)
+        self.Dense_1 = Dense(4 * cfg.d_model, cfg.d_model, dtype)
+
+    def forward(self, x):
+        x = x + self.MultiHeadAttention_0(self.LayerNorm_0(x))
+        h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
+        h = self.Dense_1(h)
+        if self.config.dropout:
+            h = F.dropout(h, self.config.dropout, self.training)
+        return x + h
+
+
+def embed_input(lm, tokens):
+    """Token + positional embedding in the activation dtype (the table is
+    cast before the gather, as flax Embed(dtype=...) does)."""
+    cfg = lm.config
+    dtype = _dtype(cfg)
+    s = tokens.shape[1]
+    if s > cfg.max_len:
+        raise ValueError(
+            f"sequence length {s} exceeds max_len {cfg.max_len}"
+        )
+    x = F.embedding(tokens.long(), lm.tok_emb.weight.to(dtype))
+    pos = lm.pos_emb.weight[:s].to(dtype)
+    return x + pos[None]
+
+
+def head_output(lm, x):
+    """Final LayerNorm + LM head; logits in float32."""
+    return lm.lm_head(lm.LayerNorm_0(x))
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, config: LMConfig = LMConfig()):
+        super().__init__()
+        cfg = self.config = config
+        self.tok_emb = nn.Embedding(cfg.vocab, cfg.d_model)
+        self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
+        for i in range(cfg.n_layers):
+            setattr(self, f"Block_{i}", Block(cfg))
+        self.LayerNorm_0 = LayerNorm(cfg.d_model, _dtype(cfg))
+        self.lm_head = Dense(cfg.d_model, cfg.vocab, torch.float32)
+
+    def forward(self, tokens):
+        x = embed_input(self, tokens)
+        for i in range(self.config.n_layers):
+            x = getattr(self, f"Block_{i}")(x)
+        return head_output(self, x)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """flax's default initializers, drawn from `generator` (which must
+        live on the parameters' device)."""
+
+        def trunc_normal(w, fan_in):
+            std = fan_in**-0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(
+                w, std=std, a=-2 * std, b=2 * std, generator=generator
+            )
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Embedding):
+                trunc_normal(mod.weight, mod.embedding_dim)
+            elif isinstance(mod, nn.Linear):
+                trunc_normal(mod.weight, mod.in_features)
+                mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+
+# ---------- model spec contract ----------
+
+
+def custom_model(config: LMConfig = None):
+    """The LM on the meta device; the trainer materializes it."""
+    with torch.device("meta"):
+        return TransformerLM(config or LMConfig())
+
+
+def loss(labels, logits):
+    """Next-token CE; labels [B, S] int, logits [B, S, V]."""
+    return F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]).float(),
+        labels.reshape(-1).long(),
+    )
+
+
+def optimizer():
+    return optimizers.adam(learning_rate=3e-4)
+
+
+def feed(records, mode, metadata):
+    """Decoded records ({"tokens": int[S+1]}) -> (features, labels)."""
+    tokens = np.stack(
+        [np.asarray(r["tokens"]) for r in records]
+    ).astype(np.int32)  # [B, S+1]
+    features = tokens[:, :-1]
+    labels = tokens[:, 1:] if mode != Modes.PREDICTION else None
+    return features, labels
+
+
+def token_ce(outputs, labels):
+    """Per-token CE from logits (numpy; eval-metric building block)."""
+    logits = np.asarray(outputs, np.float32)
+    labels = np.asarray(labels).astype(np.int64)
+    logits = logits - logits.max(-1, keepdims=True)
+    logp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    return -np.take_along_axis(logp, labels[..., None], -1)
+
+
+def eval_metrics_fn():
+    return {"token_ce": MeanMetric(token_ce)}

@@ -1,0 +1,155 @@
+"""Trainer abstraction + the local (single-process) PyTorch trainer
+(counterpart of elasticdl_tpu/worker/trainer.py).
+
+The step runs eagerly: forward, backward and the optimizer update in one
+method (`_step`), on the trainer's device. The JAX package's compile cache,
+tracked_jit and StepCostModel are XLA machinery and have no counterpart.
+"""
+
+from abc import ABC, abstractmethod
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.params import params_from_flax, params_to_flax
+
+logger = get_logger("worker.trainer")
+
+
+class Trainer(ABC):
+    """What the worker loop needs from any training strategy."""
+
+    @abstractmethod
+    def init_variables_if_needed(self, features):
+        ...
+
+    @abstractmethod
+    def train_minibatch(self, features, labels):
+        """Returns (accepted: bool, model_version: int, loss).
+
+        `loss` is a 0-d tensor on the trainer's device, not converted to a
+        Python float: converting would wait for the device on every step.
+        Callers materialize it (float()) only when they log it."""
+
+    @abstractmethod
+    def evaluate_minibatch(self, features, model_version=-1):
+        """Forward pass; returns model outputs (numpy)."""
+
+    def predict_minibatch(self, features):
+        return self.evaluate_minibatch(features)
+
+    @abstractmethod
+    def get_model_version(self) -> int:
+        ...
+
+    def export_variables(self):
+        """Checkpointable state; override where meaningful."""
+        return None
+
+
+class TorchTrainer(Trainer):
+    """Shared PyTorch machinery: lazy materialization of the model on the
+    device at the first batch, and the fused train step."""
+
+    def __init__(self, model, loss_fn, optimizer_spec, seed=0, device=None):
+        self._device = resolve_device(device)
+        self._model = model
+        self._loss_fn = loss_fn
+        self._optimizer_spec = optimizer_spec
+        self._generator = torch.Generator(device=self._device)
+        self._generator.manual_seed(seed)
+        self._optimizer = None
+        self._version = 0
+
+    # ---------- init ----------
+
+    def _materialize(self):
+        """Moves the model to the device (allocating and initializing it from
+        the seed if it has no storage yet) and builds the optimizer."""
+        if any(p.is_meta for p in self._model.parameters()):
+            self._model.to_empty(device=self._device)
+            self._model.init_weights(self._generator)
+        else:
+            self._model.to(self._device)
+        self._optimizer = self._optimizer_spec.to_torch(
+            self._model.parameters()
+        )
+        n_params = sum(p.numel() for p in self._model.parameters())
+        logger.info("Initialized model with %d parameters", n_params)
+
+    def init_variables_if_needed(self, features):
+        if self._optimizer is None:
+            self._materialize()
+
+    def load_flax_params(self, named):
+        """Loads flax-named weights ({wire name: array}, as the JAX package's
+        pytree_utils.flatten_params names them) through the weight bridge."""
+        if self._optimizer is None:
+            self._materialize()
+        self._model.load_state_dict(params_from_flax(named))
+
+    # ---------- step ----------
+
+    def _to_device(self, batch):
+        return torch.as_tensor(np.asarray(batch)).to(
+            self._device, non_blocking=True
+        )
+
+    def _step(self, features, labels):
+        """fwd + bwd + optimizer update."""
+        self._model.train()
+        loss = self._loss_fn(labels, self._model(features))
+        self._optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self._optimizer.step()
+        return loss.detach()
+
+    # ---------- Trainer interface ----------
+
+    def train_minibatch(self, features, labels):
+        self.init_variables_if_needed(features)
+        loss = self._step(self._to_device(features), self._to_device(labels))
+        self._version += 1
+        return True, self._version, loss
+
+    def evaluate_minibatch(self, features, model_version=-1):
+        self.init_variables_if_needed(features)
+        self._model.eval()
+        with torch.no_grad():
+            outputs = self._model(self._to_device(features))
+        return outputs.cpu().numpy()
+
+    def get_model_version(self):
+        return self._version
+
+    def export_variables(self):
+        return {
+            "variables": params_to_flax(self._model),
+            "opt_state": self._optimizer.state_dict(),
+            "rng": self._generator.get_state().numpy(),
+            "version": self._version,
+        }
+
+    def restore_variables(self, exported):
+        if self._optimizer is None:
+            self._materialize()
+        self._model.load_state_dict(params_from_flax(exported["variables"]))
+        self._optimizer = self._optimizer_spec.to_torch(
+            self._model.parameters()
+        )
+        if exported.get("opt_state") is not None:
+            self._optimizer.load_state_dict(exported["opt_state"])
+        else:
+            logger.warning(
+                "Checkpoint has no optimizer state; re-initializing it"
+            )
+        if exported.get("rng") is not None:
+            self._generator.set_state(torch.from_numpy(exported["rng"]))
+        self._version = exported["version"]
+
+
+class LocalTrainer(TorchTrainer):
+    """Single-device training: the minimum end-to-end strategy (reference
+    DistributionStrategy.LOCAL)."""

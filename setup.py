@@ -11,9 +11,12 @@ setup(
         "Elastic, fault-tolerant distributed deep learning on TPUs "
         "(JAX/XLA) with dynamic data sharding"
     ),
-    packages=find_packages(include=["elasticdl_tpu", "elasticdl_tpu.*"]),
+    packages=find_packages(include=["elasticdl_tpu", "elasticdl_tpu.*",
+                                    "elasticdl_tpu_torch",
+                                    "elasticdl_tpu_torch.*"]),
     package_data={"elasticdl_tpu.proto": ["*.proto"],
-                  "elasticdl_tpu.native": ["*.cc", "Makefile"]},
+                  "elasticdl_tpu.native": ["*.cc", "Makefile"],
+                  "elasticdl_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,125 @@
+"""The port's flash attention (elasticdl_tpu_torch/ops/flash_attention.py)
+against the JAX package's: the Pallas kernels run in interpret mode on the
+CPU, the port's wrappers take their plain versions for CPU tensors. The
+CUDA kernels themselves are held against the plain versions on the card
+(test_torch_kernels_gpu.py and chip_smoke.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from elasticdl_tpu.ops import flash_attention as jfa
+from elasticdl_tpu_torch.ops import _build
+from elasticdl_tpu_torch.ops import flash_attention as tfa
+
+torch.set_num_threads(1)
+
+SHAPE = (1, 2, 256, 32)
+BLOCK = 128
+# Float32 end to end on both sides; the sums run in different orders.
+FWD_ATOL = 1e-5
+GRAD_ATOL = 1e-4
+
+
+@pytest.fixture
+def inputs():
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal(SHAPE).astype(np.float32) for _ in range(4)]
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setenv("EDL_FORCE_PALLAS_INTERPRET", "1")
+
+
+def _t(*arrays, grad=False):
+    return [torch.tensor(a, requires_grad=grad) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_matches_pallas_interpret(inputs, interpret, causal):
+    q, k, v, _ = inputs
+    ref = np.asarray(jfa.flash_attention(q, k, v, causal, BLOCK, BLOCK))
+    out = tfa.flash_attention(*_t(q, k, v), causal).numpy()
+    np.testing.assert_allclose(out, ref, atol=FWD_ATOL)
+    plain = tfa.reference_attention(*_t(q, k, v), causal).numpy()
+    np.testing.assert_allclose(plain, ref, atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_gradients_match_pallas_interpret(inputs, interpret, causal):
+    q, k, v, g = inputs
+    _, vjp = jax.vjp(
+        lambda a, b, c: jfa.flash_attention(a, b, c, causal, BLOCK, BLOCK),
+        q, k, v,
+    )
+    ref = vjp(g)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    out = tfa.flash_attention(tq, tk, tv, causal)
+    out.backward(torch.tensor(g))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=GRAD_ATOL)
+    plain = tfa._bwd_reference(*_t(q, k, v), out.detach(), torch.tensor(g),
+                               causal)
+    for got, want in zip(plain, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_each_plain_version_matches_its_pallas_kernel(inputs, interpret,
+                                                      causal):
+    """Each kernel's plain version against the Pallas kernel it ports, on
+    the same residuals: forward (out, lse), dQ, and dK/dV."""
+    q, k, v, g = inputs
+    jout, jlse = jfa._flash_forward(q, k, v, causal, BLOCK, BLOCK, True)
+    out, lse = tfa.flash_fwd(*_t(q, k, v), causal, emit_lse=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=FWD_ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=FWD_ATOL)
+
+    jdq, jdk, jdv = jfa._flash_backward(q, k, v, jout, jlse, g, causal,
+                                        BLOCK, BLOCK)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    delta = tfa._delta(tg, torch.tensor(np.asarray(jout)))
+    tlse = torch.tensor(np.asarray(jlse))
+    dq = tfa.flash_dq(tq, tk, tv, tg, tlse, delta, causal)
+    dk, dv = tfa.flash_dkv(tq, tk, tv, tg, tlse, delta, causal)
+    for got, want in zip((dq, dk, dv), (jdq, jdk, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=GRAD_ATOL)
+
+
+def test_no_grad_forward_skips_lse(inputs):
+    """Without autograd the wrapper takes the lse-free forward, as the JAX
+    primal does; the CPU path counts no kernel launch."""
+    tfa.reset_launch_counts()
+    q, k, v, _ = inputs
+    with torch.no_grad():
+        out = tfa.flash_attention(*_t(q, k, v), True)
+    np.testing.assert_allclose(
+        out.numpy(), tfa.reference_attention(*_t(q, k, v), True).numpy(),
+        atol=FWD_ATOL,
+    )
+    assert sum(tfa.launches.values()) == 0
+
+
+def test_non_cpu_tensors_never_fall_back(inputs):
+    """A tensor that is not on the CPU goes to the kernel path, which
+    validates and raises instead of computing the plain version."""
+    q = torch.empty(SHAPE, device="meta")
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        tfa.flash_fwd(q, q, q, True, emit_lse=True)
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        tfa.flash_dq(q, q, q, q, None, None, True)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as cpp_extension
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()

@@ -1,0 +1,62 @@
+"""The port stands alone: every module of elasticdl_tpu_torch (and
+chip_smoke.py) imports with jax, flax and optax blocked and loads nothing of
+the JAX package."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import elasticdl_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
+
+_GUARD = """
+import importlib, sys
+for name in ("jax", "flax", "optax"):
+    sys.modules[name] = None
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m == "elasticdl_tpu"
+                or m.startswith("elasticdl_tpu."))
+assert not loaded, loaded
+print("ok", len(sys.argv) - 1)
+"""
+
+
+def _port_modules():
+    names = ["elasticdl_tpu_torch"]
+    for info in pkgutil.walk_packages([PACKAGE], "elasticdl_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_with_jax_blocked():
+    modules = _port_modules()
+    assert "elasticdl_tpu_torch.ops.flash_attention" in modules
+    assert "elasticdl_tpu_torch.worker.trainer" in modules
+    proc = subprocess.run(
+        [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok", str(len(modules) + 1)]
+
+
+def test_no_jax_package_import_strings():
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(elasticdl_tpu|jax|flax|optax)(\.|\s|$)",
+        re.M,
+    )
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.dirname(
+            elasticdl_tpu_torch.__file__)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            offenders += [(path, m.group(0)) for m in pattern.finditer(f.read())]
+    assert not offenders, offenders

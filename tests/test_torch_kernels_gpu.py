@@ -1,0 +1,95 @@
+"""The port's CUDA flash-attention kernels on the card, against their plain
+PyTorch versions. Each test skips without a CUDA device; the kernels have no
+CPU mode. This file imports nothing of JAX, so it runs on a machine without
+it; there, skip the JAX-importing conftest:
+
+    python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu
+"""
+
+import pytest
+import torch
+
+from elasticdl_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.gpu
+
+# float32: the same arithmetic summed in another order. bfloat16: outputs
+# rounded to an 8-bit mantissa on both sides, values up to magnitude ~2.
+ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(shape, dtype, n=4, requires_grad=False):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [
+        torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        .requires_grad_(requires_grad)
+        for _ in range(n)
+    ]
+
+
+@pytest.mark.parametrize(
+    "shape,causal,dtype",
+    [
+        ((1, 2, 300, 128), True, torch.float32),
+        ((2, 3, 1000, 64), False, torch.float32),
+        ((1, 2, 333, 128), True, torch.bfloat16),
+        ((1, 1, 1, 64), True, torch.float32),  # one row of one tile
+        ((3, 2, 17, 128), False, torch.bfloat16),
+    ],
+)
+def test_kernels_match_plain(cuda, shape, causal, dtype):
+    q, k, v, g = _inputs(shape, dtype)
+    fa.reset_launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, causal, emit_lse=True)
+    delta = fa._delta(g, out)
+    got = (out, lse, fa.flash_dq(q, k, v, g, lse, delta, causal),
+           *fa.flash_dkv(q, k, v, g, lse, delta, causal))
+    want = (*fa._fwd_plain(q, k, v, causal),
+            fa._dq_plain(q, k, v, g, lse, delta, causal),
+            *fa._dkv_plain(q, k, v, g, lse, delta, causal))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=ATOL[dtype],
+                                   rtol=0)
+    assert fa.launches == {"flash_fwd_lse": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_matches_plain_autograd(cuda, causal):
+    """The autograd Function (forward with lse, delta, dQ and dK/dV
+    kernels) against torch autograd through the plain forward, on
+    non-contiguous inputs as the model hands them over."""
+    base = _inputs((2, 200, 3, 128), torch.float32, n=1)[0]
+    g = _inputs((2, 3, 200, 128), torch.float32, n=1)[0]
+    grads = []
+    for attend in (fa.flash_attention, fa.reference_attention):
+        x = base.clone().requires_grad_()
+        q = x.transpose(1, 2)  # [B, H, S, D], not contiguous
+        out = attend(q, q * 0.5, q.flip(-1), causal)
+        out.backward(g)
+        grads.append((out.detach(), x.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-4, rtol=0)
+
+
+def test_unsupported_inputs_raise(cuda):
+    q, k, v, _ = _inputs((1, 1, 64, 32), torch.float32)
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_fwd(q, k, v, True, emit_lse=False)
+    q, k, v, _ = _inputs((1, 1, 64, 64), torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q, k, v, True, emit_lse=False)
+    q, k, v, g = _inputs((1, 1, 64, 64), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(2, 3), k, v, True, emit_lse=False)
+    lse = torch.zeros(1, 1, 64, device="cuda", dtype=torch.float64)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa.flash_dq(q, k, v, g, lse, lse, True)
