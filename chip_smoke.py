@@ -8,8 +8,12 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    build/torch_ext/.
 3. kernels: each kernel against its plain PyTorch version at the flagship
    attention shape (f32 [4, 8, 4096, 128], causal) and at ragged shapes
-   (S not a multiple of the 64-row tile), with kernel, plain-version and
-   library (scaled_dot_product_attention) times from CUDA events.
+   (S not a multiple of any tile, head sizes 32, 64 and 128), with kernel,
+   plain-version and library (scaled_dot_product_attention) times from
+   CUDA events; the dQ and dK/dV kernels run twice on the flagship inputs
+   and must give bitwise equal outputs, and are timed again on those
+   inputs rounded to bfloat16 (the LM's attention inputs are bfloat16
+   values in f32 tensors, on which the kernels skip zero small parts).
 4. reference: a small LM (head size 128, ragged S=300, float32) on the card,
    through the kernels, against the same weights on the CPU through the
    plain versions: logits, loss and every gradient.
@@ -41,9 +45,12 @@ from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.worker.trainer import LocalTrainer
 
-# H100 SXM data-sheet peaks (dense): the kernels do f32 FMA on the CUDA
-# cores, so their compute bound is the f32 (non-tensor-core) rate.
+# H100 SXM data-sheet peaks (dense). An f32 product takes either f32 FMA
+# on the CUDA cores or three TF32 tensor-core products (3xTF32, the same
+# f32 accuracy): its least time is the lesser of the two.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_HBM_BYTES = 3.35e12
 
 FLAGSHIP_ATTN = (4, 8, 4096, 128)
@@ -56,6 +63,8 @@ RAGGED_CASES = [
     ((2, 4, 1000, 128), False, torch.float32),
     ((2, 3, 1000, 64), True, torch.float32),
     ((1, 2, 333, 128), True, torch.bfloat16),
+    ((2, 4, 1000, 32), True, torch.float32),
+    ((1, 3, 333, 32), False, torch.bfloat16),
 ]
 SOURCES = {
     "flash_fwd": ("elasticdl_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -71,6 +80,10 @@ SOURCES = {
 # dS^T Q beside P^T dO.
 PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_dq": 3,
             "flash_dkv": 4}
+# TF32 tensor-core products the backward kernels need when Q, K, V and dO
+# are exact in TF32 (bfloat16 values in f32 tensors, as the LM hands them
+# over): one for each score product, two where P or dS is an operand.
+EXACT_TF32_PRODUCTS = {"flash_dq": 1 + 1 + 2, "flash_dkv": 1 + 1 + 2 + 2}
 
 TRAIN_STEPS = 5
 BATCH = 4
@@ -172,8 +185,10 @@ def _check_errors(errors, tol, where):
 
 
 def _bound(name, shape, causal, dtype):
-    """(bound_ms, bound_by): the larger of the compulsory bytes over HBM
-    bandwidth and the tile-product FLOPs over the f32 peak."""
+    """(bound_ms, bound_by, flops, bytes, {unit: ms}): the larger of the
+    compulsory bytes over HBM bandwidth and the tile-product FLOPs over the
+    faster f32-accurate unit (3xTF32 tensor cores); the f32-FMA time is
+    reported beside it."""
     b, h, s, d = shape
     bh = b * h
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
@@ -187,11 +202,13 @@ def _bound(name, shape, causal, dtype):
         "flash_dq": 5 * mat + 2 * row,
         "flash_dkv": 6 * mat + 2 * row,
     }[name]
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    units = {"f32_fma_ms": flops / PEAK_F32_FLOPS * 1e3,
+             "3xtf32_ms": flops / PEAK_3XTF32_FLOPS * 1e3}
+    t_ops = min(units.values())
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     if t_ops >= t_bytes:
-        return t_ops, "operations", flops, nbytes
-    return t_bytes, "bytes", flops, nbytes
+        return t_ops, "operations", flops, nbytes, units
+    return t_bytes, "bytes", flops, nbytes, units
 
 
 def _library_times(q, k, v, g, causal):
@@ -224,6 +241,51 @@ def _library_times(q, k, v, g, causal):
     return lib, sdpa_bwd
 
 
+def _check_deterministic(q, k, v, g, lse, delta, causal):
+    """dQ and dK/dV twice on the same inputs: bitwise equal outputs."""
+    runs = [(fa.flash_dq(q, k, v, g, lse, delta, causal),
+             *fa.flash_dkv(q, k, v, g, lse, delta, causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+    emit({"phase": "kernels", "deterministic": dict(zip(
+        ("flash_dq", "flash_dkv.dk", "flash_dkv.dv"), equal))})
+    if not all(equal):
+        raise AssertionError("the backward kernels are not deterministic")
+
+
+def _exact_inputs(q, k, v, g, causal):
+    """dQ and dK/dV on the flagship inputs rounded to bfloat16, in f32
+    tensors as the LM's path gives them (the kernels then skip the MMAs of
+    zero small parts): error against the plain version, time, and the
+    bound of the work those inputs need."""
+    q, k, v, g = (t.bfloat16().float() for t in (q, k, v, g))
+    out, lse = fa.flash_fwd(q, k, v, causal, emit_lse=True)
+    delta = fa._delta(g, out)
+    args = (q, k, v, g, lse, delta, causal)
+    fns = {"flash_dq": (fa.flash_dq, fa._dq_plain),
+           "flash_dkv": (fa.flash_dkv, fa._dkv_plain)}
+    b, h, s, d = q.shape
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    result = {}
+    for name, (kernel, plain) in fns.items():
+        got, want = kernel(*args), plain(*args)
+        if name == "flash_dq":
+            got, want = (got,), (want,)
+        err = max(max_err(x, y)[0] for x, y in zip(got, want))
+        if not err <= TOL[torch.float32]:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on bfloat16-exact inputs: {err}")
+        ms = cuda_ms(lambda: kernel(*args), 10)
+        nbytes = _bound(name, q.shape, causal, torch.float32)[3]
+        t_ops = EXACT_TF32_PRODUCTS[name] * 2 * d * pairs / PEAK_TF32_FLOPS
+        result[name] = {"ms": ms, "max_abs_err": err,
+                        "bound_ms": 1e3 * max(t_ops,
+                                              nbytes / PEAK_HBM_BYTES)}
+    result["sdpa_backward_ms"] = _library_times(q, k, v, g, causal)[1]
+    return result
+
+
 def phase_kernels():
     emit({"phase": "kernels", "names": list(fa.KERNEL_NAMES)})
     for shape, causal, dtype in RAGGED_CASES:
@@ -240,6 +302,7 @@ def phase_kernels():
 
     out, lse = fa.flash_fwd(q, k, v, causal, emit_lse=True)
     delta = fa._delta(g, out)
+    _check_deterministic(q, k, v, g, lse, delta, causal)
     kernel_fns = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal, False),
         "flash_fwd_lse": lambda: fa.flash_fwd(q, k, v, causal, True),
@@ -253,12 +316,13 @@ def phase_kernels():
         "flash_dkv": lambda: fa._dkv_plain(q, k, v, g, lse, delta, causal),
     }
     library, sdpa_bwd_ms = _library_times(q, k, v, g, causal)
+    exact = _exact_inputs(q, k, v, g, causal)
     report = {}
     for name in fa.KERNEL_NAMES:
         ms = cuda_ms(kernel_fns[name], 10)
         plain_ms = cuda_ms(plain_fns[name], 3)
-        bound_ms, bound_by, flops, nbytes = _bound(name, shape, causal,
-                                                   dtype)
+        bound_ms, bound_by, flops, nbytes, units = _bound(name, shape,
+                                                          causal, dtype)
         report[name] = {
             "name": name,
             "route": "cuda",
@@ -276,11 +340,17 @@ def phase_kernels():
               "causal": causal, "dtype": str(dtype),
               "tolerance": TOL[dtype], "max_abs_rel_err": errors[name],
               "tflops": flops / ms / 1e9, "flops": flops, "bytes": nbytes,
+              "bound_by_unit_ms": units,
+              "bf16_exact_inputs": exact.get(name),
               **{k: report[name][k] for k in (
                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
     emit({"phase": "kernels", "sdpa_backward_ms": sdpa_bwd_ms,
           "flash_dq_plus_dkv_ms": report["flash_dq"]["ms"]
-          + report["flash_dkv"]["ms"]})
+          + report["flash_dkv"]["ms"],
+          "bf16_exact_inputs": {
+              "sdpa_backward_ms": exact["sdpa_backward_ms"],
+              "flash_dq_plus_dkv_ms": exact["flash_dq"]["ms"]
+              + exact["flash_dkv"]["ms"]}})
     return report
 
 

@@ -39,7 +39,7 @@ KERNELS = {
     "flash_dq": ("edl_flash_dq", [_P] * 7 + [_I] * 5 + [_F, _P]),
     "flash_dkv": ("edl_flash_dkv", [_P] * 8 + [_I] * 5 + [_F, _P]),
 }
-_HEADERS = ("flash_common.cuh",)
+_HEADERS = ("flash_common.cuh", "flash_mma.cuh")
 
 _lock = threading.Lock()
 _libs = {}

@@ -1,18 +1,20 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_dq.cu,
-// flash_dkv.cu): tile sizes, the thread layout, loads and stores of f32 or
-// bf16 tiles, and half-warp row reductions.
+// flash_dkv.cu): tile sizes, the forward kernel's thread layout, loads and
+// stores of f32 or bf16 vectors, and half-warp row reductions. The backward
+// kernels' tensor-core pieces are in flash_mma.cuh.
 //
 // Layout: q, k, v, out and their gradients are contiguous [B*H, S, D] with
-// D in {64, 128}; lse and delta are compact [B*H, S] float32 (the TPU
+// D in {32, 64, 128}; lse and delta are compact [B*H, S] float32 (the TPU
 // kernel's 128-lane replication is a TPU tiling artifact and is not kept).
 //
-// Thread layout shared by all three kernels: 256 threads as a 16 x 16 grid,
+// Thread layout of the forward kernel: 256 threads as a 16 x 16 grid,
 // tx = threadIdx.x % 16, ty = threadIdx.x / 16. In a 64 x 64 score tile a
 // thread owns rows ty + 16*i and columns tx + 16*j (i, j < 4); in a 64 x D
 // output tile it owns rows ty + 16*i and the float4 columns 4*tx + 64*h
-// (h < D/64). The 16 threads that share a row are one half-warp, so row
-// reductions are four xor-shuffles. Arithmetic is plain f32 FMA on the CUDA
-// cores (no tensor cores), accumulating in f32 for both input types.
+// (h < D/64), or for D = 32 the float2 columns 2*tx (out_col). The 16
+// threads that share a row are one half-warp, so row reductions are four
+// xor-shuffles. Arithmetic is plain f32 FMA on the CUDA cores, accumulating
+// in f32 for both input types.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,6 +56,38 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
   memcpy(&raw.x, &lo, sizeof(lo));
   memcpy(&raw.y, &hi, sizeof(hi));
   *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// First output column of a thread's group h in a 64 x D tile (see above).
+template <int D>
+__device__ __forceinline__ int out_col(int tx, int h) {
+  return D == 32 ? 2 * tx : 4 * tx + 64 * h;
+}
+
+// The columns of one group from a float row (D = 32: .z and .w are 0).
+template <int D>
+__device__ __forceinline__ float4 load_cols(const float* p) {
+  if (D == 32) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    return make_float4(x.x, x.y, 0.f, 0.f);
+  }
+  return load4(p);
+}
+
+template <int D, typename T>
+__device__ __forceinline__ void store_cols(T* p, float4 x) {
+  if (D == 32)
+    store2(p, x.x, x.y);
+  else
+    store4(p, x);
 }
 
 __device__ __forceinline__ float comp(const float4& x, int c) {

@@ -26,8 +26,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int s, int causal, float scale) {
-  constexpr int kLd = D + 4;   // padded K/V row stride
-  constexpr int kNh = D / 64;  // float4 output columns per thread
+  constexpr int kLd = D + 4;                // padded K/V row stride
+  constexpr int kNh = D >= 64 ? D / 64 : 1;  // column groups per thread
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [kBlockQ][D], times scale
   float* sKV = sQ + kBlockQ * D;                // [kBlockK][kLd]: K, then V
@@ -116,7 +116,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int c = 0; c < 4; ++c) {
 #pragma unroll
         for (int h = 0; h < kNh; ++h) {
-          const float4 vv = load4(sKV + (kk + c) * kLd + 4 * tx + 64 * h);
+          const float4 vv =
+              load_cols<D>(sKV + (kk + c) * kLd + out_col<D>(tx, h));
 #pragma unroll
           for (int i = 0; i < 4; ++i) axpy4(comp(p4[i], c), vv, acc[i][h]);
         }
@@ -133,9 +134,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int h = 0; h < kNh; ++h) {
       const float4 a = acc[i][h];
-      store4(o + base + (size_t)row * D + 4 * tx + 64 * h,
-             make_float4(a.x / l_safe, a.y / l_safe, a.z / l_safe,
-                         a.w / l_safe));
+      store_cols<D>(o + base + (size_t)row * D + out_col<D>(tx, h),
+                    make_float4(a.x / l_safe, a.y / l_safe, a.z / l_safe,
+                                a.w / l_safe));
     }
     if (lse != nullptr && tx == 0)
       lse[(size_t)blockIdx.y * s + row] = m[i] + logf(l_safe);
@@ -170,11 +171,16 @@ extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
     return run_fwd<float, 128>(q, k, v, o, l, bh, s, causal, scale, st);
   if (dtype == 0 && d == 64)
     return run_fwd<float, 64>(q, k, v, o, l, bh, s, causal, scale, st);
+  if (dtype == 0 && d == 32)
+    return run_fwd<float, 32>(q, k, v, o, l, bh, s, causal, scale, st);
   if (dtype == 1 && d == 128)
     return run_fwd<__nv_bfloat16, 128>(q, k, v, o, l, bh, s, causal, scale,
                                        st);
   if (dtype == 1 && d == 64)
     return run_fwd<__nv_bfloat16, 64>(q, k, v, o, l, bh, s, causal, scale,
+                                      st);
+  if (dtype == 1 && d == 32)
+    return run_fwd<__nv_bfloat16, 32>(q, k, v, o, l, bh, s, causal, scale,
                                       st);
   return cudaErrorInvalidValue;
 }

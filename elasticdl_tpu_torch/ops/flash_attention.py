@@ -9,9 +9,14 @@ delta = rowsum(dO * O). Differences from the TPU kernels:
 
 - lse and delta are compact [B*H, S] float32; the TPU's 128-lane
   replication is a tiling artifact and is not kept.
-- A sequence length that is not a multiple of the 64-row tile is masked
-  inside the kernels; there is no fallback for it.
-- Tiles are 64 x 64 (fixed); the TPU's 1024-wide blocks were sized for VMEM.
+- A sequence length that is not a multiple of a tile is masked inside the
+  kernels; there is no fallback for it.
+- Tiles are fixed: 64 x 64 in the forward kernel (f32 FMA on the CUDA
+  cores); 128 resident rows against 32 (D = 128) or 64 streamed rows in
+  the backward kernels, whose products run on the tensor cores as 3xTF32
+  (f32 accuracy; ops/csrc/flash_mma.cuh). The TPU's 1024-wide blocks were
+  sized for VMEM.
+- Head sizes are 32, 64 and 128, each its own instantiation.
 
 Dispatch is by the tensors' device: CUDA tensors always go to the kernels,
 CPU tensors to the plain versions. On CUDA an unsupported dtype, head size
@@ -26,7 +31,7 @@ import torch
 from elasticdl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel name -> launches since the last reset; the names are those of
@@ -137,6 +142,8 @@ def _check_cuda(name, tensors, row_stats=()):
             )
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
     for t in row_stats:
         if (t.shape != q.shape[:3] or t.dtype != torch.float32
                 or t.device != q.device or not t.is_contiguous()):

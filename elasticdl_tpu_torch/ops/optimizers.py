@@ -10,14 +10,78 @@ builds the torch optimizer whose steps match the JAX package's
   nesterov.
 - adam: torch.optim.Adam equals optax.adam (bias-corrected moments, eps
   outside the square root).
-- adam with amsgrad and adagrad are not ported yet: optax's amsgrad takes
-  the max of the bias-corrected second moment where torch takes it before
-  correction, and optax's adagrad starts its accumulator at
-  initial_accumulator_value and scales by rsqrt(acc + eps) where torch
-  divides by sqrt(acc) + eps. Both raise NotImplementedError.
+- adam with amsgrad: AMSGrad below, as optax.amsgrad (scale_by_amsgrad):
+  the max is taken of the bias-corrected second moment, where
+  torch.optim.Adam(amsgrad=True) takes it before correction.
+- adagrad: Adagrad below, as optax.adagrad (scale_by_rss): the accumulator
+  starts at initial_accumulator_value and the update is
+  lr * g * rsqrt(acc + eps), where torch.optim.Adagrad starts at 0 and
+  divides by sqrt(acc) + eps.
 """
 
 import torch
+
+
+class Adagrad(torch.optim.Optimizer):
+    """optax.adagrad: acc += g^2; p -= lr * g * rsqrt(acc + eps), with
+    the rescale 0 where acc is 0."""
+
+    def __init__(self, params, lr, initial_accumulator_value, eps):
+        super().__init__(params, dict(
+            lr=lr, initial_accumulator_value=initial_accumulator_value,
+            eps=eps,
+        ))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(
+                        p, group["initial_accumulator_value"]
+                    )
+                acc = state["sum_of_squares"]
+                acc.add_(p.grad * p.grad)
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
+                                    torch.zeros_like(acc))
+                p.sub_(group["lr"] * (scale * p.grad))
+        return loss
+
+
+class AMSGrad(torch.optim.Optimizer):
+    """optax.amsgrad: Adam's bias-corrected moments m_hat, v_hat;
+    v_max = max(v_max, v_hat); p -= lr * m_hat / (sqrt(v_max) + eps)."""
+
+    def __init__(self, params, lr, betas, eps):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    for key in ("mu", "nu", "nu_max"):
+                        state[key] = torch.zeros_like(p)
+                state["step"] += 1
+                count = state["step"]
+                g = p.grad
+                mu, nu, nu_max = state["mu"], state["nu"], state["nu_max"]
+                mu.mul_(b1).add_((1 - b1) * g)
+                nu.mul_(b2).add_((1 - b2) * (g * g))
+                mu_hat = mu / (1 - b1**count)
+                torch.maximum(nu_max, nu / (1 - b2**count), out=nu_max)
+                p.sub_(group["lr"] * (mu_hat / (nu_max.sqrt() + group["eps"])))
+        return loss
 
 # name -> (constructor kwargs accepted, default values)
 _SUPPORTED = {
@@ -64,16 +128,22 @@ class OptimizerSpec:
                 momentum=h["momentum"],
                 nesterov=h["nesterov"],
             )
-        if self.name == "adam" and not h["amsgrad"]:
-            return torch.optim.Adam(
+        if self.name == "adam":
+            cls = AMSGrad if h["amsgrad"] else torch.optim.Adam
+            return cls(
                 params,
                 lr=h["learning_rate"],
                 betas=(h["beta_1"], h["beta_2"]),
                 eps=h["epsilon"],
             )
-        raise NotImplementedError(
-            f"{self!r} has no torch counterpart that matches optax yet"
-        )
+        if self.name == "adagrad":
+            return Adagrad(
+                params,
+                lr=h["learning_rate"],
+                initial_accumulator_value=h["initial_accumulator_value"],
+                eps=h["epsilon"],
+            )
+        raise AssertionError(self.name)
 
     def to_flags(self):
         """(name, hyperparams) for re-instantiation inside a PS process."""

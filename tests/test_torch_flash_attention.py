@@ -91,6 +91,63 @@ def test_each_plain_version_matches_its_pallas_kernel(inputs, interpret,
                                    atol=GRAD_ATOL)
 
 
+def _tf32(x):
+    """float32 rounded to TF32 (10-bit mantissa) to nearest, ties away from
+    zero, on the bit pattern, as cvt.rna.tf32.f32 does."""
+    bits = (x.view(torch.int32) + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def _mm_1xtf32(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _mm_3xtf32(a, b):
+    """The backward kernels' products: x = big + small with big = tf32(x);
+    a b = a_big b_small + a_small b_big + a_big b_big, summed in float32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = a - a_big, b - b_big
+    return (torch.matmul(a_big, b_small) + torch.matmul(a_small, b_big)
+            + torch.matmul(a_big, b_big))
+
+
+def _backward_with(mm, q, k, v, g, lse, delta, causal):
+    """_dq_plain's and _dkv_plain's formulas with every product taken by
+    `mm`."""
+    scale = q.shape[-1] ** -0.5
+    scores = mm(q, k.transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones(scores.shape[-2:], dtype=torch.bool).tril()
+        scores = scores.masked_fill(~mask, tfa.NEG_INF)
+    p = torch.exp(scores - lse[..., None])
+    ds = p * (mm(g, v.transpose(-1, -2)) - delta[..., None])
+    dq = mm(ds, k) * scale
+    dk = mm(ds.transpose(-1, -2), q) * scale
+    dv = mm(p.transpose(-1, -2), g)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_products_hold_float32_accuracy(causal):
+    """The arithmetic of the card's dQ and dK/dV kernels, emulated: 3xTF32
+    products stay within 1e-5 of the float32 plain versions, and plain
+    TF32 errs at least ten times more (why the kernels split)."""
+    rng = np.random.default_rng(1)
+    q, k, v, g = _t(*[rng.standard_normal((1, 2, 128, 64)).astype(np.float32)
+                      for _ in range(4)])
+    out, lse = tfa._fwd_plain(q, k, v, causal)
+    delta = tfa._delta(g, out)
+    want = (tfa._dq_plain(q, k, v, g, lse, delta, causal),
+            *tfa._dkv_plain(q, k, v, g, lse, delta, causal))
+    err3, err1 = (
+        max(float((a - b).abs().max()) for a, b in zip(
+            _backward_with(mm, q, k, v, g, lse, delta, causal), want))
+        for mm in (_mm_3xtf32, _mm_1xtf32)
+    )
+    assert err3 <= 1e-5
+    assert err1 >= 10 * err3
+
+
 def test_no_grad_forward_skips_lse(inputs):
     """Without autograd the wrapper takes the lse-free forward, as the JAX
     primal does; the CPU path counts no kernel launch."""

@@ -43,6 +43,8 @@ def _inputs(shape, dtype, n=4, requires_grad=False):
         ((1, 2, 333, 128), True, torch.bfloat16),
         ((1, 1, 1, 64), True, torch.float32),  # one row of one tile
         ((3, 2, 17, 128), False, torch.bfloat16),
+        ((2, 3, 200, 32), True, torch.float32),
+        ((1, 2, 333, 32), False, torch.bfloat16),
     ],
 )
 def test_kernels_match_plain(cuda, shape, causal, dtype):
@@ -80,8 +82,40 @@ def test_autograd_matches_plain_autograd(cuda, causal):
     torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-4, rtol=0)
 
 
+def test_backward_kernels_are_deterministic(cuda):
+    """Two passes, no atomics: the same inputs give bitwise equal dQ, dK
+    and dV."""
+    q, k, v, g = _inputs((2, 4, 700, 128), torch.float32)
+    out, lse = fa.flash_fwd(q, k, v, True, emit_lse=True)
+    delta = fa._delta(g, out)
+    runs = [(fa.flash_dq(q, k, v, g, lse, delta, True),
+             *fa.flash_dkv(q, k, v, g, lse, delta, True)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_default_lm_config_trains_on_the_card(cuda):
+    """The default LMConfig (head size 32) takes a step on the card
+    through all three kernels."""
+    from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
+    from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
+    from elasticdl_tpu_torch.worker.trainer import LocalTrainer
+
+    cfg = tlm.LMConfig()
+    assert cfg.d_model // cfg.n_heads == 32
+    tokens = synthetic_lm_tokens(2, 129, vocab=cfg.vocab, seed=0)
+    trainer = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer(),
+                           device=cuda)
+    fa.reset_launch_counts()
+    _, version, loss = trainer.train_minibatch(tokens[:, :-1], tokens[:, 1:])
+    assert version == 1 and torch.isfinite(loss).item()
+    assert fa.launches == {"flash_fwd_lse": cfg.n_layers,
+                           "flash_dq": cfg.n_layers,
+                           "flash_dkv": cfg.n_layers}
+
+
 def test_unsupported_inputs_raise(cuda):
-    q, k, v, _ = _inputs((1, 1, 64, 32), torch.float32)
+    q, k, v, _ = _inputs((1, 1, 64, 48), torch.float32)
     with pytest.raises(ValueError, match="D in"):
         fa.flash_fwd(q, k, v, True, emit_lse=False)
     q, k, v, _ = _inputs((1, 1, 64, 64), torch.float16)
@@ -93,3 +127,6 @@ def test_unsupported_inputs_raise(cuda):
     lse = torch.zeros(1, 1, 64, device="cuda", dtype=torch.float64)
     with pytest.raises(ValueError, match="lse and delta"):
         fa.flash_dq(q, k, v, g, lse, lse, True)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_fwd(shifted, k, v, True, emit_lse=False)

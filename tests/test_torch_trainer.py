@@ -139,6 +139,8 @@ def test_seeded_init_is_reproducible_and_trains():
         ("momentum", {}),
         ("momentum", {"nesterov": True}),
         ("adam", {"learning_rate": 3e-4}),
+        ("adagrad", {}),
+        ("adam", {"amsgrad": True, "learning_rate": 3e-2}),
     ],
 )
 def test_optimizer_steps_match_optax(name, kwargs):
@@ -161,13 +163,6 @@ def test_optimizer_steps_match_optax(name, kwargs):
         opt.step()
         np.testing.assert_allclose(param.detach().numpy(), np.asarray(w),
                                    atol=1e-6)
-
-
-@pytest.mark.parametrize("spec", [toptim.adagrad(),
-                                  toptim.adam(amsgrad=True)])
-def test_unported_optimizers_raise(spec):
-    with pytest.raises(NotImplementedError):
-        spec.to_torch([torch.nn.Parameter(torch.zeros(2))])
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -101,6 +101,42 @@ def test_float32_logits_loss_and_grads_match_jax():
         assert err <= F32_GRAD_RTOL * scale, (name, err, scale)
 
 
+def test_remat_matches_no_remat_and_jax():
+    """remat=True (each Block checkpointed) gives the loss and gradients
+    of remat=False, and of the JAX package's nn.remat(Block)."""
+    jm, params, named, tm = _pair("float32")
+    x, y = _tokens()
+    cfg = dict(TINY, activation_dtype="float32", remat=True)
+    jrm = jlm.custom_model(jlm.LMConfig(**cfg))
+    jrparams = {k.replace("Block_", "CheckpointBlock_"): v
+                for k, v in params.items()}
+    jloss, jgrads = _jax_loss_and_grads(jrm, jrparams, x, y)
+    jgrads = {k.replace("CheckpointBlock_", "Block_"): v
+              for k, v in jgrads.items()}
+
+    results = []
+    for remat in (False, True):
+        model = tlm.custom_model(
+            tlm.LMConfig(**dict(cfg, remat=remat))
+        ).to_empty(device="cpu")
+        model.load_state_dict(params_from_flax(named))
+        calls = []
+        model.Block_0.register_forward_pre_hook(lambda *_: calls.append(1))
+        loss = tlm.loss(torch.tensor(y), model(torch.tensor(x)))
+        loss.backward()
+        assert len(calls) == (2 if remat else 1)  # recomputed in backward
+        results.append((loss.item(), _torch_grads(model)))
+    (loss, grads), (rloss, rgrads) = results
+    assert abs(rloss - loss) < 1e-5
+    assert abs(rloss - jloss) < 1e-5
+    assert rgrads.keys() == grads.keys() == jgrads.keys()
+    for name, want in grads.items():
+        np.testing.assert_allclose(rgrads[name], want, atol=1e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(rgrads[name], jgrads[name], atol=1e-5,
+                                   err_msg=name)
+
+
 def test_bfloat16_loss_matches_jax():
     jm, params, _, tm = _pair("bfloat16")
     x, y = _tokens()
@@ -140,7 +176,7 @@ def test_flagship_names_and_shapes_match_jax():
 
 def test_config_guards():
     with pytest.raises(NotImplementedError):
-        tlm.LMConfig(remat=True)
+        tlm.LMConfig(remat=True, remat_policy="dots_saveable")
     with pytest.raises(ValueError):
         tlm.LMConfig(remat_policy="dots_saveable")
     tm = tlm.custom_model(tlm.LMConfig(**TINY)).to_empty(device="cpu")
