@@ -10,10 +10,13 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    attention shape (f32 [4, 8, 4096, 128], causal) and at ragged shapes
    (S not a multiple of any tile, head sizes 32, 64 and 128), with kernel,
    plain-version and library (scaled_dot_product_attention) times from
-   CUDA events; the dQ and dK/dV kernels run twice on the flagship inputs
-   and must give bitwise equal outputs, and are timed again on those
-   inputs rounded to bfloat16 (the LM's attention inputs are bfloat16
-   values in f32 tensors, on which the kernels skip zero small parts).
+   CUDA events; the forward (with lse), dQ and dK/dV kernels run twice on
+   the flagship inputs and must give bitwise equal outputs, and every
+   kernel is timed again on those inputs rounded to bfloat16 (the LM's
+   attention inputs are bfloat16 values in f32 tensors, on which the
+   kernels skip zero small parts). Beside each data-sheet bound stands the
+   bound at the mma.sync TF32 rate that this run measures (mma_peak), the
+   ceiling of the kernels' instruction.
 4. reference: a small LM (head size 128, ragged S=300, float32) on the card,
    through the kernels, against the same weights on the CPU through the
    plain versions: logits, loss and every gradient.
@@ -26,6 +29,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import copy
 import json
 import math
@@ -43,6 +47,7 @@ from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.ops import mma_peak
 from elasticdl_tpu_torch.worker.trainer import LocalTrainer
 
 # H100 SXM data-sheet peaks (dense). An f32 product takes either f32 FMA
@@ -80,10 +85,12 @@ SOURCES = {
 # dS^T Q beside P^T dO.
 PRODUCTS = {"flash_fwd": 2, "flash_fwd_lse": 2, "flash_dq": 3,
             "flash_dkv": 4}
-# TF32 tensor-core products the backward kernels need when Q, K, V and dO
-# are exact in TF32 (bfloat16 values in f32 tensors, as the LM hands them
-# over): one for each score product, two where P or dS is an operand.
-EXACT_TF32_PRODUCTS = {"flash_dq": 1 + 1 + 2, "flash_dkv": 1 + 1 + 2 + 2}
+# TF32 tensor-core products the kernels need when Q, K, V and dO are exact
+# in TF32 (bfloat16 values in f32 tensors, as the LM hands them over): one
+# for each score product, two where P or dS is an operand. On other f32
+# inputs every product takes three (3xTF32).
+EXACT_TF32_PRODUCTS = {"flash_fwd": 1 + 2, "flash_fwd_lse": 1 + 2,
+                       "flash_dq": 1 + 1 + 2, "flash_dkv": 1 + 1 + 2 + 2}
 
 TRAIN_STEPS = 5
 BATCH = 4
@@ -141,12 +148,21 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the kernels and the mma.sync rate probe (all nvcc processes
+    at once), then measures that rate: the TF32 ceiling of the kernels'
+    instruction with one block per SM, as the kernels run."""
     start = time.perf_counter()
-    built = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(mma_peak._library)
+        built = _build.build()
+        probe_fn = probe.result()
     for name in _build.KERNELS:
         _build.library(name)
-    emit({"phase": "build", "seconds": time.perf_counter() - start,
-          "built": built, "dir": _build.BUILD_DIR})
+    seconds = time.perf_counter() - start
+    peak = mma_peak.measure(probe_fn, mma_peak.ONE_BLOCK_PER_SM)
+    emit({"phase": "build", "seconds": seconds, "built": built,
+          "dir": _build.BUILD_DIR, "mma_sync": peak})
+    return peak["mma_tf32_tflops"] * 1e12
 
 
 def _attention_inputs(shape, dtype, seed):
@@ -184,6 +200,12 @@ def _check_errors(errors, tol, where):
             )
 
 
+def _pairs(shape, causal):
+    """(q, k) pairs the mask lets through."""
+    b, h, s, _ = shape
+    return b * h * (s * (s + 1) // 2 if causal else s * s)
+
+
 def _bound(name, shape, causal, dtype):
     """(bound_ms, bound_by, flops, bytes, {unit: ms}): the larger of the
     compulsory bytes over HBM bandwidth and the tile-product FLOPs over the
@@ -191,8 +213,7 @@ def _bound(name, shape, causal, dtype):
     reported beside it."""
     b, h, s, d = shape
     bh = b * h
-    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
-    flops = PRODUCTS[name] * 2 * d * pairs
+    flops = PRODUCTS[name] * 2 * d * _pairs(shape, causal)
     elem = torch.finfo(dtype).bits // 8
     mat = bh * s * d * elem
     row = bh * s * 4
@@ -242,51 +263,63 @@ def _library_times(q, k, v, g, causal):
 
 
 def _check_deterministic(q, k, v, g, lse, delta, causal):
-    """dQ and dK/dV twice on the same inputs: bitwise equal outputs."""
-    runs = [(fa.flash_dq(q, k, v, g, lse, delta, causal),
+    """The forward (with lse), dQ and dK/dV twice on the same inputs:
+    bitwise equal outputs."""
+    runs = [(*fa.flash_fwd(q, k, v, causal, emit_lse=True),
+             fa.flash_dq(q, k, v, g, lse, delta, causal),
              *fa.flash_dkv(q, k, v, g, lse, delta, causal))
             for _ in range(2)]
     torch.cuda.synchronize()
     equal = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
     emit({"phase": "kernels", "deterministic": dict(zip(
-        ("flash_dq", "flash_dkv.dk", "flash_dkv.dv"), equal))})
+        ("flash_fwd_lse.out", "flash_fwd_lse.lse", "flash_dq",
+         "flash_dkv.dk", "flash_dkv.dv"), equal))})
     if not all(equal):
-        raise AssertionError("the backward kernels are not deterministic")
+        raise AssertionError("the kernels are not deterministic")
 
 
-def _exact_inputs(q, k, v, g, causal):
-    """dQ and dK/dV on the flagship inputs rounded to bfloat16, in f32
+def _exact_inputs(q, k, v, g, causal, mma_flops):
+    """Every kernel on the flagship inputs rounded to bfloat16, in f32
     tensors as the LM's path gives them (the kernels then skip the MMAs of
-    zero small parts): error against the plain version, time, and the
-    bound of the work those inputs need."""
+    zero small parts): error against the plain version, time, the bound of
+    the work those inputs need (data sheet, and at the mma.sync rate
+    measured in this run), and the library calls on the same inputs."""
     q, k, v, g = (t.bfloat16().float() for t in (q, k, v, g))
     out, lse = fa.flash_fwd(q, k, v, causal, emit_lse=True)
     delta = fa._delta(g, out)
     args = (q, k, v, g, lse, delta, causal)
-    fns = {"flash_dq": (fa.flash_dq, fa._dq_plain),
-           "flash_dkv": (fa.flash_dkv, fa._dkv_plain)}
-    b, h, s, d = q.shape
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, False)[:1],
+                      lambda: (fa.reference_attention(q, k, v, causal),)),
+        "flash_fwd_lse": (lambda: fa.flash_fwd(q, k, v, causal, True),
+                          lambda: fa._fwd_plain(q, k, v, causal)),
+        "flash_dq": (lambda: (fa.flash_dq(*args),),
+                     lambda: (fa._dq_plain(*args),)),
+        "flash_dkv": (lambda: fa.flash_dkv(*args),
+                      lambda: fa._dkv_plain(*args)),
+    }
+    d = q.shape[-1]
+    pairs = _pairs(q.shape, causal)
     result = {}
     for name, (kernel, plain) in fns.items():
-        got, want = kernel(*args), plain(*args)
-        if name == "flash_dq":
-            got, want = (got,), (want,)
-        err = max(max_err(x, y)[0] for x, y in zip(got, want))
+        err = max(max_err(x, y)[0] for x, y in zip(kernel(), plain()))
         if not err <= TOL[torch.float32]:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on bfloat16-exact inputs: {err}")
-        ms = cuda_ms(lambda: kernel(*args), 10)
+        ms = cuda_ms(kernel, 10)
         nbytes = _bound(name, q.shape, causal, torch.float32)[3]
-        t_ops = EXACT_TF32_PRODUCTS[name] * 2 * d * pairs / PEAK_TF32_FLOPS
-        result[name] = {"ms": ms, "max_abs_err": err,
-                        "bound_ms": 1e3 * max(t_ops,
-                                              nbytes / PEAK_HBM_BYTES)}
-    result["sdpa_backward_ms"] = _library_times(q, k, v, g, causal)[1]
+        tf32_flops = EXACT_TF32_PRODUCTS[name] * 2 * d * pairs
+        t_bytes = nbytes / PEAK_HBM_BYTES
+        result[name] = {
+            "ms": ms, "max_abs_err": err,
+            "bound_ms": 1e3 * max(tf32_flops / PEAK_TF32_FLOPS, t_bytes),
+            "mma_sync_bound_ms": 1e3 * max(tf32_flops / mma_flops, t_bytes)}
+    library, result["sdpa_backward_ms"] = _library_times(q, k, v, g, causal)
+    result["library_ms"] = library
     return result
 
 
-def phase_kernels():
+def phase_kernels(mma_flops):
     emit({"phase": "kernels", "names": list(fa.KERNEL_NAMES)})
     for shape, causal, dtype in RAGGED_CASES:
         errors = _run_all(*_attention_inputs(shape, dtype, seed=1), causal)
@@ -316,13 +349,16 @@ def phase_kernels():
         "flash_dkv": lambda: fa._dkv_plain(q, k, v, g, lse, delta, causal),
     }
     library, sdpa_bwd_ms = _library_times(q, k, v, g, causal)
-    exact = _exact_inputs(q, k, v, g, causal)
+    exact = _exact_inputs(q, k, v, g, causal, mma_flops)
     report = {}
     for name in fa.KERNEL_NAMES:
         ms = cuda_ms(kernel_fns[name], 10)
         plain_ms = cuda_ms(plain_fns[name], 3)
         bound_ms, bound_by, flops, nbytes, units = _bound(name, shape,
                                                           causal, dtype)
+        # 3xTF32: three TF32 products per product at the mma.sync rate.
+        mma_bound_ms = 1e3 * max(3 * flops / mma_flops,
+                                 nbytes / PEAK_HBM_BYTES)
         report[name] = {
             "name": name,
             "route": "cuda",
@@ -335,6 +371,11 @@ def phase_kernels():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library[name],
+            "mma_sync_bound_ms": mma_bound_ms,
+            "bf16_exact_ms": exact[name]["ms"],
+            "bf16_exact_bound_ms": exact[name]["bound_ms"],
+            "bf16_exact_mma_sync_bound_ms": exact[name]["mma_sync_bound_ms"],
+            "bf16_exact_library_ms": exact["library_ms"][name],
         }
         emit({"phase": "kernels", "kernel": name, "shape": shape,
               "causal": causal, "dtype": str(dtype),
@@ -343,7 +384,8 @@ def phase_kernels():
               "bound_by_unit_ms": units,
               "bf16_exact_inputs": exact.get(name),
               **{k: report[name][k] for k in (
-                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "mma_sync_bound_ms")}})
     emit({"phase": "kernels", "sdpa_backward_ms": sdpa_bwd_ms,
           "flash_dq_plus_dkv_ms": report["flash_dq"]["ms"]
           + report["flash_dkv"]["ms"],
@@ -509,8 +551,8 @@ def _profile_step(trainer, rows):
 
 def main():
     phases = [("device", phase_device), ("build", phase_build),
-              ("kernels", phase_kernels), ("reference", phase_reference),
-              ("main_path", phase_main_path)]
+              ("kernels", lambda: phase_kernels(results["build"])),
+              ("reference", phase_reference), ("main_path", phase_main_path)]
     results = {}
     for name, fn in phases:
         try:

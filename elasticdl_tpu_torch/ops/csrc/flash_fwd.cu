@@ -1,145 +1,229 @@
 // Flash-attention forward on Hopper (sm_90a): O = softmax(scale * Q K^T) V
-// with online softmax, and optionally lse = m + log(l) per row for the
-// backward pass.
+// by online softmax, and for training lse = m + log(l) per row (natural
+// log), which the backward kernels read.
 //
 // Replaces the TPU kernel elasticdl_tpu/ops/flash_attention.py:_fwd_kernel
 // (launched by _flash_forward, pallas_call at :210). The TPU kernel walks a
 // sequential (bh, q_block, k_block) grid and carries (m, l, acc) in VMEM
 // scratch from one k step to the next; here one block owns one (bh, q tile)
-// and the k walk is a loop inside it, with (m, l, acc) in registers.
+// and the k walk is a loop inside it, with (m, l, acc) in registers. The
+// TPU kernel multiplies Q by the scale before Q K^T; here the scale is
+// applied to the scores in f32, so that Q stays as given (bfloat16 values
+// stay exact in TF32, see below). The two differ by rounding only.
 //
-// Bound: at the training shape (S=4096, D=128, causal) the kernel does
-// 4*S*S*D/2 FLOPs per head against 4*S*D*4 bytes of compulsory traffic, so
-// it is bound by arithmetic. This first version does that arithmetic as f32
-// FMA on the CUDA cores (no tensor cores), so its ceiling is the card's f32
-// rate, not its TF32 or bf16 tensor-core rate. Each 64 x 64 tile product
-// keeps a 4 x 4 register micro-tile per thread and reads operands as float4
-// from shared memory (padded K rows avoid bank conflicts). Causal tiles
-// above the diagonal are skipped, and q tiles are issued heaviest first so
-// the long causal rows do not trail at the end of the grid.
-#include "flash_common.cuh"
+// Bound: two S x S x D products per head (Q K^T and P V, half of each
+// under the causal mask) against 4 S D elements of compulsory traffic, so
+// arithmetic. Both products run on the tensor cores as 3xTF32
+// mma.sync.m16n8k8 (flash_mma.cuh): f32 accuracy at a ceiling of 495 / 3
+// TFLOP/s, against 67 TFLOP/s for f32 FMA on the CUDA cores. Where Q and a
+// K, V tile are exact in TF32 (the flagship LM's bfloat16 activations in
+// f32 tensors, and all bfloat16 inputs), their zero small parts are
+// skipped: 1 MMA per step of Q K^T in place of 3, and 2 per step of P V in
+// place of 3 (P is never exact), with bitwise the same result.
+//
+// Tiling (FwdTiles): a block holds 128 q rows of Q (64 for D <= 64) in
+// shared memory, one warp for each 16 of them; a warp keeps their O
+// accumulator (16 x D), row maxima m and row sums l in registers. K and V
+// stream in tiles of 64 rows (32 for D <= 64), double-buffered with cp.async so that tile n + 1 loads while tile n is
+// multiplied, with one barrier per tile. Per tile a warp computes
+// S = Q K^T (16 x tile) into registers and takes the online softmax in the
+// mma fragment layout: a thread holds rows g and g + 8, a row is spread
+// over the 4 lanes of a quad, and row maxima take two xor-shuffles (row
+// sums are kept per lane and summed over the quad once, at the end). m is
+// kept in log2 units, with log2(e) folded into the scale, so p and the
+// rescale factor alpha are single exp2s. Masked entries get p = 0 by the
+// visibility test, never through the exponent (kNegInf is finite). O is
+// rescaled by alpha and P feeds O += P V straight from registers as the A
+// operand: no score tile goes through shared memory. Causal tiles past a
+// warp's rows are skipped, tiles past the block's rows never loaded, and q
+// tiles are issued heaviest first across all heads (blockIdx.x walks the
+// heads, blockIdx.y the q tiles), so the grid ends on light tiles; with
+// the heads outermost it ended on each last head's heavy ones, 11-23%
+// slower on the H100 at [4, 8, 4096, D]. Shared memory (f32): 203 KB at
+// D = 128 (Q 128 x 132 floats; K, V 2 stages x 2 x 64 x 132), one block
+// per SM; 52 KB at D = 64, two blocks per SM. Registers (-Xptxas -v): f32
+// 255 / 162 / 125 at D = 128 / 64 / 32, bf16 253 / 145 / 93, no spills.
+#include "flash_mma.cuh"
 
 namespace edl_flash {
 
+constexpr float kLn2 = 0.6931471805599453f;
+
+// D = 128: 128 resident q rows (8 warps) against 64-row K, V tiles, one
+// block per SM. D <= 64: 64 q rows (4 warps) against 32-row tiles, two
+// blocks per SM, which finish 14% (D = 64) and 32% (D = 32) sooner on the
+// H100 than the D = 128 tiling (kernel_ab's fwd_one_tiling).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+struct FwdTiles {
+  static constexpr bool kWide = D == 128;
+  static constexpr int kRowsQ = kWide ? 128 : 64;  // resident, 16 per warp
+  static constexpr int kRowsK = kWide ? 64 : 32;   // streamed
+  static constexpr int kMinBlocks = kWide ? 1 : 2;  // per SM (launch bounds)
+  static constexpr int kGroup = 4;  // output tiles per P V partial
+  static constexpr int kNumThreads = 2 * kRowsQ;  // one warp per 16 rows
+  static constexpr int kLd = mma_ld<D, T>();
+  static constexpr size_t kSmem =
+      sizeof(T) * (size_t)(kRowsQ + 4 * kRowsK) * kLd;
+};
+
+// One warp's work on one K, V tile: S = Q K^T for its 16 q rows, the
+// online-softmax update of (m, l, O), then O += P V. m is in log2 units
+// and l holds this lane's share of the row sums. kSmall: whether Q, K and
+// V need their small parts (false when they are TF32-exact).
+template <bool kSmall, int kBk, int kGroup, int D, int kLd, typename T>
+__device__ __forceinline__ void fwd_tile(float (&o_acc)[D / 8][4],
+                                         float (&m_r)[2], float (&l_r)[2],
+                                         const T* wq, const T* tk,
+                                         const T* tv, int k0, int qrow0,
+                                         int s, int causal, float scale_log2,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  // sc[j]: S rows (q) of this warp, columns (k) [8j, 8j + 8).
+  float sc[kBk / 8][4] = {};
+  score_one<kBk, D, kLd, kSmall>(sc, wq, tk, lane);
+  // Whether every (q, k) of this warp's tile is visible.
+  const bool full = qrow0 + 16 <= s && k0 + kBk <= s &&
+                    (!causal || k0 + kBk - 1 <= qrow0);
+  // Scores in log2 units, and their row maxima over the visible entries;
+  // element e of a fragment lies in row g + 8 * (e >> 1).
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kBk / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[j][e] *= scale_log2;
+      const int row = qrow0 + g + 8 * (e >> 1);
+      const int col = k0 + 8 * j + 2 * t + (e & 1);
+      if (full || visible(row, col, s, causal))
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_r[h], mx[h]);
+    alpha[h] = exp2f(m_r[h] - m_new);  // 0 when m_r is still kNegInf
+    m_r[h] = m_new;
+    l_r[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int j = 0; j < kBk / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = qrow0 + g + 8 * (e >> 1);
+      const int col = k0 + 8 * j + 2 * t + (e & 1);
+      float p = 0.f;
+      if (full || visible(row, col, s, causal))
+        p = exp2f(sc[j][e] - m_r[e >> 1]);
+      sc[j][e] = p;
+      l_r[e >> 1] += p;
+    }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[j][e] *= alpha[e >> 1];
+  out_product<kBk, D, kLd, kSmall, kGroup>(o_acc, sc, tv, lane);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdTiles<T, D>::kNumThreads,
+                                  FwdTiles<T, D>::kMinBlocks)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int s, int causal, float scale) {
-  constexpr int kLd = D + 4;                // padded K/V row stride
-  constexpr int kNh = D >= 64 ? D / 64 : 1;  // column groups per thread
+                     float* __restrict__ lse, int s, int causal,
+                     float scale) {
+  using Tiles = FwdTiles<T, D>;
+  constexpr int kBq = Tiles::kRowsQ, kBk = Tiles::kRowsK, kLd = Tiles::kLd;
+  constexpr int kNt = Tiles::kNumThreads;
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);  // [kBlockQ][D], times scale
-  float* sKV = sQ + kBlockQ * D;                // [kBlockK][kLd]: K, then V
-  float* sP = sKV + kBlockK * kLd;              // [kBlockQ][kLdS]
+  T* sQ = reinterpret_cast<T*>(smem4);  // [kBq][kLd]
+  T* sK = sQ + kBq * kLd;               // [2][kBk][kLd]
+  T* sV = sK + 2 * kBk * kLd;           // [2][kBk][kLd]
 
-  const int num_q = (s + kBlockQ - 1) / kBlockQ;
-  const int q0 = (num_q - 1 - (int)blockIdx.x) * kBlockQ;  // heaviest first
-  const size_t base = (size_t)blockIdx.y * s * D;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int num_q = (s + kBq - 1) / kBq;
+  const int q_tile = blockIdx.y, bh = blockIdx.x;
+  const int q0 = (num_q - 1 - q_tile) * kBq;  // heaviest first
+  const size_t base = (size_t)bh * s * D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow0 = q0 + 16 * warp;  // this warp's first q row
+  const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x * log2(e))
 
-  load_tile<kBlockQ, D, D>(sQ, q + base, q0, s, scale);
+  auto load_kv_tile = [&](int kb, int stage) {
+    cp_async_tile<kBk, D, kLd, kNt>(sK + stage * kBk * kLd, k + base,
+                                    kb * kBk, s);
+    cp_async_tile<kBk, D, kLd, kNt>(sV + stage * kBk * kLd, v + base,
+                                    kb * kBk, s);
+  };
 
-  float m[4], l[4];
-  float4 acc[4][kNh];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int h = 0; h < kNh; ++h) acc[i][h] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  cp_async_tile<kBq, D, kLd, kNt>(sQ, q + base, q0, s);
+  load_kv_tile(0, 0);
+  cp_async_commit();
 
-  const int num_k = (s + kBlockK - 1) / kBlockK;
+  const int num_k = (s + kBk - 1) / kBk;
   const int last_k =
-      causal ? min((q0 + kBlockQ - 1) / kBlockK, num_k - 1) : num_k - 1;
+      causal ? min((q0 + kBq - 1) / kBk, num_k - 1) : num_k - 1;
+  float o_acc[D / 8][4] = {};
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  bool q_exact = true;
   for (int kb = 0; kb <= last_k; ++kb) {
-    const int k0 = kb * kBlockK;
-    __syncthreads();  // the previous tile's V and P are no longer read
-    load_tile<kBlockK, D, kLd>(sKV, k + base, k0, s, 1.f);
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = load4(sQ + (ty + 16 * i) * D + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = load4(sKV + (tx + 16 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = dot4(a[i], b[j], sc[i][j]);
+    const int stage = kb & 1;
+    const T* tk = sK + stage * kBk * kLd;
+    const T* tv = sV + stage * kBk * kLd;
+    cp_async_wait<0>();  // tile kb (and Q) have landed
+    // One barrier per tile: tile kb is visible to all, every warp is done
+    // with tile kb - 1 (whose stage the next load refills), and all agree
+    // whether the tile's operands are exact in TF32.
+    bool exact = true;
+    if constexpr (IsF32<T>::value) {
+      if (kb == 0)
+        q_exact = __syncthreads_and(tile_exact<kBq, D, kLd, kNt>(sQ)) != 0;
+      // Once Q is not exact (block-uniform), the tiles are not read.
+      exact = __syncthreads_and(q_exact && tile_exact<kBk, D, kLd, kNt>(tk) &&
+                                tile_exact<kBk, D, kLd, kNt>(tv)) != 0;
+    } else {
+      __syncthreads();
     }
+    if (kb + 1 <= last_k) load_kv_tile(kb + 1, stage ^ 1);
+    cp_async_commit();
 
-    // Online softmax over this tile. Invisible entries (above the causal
-    // diagonal, or past the ragged edge) get probability exactly 0.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (visible(row, k0 + tx + 16 * j, s, causal))
-          mx = fmaxf(mx, sc[i][j]);
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(row, k0 + tx + 16 * j, s, causal)
-                            ? expf(sc[i][j] - m_new)
-                            : 0.f;
-        rs += p;
-        sP[(ty + 16 * i) * kLdS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int h = 0; h < kNh; ++h) acc[i][h] = scale4(acc[i][h], alpha);
-    }
-    __syncthreads();  // K is no longer read; P is complete
-    load_tile<kBlockK, D, kLd>(sKV, v + base, k0, s, 1.f);
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBlockK; kk += 4) {
-      float4 p4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p4[i] = load4(sP + (ty + 16 * i) * kLdS + kk);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int h = 0; h < kNh; ++h) {
-          const float4 vv =
-              load_cols<D>(sKV + (kk + c) * kLd + out_col<D>(tx, h));
-#pragma unroll
-          for (int i = 0; i < 4; ++i) axpy4(comp(p4[i], c), vv, acc[i][h]);
-        }
-      }
+    const int k0 = kb * kBk;
+    if (qrow0 < s && (!causal || k0 <= qrow0 + 15)) {
+      const T* wq = sQ + 16 * warp * kLd;
+      if (exact)
+        fwd_tile<false, kBk, Tiles::kGroup, D, kLd>(
+            o_acc, m_r, l_r, wq, tk, tv, k0, qrow0, s, causal, scale_log2,
+            lane);
+      else if constexpr (IsF32<T>::value)
+        fwd_tile<true, kBk, Tiles::kGroup, D, kLd>(
+            o_acc, m_r, l_r, wq, tk, tv, k0, qrow0, s, causal, scale_log2,
+            lane);
     }
   }
 
+  // Row sums over the quad; rows that saw no visible column (past s) keep
+  // l == 0 and are guarded as in the TPU kernel.
+  float l_safe[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= s) continue;
-    // Rows that saw no visible column keep l == 0; guard as the TPU kernel.
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    l_safe[h] = l_r[h] == 0.f ? 1.f : l_r[h];
+  }
 #pragma unroll
-    for (int h = 0; h < kNh; ++h) {
-      const float4 a = acc[i][h];
-      store_cols<D>(o + base + (size_t)row * D + out_col<D>(tx, h),
-                    make_float4(a.x / l_safe, a.y / l_safe, a.z / l_safe,
-                                a.w / l_safe));
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[j][e] /= l_safe[e >> 1];
+  store_rows<D>(o + base, o_acc, qrow0, s, 1.f, g, t);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = qrow0 + g + 8 * h;
+      if (row < s)  // back to natural-log units
+        lse[(size_t)bh * s + row] =
+            kLn2 * (m_r[h] + log2f(l_safe[h]));
     }
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)blockIdx.y * s + row] = m[i] + logf(l_safe);
   }
 }
 
@@ -147,13 +231,27 @@ template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
                     float* lse, int bh, int s, int causal, float scale,
                     cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (kBlockQ * D + kBlockK * (D + 4) + kBlockQ * kLdS);
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-  return launch(flash_fwd_kernel<T, D>, grid, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(o), lse, s, causal,
-                scale);
+  using Tiles = FwdTiles<T, D>;
+  const dim3 grid(bh, (s + Tiles::kRowsQ - 1) / Tiles::kRowsQ);
+  return launch<Tiles::kNumThreads>(
+      flash_fwd_kernel<T, D>, grid, Tiles::kSmem, stream,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, s, causal, scale);
+}
+
+template <typename T>
+cudaError_t dispatch_fwd(int d, const void* q, const void* k, const void* v,
+                         void* o, float* lse, int bh, int s, int causal,
+                         float scale, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return run_fwd<T, 32>(q, k, v, o, lse, bh, s, causal, scale, stream);
+    case 64:
+      return run_fwd<T, 64>(q, k, v, o, lse, bh, s, causal, scale, stream);
+    case 128:
+      return run_fwd<T, 128>(q, k, v, o, lse, bh, s, causal, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace edl_flash
@@ -167,20 +265,10 @@ extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
   using namespace edl_flash;
   auto st = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
-  if (dtype == 0 && d == 128)
-    return run_fwd<float, 128>(q, k, v, o, l, bh, s, causal, scale, st);
-  if (dtype == 0 && d == 64)
-    return run_fwd<float, 64>(q, k, v, o, l, bh, s, causal, scale, st);
-  if (dtype == 0 && d == 32)
-    return run_fwd<float, 32>(q, k, v, o, l, bh, s, causal, scale, st);
-  if (dtype == 1 && d == 128)
-    return run_fwd<__nv_bfloat16, 128>(q, k, v, o, l, bh, s, causal, scale,
+  if (dtype == 0)
+    return dispatch_fwd<float>(d, q, k, v, o, l, bh, s, causal, scale, st);
+  if (dtype == 1)
+    return dispatch_fwd<__nv_bfloat16>(d, q, k, v, o, l, bh, s, causal, scale,
                                        st);
-  if (dtype == 1 && d == 64)
-    return run_fwd<__nv_bfloat16, 64>(q, k, v, o, l, bh, s, causal, scale,
-                                      st);
-  if (dtype == 1 && d == 32)
-    return run_fwd<__nv_bfloat16, 32>(q, k, v, o, l, bh, s, causal, scale,
-                                      st);
   return cudaErrorInvalidValue;
 }

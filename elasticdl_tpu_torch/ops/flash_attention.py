@@ -11,11 +11,14 @@ delta = rowsum(dO * O). Differences from the TPU kernels:
   replication is a tiling artifact and is not kept.
 - A sequence length that is not a multiple of a tile is masked inside the
   kernels; there is no fallback for it.
-- Tiles are fixed: 64 x 64 in the forward kernel (f32 FMA on the CUDA
-  cores); 128 resident rows against 32 (D = 128) or 64 streamed rows in
-  the backward kernels, whose products run on the tensor cores as 3xTF32
-  (f32 accuracy; ops/csrc/flash_mma.cuh). The TPU's 1024-wide blocks were
-  sized for VMEM.
+- Every product runs on the tensor cores as 3xTF32 mma.sync (f32
+  accuracy; ops/csrc/flash_mma.cuh), with the MMAs of zero small parts
+  skipped where the operands are exact in TF32 (bfloat16 values). Tiles
+  are fixed: 128 resident rows against 64 streamed rows in the forward,
+  32 (D = 128) or 64 in the backward kernels. The TPU's 1024-wide blocks
+  were sized for VMEM.
+- The forward applies the scale to the scores in f32; the TPU kernel
+  scales Q first. The two differ by rounding only.
 - Head sizes are 32, 64 and 128, each its own instantiation.
 
 Dispatch is by the tensors' device: CUDA tensors always go to the kernels,

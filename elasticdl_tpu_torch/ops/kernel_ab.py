@@ -1,21 +1,31 @@
-"""A/B of source variants of the backward kernels, in one process on one
-card (two calls may land on two cards, so versions are compared inside
-one):
+"""A/B of source variants of the flash-attention kernels, in one process
+on one card (two calls may land on two cards, so versions are compared
+inside one):
 
     python3 -m elasticdl_tpu_torch.ops.kernel_ab
 
-Builds flash_dq.cu and flash_dkv.cu from ops/csrc/ ("cur") and from copies
-with text substitutions (VARIANTS), each into its own library under
-build/kernel_ab/, and calls them through the same C entry points. For each
-case it prints one JSON line per variant: kernel ms (CUDA events, in the
-order cur, variant, variant, cur), max abs error against the plain
-versions, whether each output is bitwise equal to cur's, and the
-registers and spill bytes ptxas reports for each instantiation. The
-variant "no_exact" turns off the skipping of zero small parts, so on
-TF32-exact inputs it shows what that path saves and that it changes no
-bit; "cvt_rna" rounds to TF32 with the PTX instruction in place of the
-integer operations that give the same bits. Needs a CUDA device and
-nvcc, like the kernels.
+Builds flash_fwd.cu, flash_dq.cu and flash_dkv.cu from ops/csrc/ ("cur")
+and from copies with text substitutions (VARIANTS), each into its own
+library under build/kernel_ab/, and calls them through the same C entry
+points. A variant builds only the kernels whose source or headers it
+changes. For each case it prints one JSON line per variant: kernel ms
+(CUDA events, in the order cur, variant, variant, cur), max abs error
+against the plain versions, whether each output is bitwise equal to
+cur's, and the registers and spill bytes ptxas reports for each
+instantiation. The variant "no_exact" turns off the skipping of zero
+small parts, so on TF32-exact inputs it shows what that path saves and
+that it changes no bit; "cvt_rna" rounds to TF32 with the PTX
+instruction in place of the integer operations that give the same bits.
+The "fwd_" variants change the forward kernel: the D = 128 tiling (128
+q rows, 64-row K, V tiles, one block per SM) at every D
+("fwd_one_tiling"), or the D <= 64 one (64 q rows, 32-row tiles, two
+blocks per SM) at every D ("fwd_q64x2"); 32-row K, V tiles at D = 128
+("fwd_k32"); 64-row tiles at D <= 64 ("fwd_small_d_k64"); P V partials
+over 8 output tiles at D = 128 in place of 4 ("fwd_group8"); score_one's
+loop over D not unrolled ("fwd_score_unroll1"); and blocks ordered
+q-tile-fastest, so each head's q tiles go heaviest first but the heads
+one after another ("fwd_q_major"). Needs a CUDA device and nvcc, like
+the kernels.
 """
 
 import ctypes
@@ -31,7 +41,9 @@ from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
 
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_ab")
-NAMES = ("flash_dq", "flash_dkv")
+NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+_FWD = "flash_fwd.cu"
+_SCORE_LOOP = "  for (int k = 0; k < D; k += 16) {\n    FragA a[2];"
 # variant -> [(file in csrc, old text, new text)]
 VARIANTS = {
     "no_exact": [("flash_mma.cuh", "return (bits & 0x1fffu) == 0;",
@@ -41,18 +53,37 @@ VARIANTS = {
                  "  uint32_t r;\n"
                  "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(x));\n"
                  "  return r;")],
+    "fwd_one_tiling": [(_FWD, "kWide = D == 128;", "kWide = true;")],
+    "fwd_q64x2": [(_FWD, "kWide = D == 128;", "kWide = false;")],
+    "fwd_k32": [(_FWD, "kRowsK = kWide ? 64 : 32;", "kRowsK = 32;")],
+    "fwd_small_d_k64": [(_FWD, "kRowsK = kWide ? 64 : 32;",
+                         "kRowsK = 64;")],
+    "fwd_group8": [(_FWD, "kGroup = 4;", "kGroup = D == 128 ? 8 : 4;")],
+    "fwd_score_unroll1": [("flash_mma.cuh", "#pragma unroll 2\n" + _SCORE_LOOP,
+                           "#pragma unroll 1\n" + _SCORE_LOOP)],
+    "fwd_q_major": [
+        (_FWD, "q_tile = blockIdx.y, bh = blockIdx.x",
+         "q_tile = blockIdx.x, bh = blockIdx.y"),
+        (_FWD, "grid(bh, (s + Tiles::kRowsQ - 1) / Tiles::kRowsQ)",
+         "grid((s + Tiles::kRowsQ - 1) / Tiles::kRowsQ, bh)")],
 }
 # (shape, causal, inputs rounded to bfloat16 in f32 tensors)
 CASES = [
     ((4, 8, 4096, 128), True, False),
     ((4, 8, 4096, 128), True, True),
     ((4, 8, 4096, 64), True, True),
+    ((4, 8, 4096, 32), True, True),
 ]
 
 
-def _build_variants(variants):
-    """{(variant, kernel name): (C entry point, spill bytes)}, all built
-    in parallel."""
+def _changes(name, subs):
+    """Whether substitutions `subs` change kernel `name`'s build."""
+    return any(f == f"{name}.cu" or f.endswith(".cuh") for f, _, _ in subs)
+
+
+def _build_variants(variants, names=NAMES):
+    """{(variant, kernel name): (C entry point, ptxas report)}, all built
+    in parallel; a variant builds only the kernels it changes."""
     shutil.rmtree(OUT, ignore_errors=True)
     procs = []
     for variant, subs in {"cur": [], **variants}.items():
@@ -66,7 +97,9 @@ def _build_variants(variants):
                 raise ValueError(f"{variant}: {old!r} not in {fname}")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        for name in NAMES:
+        for name in names:
+            if variant != "cur" and not _changes(name, subs):
+                continue
             lib = os.path.join(src, f"{name}.so")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
                    os.path.join(src, f"{name}.cu")]
@@ -106,9 +139,13 @@ def ptxas_report(log):
 def _launcher(fn, name, q, k, v, g, lse, delta, causal):
     """(launch, outputs) for one library's kernel on these inputs."""
     b, h, s, d = q.shape
-    outs = [torch.empty_like(q) for _ in range(1 if name == "flash_dq"
-                                               else 2)]
-    args = [t.data_ptr() for t in (q, k, v, g, lse, delta, *outs)]
+    if name == "flash_fwd":
+        outs = [torch.empty_like(q), torch.empty_like(lse)]
+        args = [t.data_ptr() for t in (q, k, v, *outs)]
+    else:
+        outs = [torch.empty_like(q) for _ in range(1 if name == "flash_dq"
+                                                   else 2)]
+        args = [t.data_ptr() for t in (q, k, v, g, lse, delta, *outs)]
     code = fa._DTYPE_CODES[q.dtype]
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -133,11 +170,11 @@ def _ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def main(variants=VARIANTS, cases=CASES):
+def main(variants=VARIANTS, cases=CASES, names=NAMES):
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = _build_variants(variants)
+    fns = _build_variants(variants, names)
     order = ["cur", *variants]
     for shape, causal, bf16_exact in cases:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -145,10 +182,11 @@ def main(variants=VARIANTS, cases=CASES):
                       for _ in range(4))
         if bf16_exact:
             q, k, v, g = (t.bfloat16().float() for t in (q, k, v, g))
-        out, lse = fa.flash_fwd(q, k, v, causal, emit_lse=True)
+        out, lse = fa._fwd_plain(q, k, v, causal)
         delta = fa._delta(g, out)
         inputs = (q, k, v, g, lse, delta, causal)
-        want = {"flash_dq": [fa._dq_plain(*inputs)],
+        want = {"flash_fwd": [out, lse],
+                "flash_dq": [fa._dq_plain(*inputs)],
                 "flash_dkv": list(fa._dkv_plain(*inputs))}
         runs = {key: _launcher(fn, key[1], *inputs)
                 for key, (fn, _) in fns.items()}
@@ -157,13 +195,17 @@ def main(variants=VARIANTS, cases=CASES):
         torch.cuda.synchronize()
         times = {key: [] for key in runs}
         for variant in order + order[::-1]:
-            for name in NAMES:
-                times[(variant, name)].append(_ms(runs[(variant, name)][0]))
+            for name in names:
+                if (variant, name) in runs:
+                    times[(variant, name)].append(
+                        _ms(runs[(variant, name)][0]))
         for variant in order:
             row = {"shape": shape, "causal": causal,
                    "bf16_exact_inputs": bf16_exact, "variant": variant,
                    "device": torch.cuda.get_device_name(0)}
-            for name in NAMES:
+            for name in names:
+                if (variant, name) not in runs:
+                    continue
                 outs = runs[(variant, name)][1]
                 row[name] = {
                     "ms": sum(times[(variant, name)]) / 2,

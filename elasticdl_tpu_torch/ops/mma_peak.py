@@ -1,6 +1,6 @@
-"""Measures the card's rate for the instruction the backward kernels are
-built on, mma.sync.aligned.m16n8k8 with TF32 operands and f32 sums, with
-no memory traffic:
+"""Measures the card's rate for the instruction the flash-attention
+kernels are built on, mma.sync.aligned.m16n8k8 with TF32 operands and f32
+sums, with no memory traffic:
 
     python3 -m elasticdl_tpu_torch.ops.mma_peak
 
@@ -9,7 +9,8 @@ warps, once with one block per SM (shared memory caps it there, as in the
 kernels) and once with as many as fit. Prints one JSON line each:
 TFLOP/s (2 * 16 * 8 * 8 per MMA), the 3xTF32 rate that follows (a third
 of it), and the data-sheet 495 TFLOP/s dense TF32 peak, which only wgmma
-reaches. Needs a CUDA device and nvcc.
+reaches. chip_smoke.py calls `measure` for the one-block-per-SM rate, the
+ceiling of the kernels it reports. Needs a CUDA device and nvcc.
 """
 
 import ctypes
@@ -80,40 +81,49 @@ def _library():
     return fn
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise RuntimeError("needs a CUDA device")
-    fn = _library()
+def measure(fn, smem):
+    """One timed run of the MMA loop on every SM: one block per SM when
+    `smem` is large, as many as fit when it is 0. Returns the JSON row."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks, threads = 8 * sms, 32 * WARPS
     out = torch.empty(blocks * threads, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for smem in (200 * 1024, 0):  # one block per SM; as many as fit
 
-        def launch():
-            err = fn(out.data_ptr(), blocks, threads, ITERS, smem, stream)
-            if err:
-                raise RuntimeError(f"mma_loop launch failed ({err})")
+    def launch():
+        err = fn(out.data_ptr(), blocks, threads, ITERS, smem, stream)
+        if err:
+            raise RuntimeError(f"mma_loop launch failed ({err})")
 
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
         launch()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(5):
-            launch()
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / 5
-        mmas = blocks * WARPS * ITERS * CHAINS
-        tflops = mmas * 2 * 16 * 8 * 8 / ms / 1e9
-        print(json.dumps({
-            "device": torch.cuda.get_device_name(0), "sms": sms,
-            "blocks_per_sm": 1 if smem else "as many as fit",
-            "warps_per_block": WARPS, "chains_per_warp": CHAINS, "ms": ms,
-            "mma_tf32_tflops": tflops, "3xtf32_tflops": tflops / 3,
-            "datasheet_tf32_tflops": 495.0,
-        }), flush=True)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 5
+    mmas = blocks * WARPS * ITERS * CHAINS
+    tflops = mmas * 2 * 16 * 8 * 8 / ms / 1e9
+    return {
+        "device": torch.cuda.get_device_name(0), "sms": sms,
+        "blocks_per_sm": 1 if smem else "as many as fit",
+        "warps_per_block": WARPS, "chains_per_warp": CHAINS, "ms": ms,
+        "mma_tf32_tflops": tflops, "3xtf32_tflops": tflops / 3,
+        "datasheet_tf32_tflops": 495.0,
+    }
+
+
+ONE_BLOCK_PER_SM = 200 * 1024  # shared memory that caps it there
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    fn = _library()
+    for smem in (ONE_BLOCK_PER_SM, 0):
+        print(json.dumps(measure(fn, smem)), flush=True)
 
 
 if __name__ == "__main__":

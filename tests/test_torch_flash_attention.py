@@ -4,6 +4,8 @@ CPU, the port's wrappers take their plain versions for CPU tensors. The
 CUDA kernels themselves are held against the plain versions on the card
 (test_torch_kernels_gpu.py and chip_smoke.py)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -146,6 +148,85 @@ def test_3xtf32_products_hold_float32_accuracy(causal):
     )
     assert err3 <= 1e-5
     assert err1 >= 10 * err3
+
+
+def _mm_split(a, b, a_exact, b_exact):
+    """One product as the kernels' mma_3xtf32<!a_exact, !b_exact>: the
+    small-part terms first, each skipped where its operand is exact in TF32
+    (its small part is then zero), then big times big."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    terms = []
+    if not a_exact:
+        terms.append(torch.matmul(a - a_big, b_big))
+    if not b_exact:
+        terms.append(torch.matmul(a_big, b - b_big))
+    terms.append(torch.matmul(a_big, b_big))
+    return sum(terms[1:], terms[0])
+
+
+def _fwd_tile_k(d):
+    """Rows of flash_fwd.cu's streamed K, V tiles (FwdTiles::kRowsK)."""
+    return 64 if d == 128 else 32
+
+
+def _fwd_kernel_emulated(q, k, v, causal, exact):
+    """flash_fwd.cu's arithmetic in plain torch -> (out, lse): K, V tiles
+    of the kernel's rows; scores scaled in f32 with log2(e) folded into the
+    scale; an online max (log2 units) and sum; 3xTF32 products, P always
+    split, and with `exact` (Q, K, V exact in TF32) 1 + 2 MMAs in place of
+    3 + 3."""
+    s, d = q.shape[-2:]
+    scale_log2 = (torch.tensor(d**-0.5, dtype=torch.float32)
+                  * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    m = torch.full(q.shape[:-1], tfa.NEG_INF)
+    l = torch.zeros(q.shape[:-1])
+    o = torch.zeros(q.shape)
+    rows = torch.arange(s)[:, None]
+    tile = _fwd_tile_k(d)
+    for k0 in range(0, s, tile):
+        kt, vt = k[..., k0:k0 + tile, :], v[..., k0:k0 + tile, :]
+        cols = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+        vis = cols <= rows if causal else torch.ones_like(cols <= rows)
+        sc = _mm_split(q, kt.transpose(-1, -2), exact, exact) * scale_log2
+        m_new = torch.maximum(
+            m, torch.where(vis, sc, tfa.NEG_INF).amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(vis, torch.exp2(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + _mm_split(p, vt, False, exact)
+        m = m_new
+    l_safe = torch.where(l == 0, 1.0, l)
+    return o / l_safe[..., None], math.log(2.0) * (m + torch.log2(l_safe))
+
+
+@pytest.mark.parametrize("s,causal,bf16_exact", [
+    (128, False, False), (128, True, False), (128, True, True),
+    (100, True, False),  # ragged: the last K, V tile is partial
+])
+def test_forward_kernel_arithmetic_matches_plain_and_pallas(interpret, s,
+                                                            causal,
+                                                            bf16_exact):
+    """The arithmetic of the card's forward kernel, emulated, holds out and
+    lse within 1e-5 of the plain version and of the Pallas _fwd_kernel in
+    interpret mode; on bfloat16-exact inputs the exact path (1 + 2 MMAs)
+    gives bitwise the same as the full 3xTF32 path."""
+    rng = np.random.default_rng(2)
+    q, k, v = _t(*[rng.standard_normal((1, 2, s, 64)).astype(np.float32)
+                   for _ in range(3)])
+    if bf16_exact:
+        q, k, v = (t.bfloat16().float() for t in (q, k, v))
+    out, lse = _fwd_kernel_emulated(q, k, v, causal, exact=bf16_exact)
+    if bf16_exact:
+        full = _fwd_kernel_emulated(q, k, v, causal, exact=False)
+        assert torch.equal(out, full[0]) and torch.equal(lse, full[1])
+    plain_out, plain_lse = tfa._fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(out, plain_out, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, plain_lse, atol=1e-5, rtol=0)
+    block = min(s, BLOCK)
+    jout, jlse = jfa._flash_forward(q.numpy(), k.numpy(), v.numpy(), causal,
+                                    block, block, True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-5)
 
 
 def test_no_grad_forward_skips_lse(inputs):

@@ -83,15 +83,33 @@ def test_autograd_matches_plain_autograd(cuda, causal):
 
 
 def test_backward_kernels_are_deterministic(cuda):
-    """Two passes, no atomics: the same inputs give bitwise equal dQ, dK
-    and dV."""
+    """No atomics anywhere: the same inputs give bitwise equal out and lse
+    from the forward, and dQ, dK and dV from the two backward passes."""
     q, k, v, g = _inputs((2, 4, 700, 128), torch.float32)
     out, lse = fa.flash_fwd(q, k, v, True, emit_lse=True)
     delta = fa._delta(g, out)
-    runs = [(fa.flash_dq(q, k, v, g, lse, delta, True),
+    runs = [(*fa.flash_fwd(q, k, v, True, emit_lse=True),
+             fa.flash_dq(q, k, v, g, lse, delta, True),
              *fa.flash_dkv(q, k, v, g, lse, delta, True)) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_forward_on_bf16_exact_inputs(cuda, d):
+    """bfloat16 values in float32 tensors, as the LM hands them over: the
+    forward takes its TF32-exact path (1 + 2 MMAs per step) and stays
+    within the float32 tolerance, with and without lse."""
+    q, k, v = (t.bfloat16().float()
+               for t in _inputs((2, 3, 515, d), torch.float32, n=3))
+    out, lse = fa.flash_fwd(q, k, v, True, emit_lse=True)
+    out_nolse, none = fa.flash_fwd(q, k, v, True, emit_lse=False)
+    want_out, want_lse = fa._fwd_plain(q, k, v, True)
+    assert none is None and torch.equal(out, out_nolse)
+    torch.testing.assert_close(out, want_out, atol=ATOL[torch.float32],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=ATOL[torch.float32],
+                               rtol=0)
 
 
 def test_default_lm_config_trains_on_the_card(cuda):
