@@ -60,7 +60,8 @@ PEAK_HBM_BYTES = 3.35e12
 
 FLAGSHIP_ATTN = (4, 8, 4096, 128)
 # Kernel vs plain version. float32: the same arithmetic summed in another
-# order (f32 FMA in the kernels, cuBLAS in the plain version). bfloat16:
+# order (3xTF32 tensor-core products in the kernels, cuBLAS in the plain
+# version). bfloat16:
 # outputs are rounded to bf16 (8-bit mantissa) on both sides, and values
 # reach magnitude ~2, where one bf16 ulp is 2**-6.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

@@ -15,7 +15,7 @@
 namespace edl_flash {
 
 constexpr float kNegInf = -1e30f;  // finite "minus infinity", as the TPU kernel
-constexpr int kThreads = 256;  // threads per block (8 warps) by default
+constexpr int kThreads = 256;  // threads per block (8 warps)
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -31,15 +31,14 @@ __device__ __forceinline__ bool visible(int q, int k, int s, int causal) {
 }
 
 // Opts a kernel into more than 48 KB of dynamic shared memory, then
-// launches it with kNumThreads threads per block; returns the launch's
-// error code (0 on success).
-template <int kNumThreads = kThreads, typename Kernel, typename... Args>
+// launches it; returns the launch's error code (0 on success).
+template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
                    Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kNumThreads, smem, stream>>>(args...);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

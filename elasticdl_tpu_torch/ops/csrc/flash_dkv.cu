@@ -63,9 +63,13 @@ __device__ __forceinline__ void dkv_tile(float (&dk_acc)[D / 8][4],
                                          float scale, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x * log2(e))
-  // st[j]: S^T rows (k) of this warp, columns (q) [8j, 8j + 8).
-  float st[kBq / 8][4] = {}, dpt[kBq / 8][4] = {};
-  score_pair<kBq, D, kLd, kSmall>(st, dpt, wk, tq, wv, tdo, lane);
+  // S^T and dP^T, rows (k) of this warp; st[j]: columns (q) [8j, 8j + 8).
+  float sdpt[2][kBq / 8][4] = {};
+  const T* const rows[2] = {wk, wv};
+  const T* const cols[2] = {tq, tdo};
+  score_products<2, kBq, D, kLd, kSmall>(sdpt, rows, cols, lane);
+  float(&st)[kBq / 8][4] = sdpt[0];
+  float(&dpt)[kBq / 8][4] = sdpt[1];
   // Whether every (q, k) of this warp's tile is visible.
   const bool full = q0 + kBq <= s && krow0 + 16 <= s &&
                     (!causal || q0 >= krow0 + 15);

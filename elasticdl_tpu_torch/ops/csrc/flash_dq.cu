@@ -57,9 +57,13 @@ __device__ __forceinline__ void dq_tile(float (&dq_acc)[D / 8][4],
                                         float scale, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x * log2(e))
-  // sc[j]: S rows (q) of this warp, columns (k) [8j, 8j + 8).
-  float sc[kBk / 8][4] = {}, dp[kBk / 8][4] = {};
-  score_pair<kBk, D, kLd, kSmall>(sc, dp, wq, tk, wdo, tv, lane);
+  // S and dP, rows (q) of this warp; sc[j]: columns (k) [8j, 8j + 8).
+  float sdp[2][kBk / 8][4] = {};
+  const T* const rows[2] = {wq, wdo};
+  const T* const cols[2] = {tk, tv};
+  score_products<2, kBk, D, kLd, kSmall>(sdp, rows, cols, lane);
+  float(&sc)[kBk / 8][4] = sdp[0];
+  float(&dp)[kBk / 8][4] = sdp[1];
   // Whether every (q, k) of this warp's tile is visible.
   const bool full = qrow0 + 16 <= s && k0 + kBk <= s &&
                     (!causal || k0 + kBk - 1 <= qrow0);

@@ -21,46 +21,39 @@
 // skipped: 1 MMA per step of Q K^T in place of 3, and 2 per step of P V in
 // place of 3 (P is never exact), with bitwise the same result.
 //
-// Tiling (FwdTiles): a block holds 128 q rows of Q (64 for D <= 64) in
+// Tiling (FwdTiles, the same at every D): a block holds 128 q rows of Q in
 // shared memory, one warp for each 16 of them; a warp keeps their O
 // accumulator (16 x D), row maxima m and row sums l in registers. K and V
-// stream in tiles of 64 rows (32 for D <= 64), double-buffered with cp.async so that tile n + 1 loads while tile n is
-// multiplied, with one barrier per tile. Per tile a warp computes
-// S = Q K^T (16 x tile) into registers and takes the online softmax in the
-// mma fragment layout: a thread holds rows g and g + 8, a row is spread
-// over the 4 lanes of a quad, and row maxima take two xor-shuffles (row
-// sums are kept per lane and summed over the quad once, at the end). m is
-// kept in log2 units, with log2(e) folded into the scale, so p and the
-// rescale factor alpha are single exp2s. Masked entries get p = 0 by the
-// visibility test, never through the exponent (kNegInf is finite). O is
-// rescaled by alpha and P feeds O += P V straight from registers as the A
+// stream in tiles of 64 rows, double-buffered with cp.async so that tile
+// n + 1 loads while tile n is multiplied, with one barrier per tile. Per
+// tile a warp computes S = Q K^T (16 x tile) into registers and takes the
+// online softmax in the mma fragment layout: a thread holds rows g and
+// g + 8, a row is spread over the 4 lanes of a quad, and row maxima take two
+// xor-shuffles (row sums are kept per lane and summed over the quad once, at
+// the end). m is kept in log2 units, with log2(e) folded into the scale, so
+// p and the rescale factor alpha are single exp2s. Masked entries get p = 0
+// by the visibility test, never through the exponent (kNegInf is finite). O
+// is rescaled by alpha and P feeds O += P V straight from registers as the A
 // operand: no score tile goes through shared memory. Causal tiles past a
 // warp's rows are skipped, tiles past the block's rows never loaded, and q
 // tiles are issued heaviest first across all heads (blockIdx.x walks the
-// heads, blockIdx.y the q tiles), so the grid ends on light tiles; with
-// the heads outermost it ended on each last head's heavy ones, 11-23%
-// slower on the H100 at [4, 8, 4096, D]. Shared memory (f32): 203 KB at
-// D = 128 (Q 128 x 132 floats; K, V 2 stages x 2 x 64 x 132), one block
-// per SM; 52 KB at D = 64, two blocks per SM. Registers (-Xptxas -v): f32
-// 255 / 162 / 125 at D = 128 / 64 / 32, bf16 253 / 145 / 93, no spills.
+// heads, blockIdx.y the q tiles), so the grid ends on light tiles; with the
+// heads outermost it ended on each last head's heavy ones, 11% slower on the
+// H100 at [4, 8, 4096, 128]. Shared memory (f32): 203 KB at D = 128 (Q
+// 128 x 132 floats; K, V 2 stages x 2 x 64 x 132), one block per SM.
+// Registers (-Xptxas -v): f32 255 / 208 / 168 at D = 128 / 64 / 32, bf16
+// 253 / 193 / 124, no spills.
 #include "flash_mma.cuh"
 
 namespace edl_flash {
 
 constexpr float kLn2 = 0.6931471805599453f;
 
-// D = 128: 128 resident q rows (8 warps) against 64-row K, V tiles, one
-// block per SM. D <= 64: 64 q rows (4 warps) against 32-row tiles, two
-// blocks per SM, which finish 14% (D = 64) and 32% (D = 32) sooner on the
-// H100 than the D = 128 tiling (kernel_ab's fwd_one_tiling).
 template <typename T, int D>
 struct FwdTiles {
-  static constexpr bool kWide = D == 128;
-  static constexpr int kRowsQ = kWide ? 128 : 64;  // resident, 16 per warp
-  static constexpr int kRowsK = kWide ? 64 : 32;   // streamed
-  static constexpr int kMinBlocks = kWide ? 1 : 2;  // per SM (launch bounds)
-  static constexpr int kGroup = 4;  // output tiles per P V partial
-  static constexpr int kNumThreads = 2 * kRowsQ;  // one warp per 16 rows
+  static constexpr int kRowsQ = 128;  // resident, 8 warps x 16
+  static constexpr int kRowsK = 64;   // streamed
+  static constexpr int kGroup = 4;    // output tiles per P V partial
   static constexpr int kLd = mma_ld<D, T>();
   static constexpr size_t kSmem =
       sizeof(T) * (size_t)(kRowsQ + 4 * kRowsK) * kLd;
@@ -78,9 +71,12 @@ __device__ __forceinline__ void fwd_tile(float (&o_acc)[D / 8][4],
                                          int s, int causal, float scale_log2,
                                          int lane) {
   const int g = lane >> 2, t = lane & 3;
-  // sc[j]: S rows (q) of this warp, columns (k) [8j, 8j + 8).
-  float sc[kBk / 8][4] = {};
-  score_one<kBk, D, kLd, kSmall>(sc, wq, tk, lane);
+  // S, rows (q) of this warp; sc[j]: columns (k) [8j, 8j + 8).
+  float s1[1][kBk / 8][4] = {};
+  const T* const rows[1] = {wq};
+  const T* const cols[1] = {tk};
+  score_products<1, kBk, D, kLd, kSmall>(s1, rows, cols, lane);
+  float(&sc)[kBk / 8][4] = s1[0];
   // Whether every (q, k) of this warp's tile is visible.
   const bool full = qrow0 + 16 <= s && k0 + kBk <= s &&
                     (!causal || k0 + kBk - 1 <= qrow0);
@@ -127,15 +123,13 @@ __device__ __forceinline__ void fwd_tile(float (&o_acc)[D / 8][4],
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(FwdTiles<T, D>::kNumThreads,
-                                  FwdTiles<T, D>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int s, int causal,
                      float scale) {
   using Tiles = FwdTiles<T, D>;
   constexpr int kBq = Tiles::kRowsQ, kBk = Tiles::kRowsK, kLd = Tiles::kLd;
-  constexpr int kNt = Tiles::kNumThreads;
   extern __shared__ float4 smem4[];
   T* sQ = reinterpret_cast<T*>(smem4);  // [kBq][kLd]
   T* sK = sQ + kBq * kLd;               // [2][kBk][kLd]
@@ -151,13 +145,13 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::kNumThreads,
   const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x * log2(e))
 
   auto load_kv_tile = [&](int kb, int stage) {
-    cp_async_tile<kBk, D, kLd, kNt>(sK + stage * kBk * kLd, k + base,
-                                    kb * kBk, s);
-    cp_async_tile<kBk, D, kLd, kNt>(sV + stage * kBk * kLd, v + base,
-                                    kb * kBk, s);
+    cp_async_tile<kBk, D, kLd>(sK + stage * kBk * kLd, k + base, kb * kBk,
+                               s);
+    cp_async_tile<kBk, D, kLd>(sV + stage * kBk * kLd, v + base, kb * kBk,
+                               s);
   };
 
-  cp_async_tile<kBq, D, kLd, kNt>(sQ, q + base, q0, s);
+  cp_async_tile<kBq, D, kLd>(sQ, q + base, q0, s);
   load_kv_tile(0, 0);
   cp_async_commit();
 
@@ -178,10 +172,10 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::kNumThreads,
     bool exact = true;
     if constexpr (IsF32<T>::value) {
       if (kb == 0)
-        q_exact = __syncthreads_and(tile_exact<kBq, D, kLd, kNt>(sQ)) != 0;
+        q_exact = __syncthreads_and(tile_exact<kBq, D, kLd>(sQ)) != 0;
       // Once Q is not exact (block-uniform), the tiles are not read.
-      exact = __syncthreads_and(q_exact && tile_exact<kBk, D, kLd, kNt>(tk) &&
-                                tile_exact<kBk, D, kLd, kNt>(tv)) != 0;
+      exact = __syncthreads_and(q_exact && tile_exact<kBk, D, kLd>(tk) &&
+                                tile_exact<kBk, D, kLd>(tv)) != 0;
     } else {
       __syncthreads();
     }
@@ -233,10 +227,10 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
                     cudaStream_t stream) {
   using Tiles = FwdTiles<T, D>;
   const dim3 grid(bh, (s + Tiles::kRowsQ - 1) / Tiles::kRowsQ);
-  return launch<Tiles::kNumThreads>(
-      flash_fwd_kernel<T, D>, grid, Tiles::kSmem, stream,
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, s, causal, scale);
+  return launch(flash_fwd_kernel<T, D>, grid, Tiles::kSmem, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<T*>(o), lse, s, causal,
+                scale);
 }
 
 template <typename T>

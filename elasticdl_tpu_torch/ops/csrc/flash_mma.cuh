@@ -201,80 +201,50 @@ __device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
 // core does not round its f32 sums to nearest. On the H100, dQ at S = 1000
 // erred 1.8e-5 relative with chains of 375 MMAs, and 3.7e-6 with the
 // partials below. The products therefore run each short chain (16 of the
-// contraction index in score_pair and score_one, one streamed tile in
-// out_product) into a zeroed partial and add the partial to the
-// accumulator in f32 with round-to-nearest.
+// contraction index in score_products, one streamed tile in out_product)
+// into a zeroed partial and add the partial to the accumulator in f32 with
+// round-to-nearest.
 
 // Score-side products of one warp, sharing a pass over D:
-//   acc1 += R1 C1^T and acc2 += R2 C2^T,
-// R1 and R2 pointing at the warp's 16 rows, C1 and C2 at N rows; each
-// acc[j] is the m16n8 tile of columns [8j, 8j + 8).
-template <int N, int D, int LD, bool kSmall, typename T>
-__device__ __forceinline__ void score_pair(float (&acc1)[N / 8][4],
-                                           float (&acc2)[N / 8][4],
-                                           const T* r1, const T* c1,
-                                           const T* r2, const T* c2,
-                                           int lane) {
+//   acc[i] += R_i C_i^T for i < kP
+// (the forward takes one, the backward kernels two), R_i pointing at the
+// warp's 16 rows, C_i at N rows; each acc[i][j] is the m16n8 tile of
+// columns [8j, 8j + 8). The products' loads and MMAs are interleaved.
+template <int kP, int N, int D, int LD, bool kSmall, typename T>
+__device__ __forceinline__ void score_products(float (&acc)[kP][N / 8][4],
+                                               const T* const (&r)[kP],
+                                               const T* const (&c)[kP],
+                                               int lane) {
   static_assert(D % 16 == 0 && N % 16 == 0, "tiles of 16");
 #pragma unroll 1
   for (int k = 0; k < D; k += 16) {
-    FragA a1[2], a2[2];
+    FragA a[kP][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      load_a<kSmall, LD>(a1[h], r1, k + 8 * h, lane);
-      load_a<kSmall, LD>(a2[h], r2, k + 8 * h, lane);
-    }
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < N / 8; j += 2) {
-      float p1[2][4] = {}, p2[2][4] = {};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        FragB b1[2], b2[2];
-        load_b_rows2<kSmall, LD>(b1, c1, 8 * j, k + 8 * h, lane);
-        load_b_rows2<kSmall, LD>(b2, c2, 8 * j, k + 8 * h, lane);
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          mma_3xtf32<kSmall, kSmall>(p1[jj], a1[h], b1[jj]);
-          mma_3xtf32<kSmall, kSmall>(p2[jj], a2[h], b2[jj]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc1[j + jj][e] += p1[jj][e];
-          acc2[j + jj][e] += p2[jj][e];
-        }
-    }
-  }
-}
-
-// The forward's one score-side product: acc += R C^T, as score_pair, with
-// the loop over D unrolled twice (1-2% faster on the H100 on bf16 values).
-template <int N, int D, int LD, bool kSmall, typename T>
-__device__ __forceinline__ void score_one(float (&acc)[N / 8][4], const T* r,
-                                          const T* c, int lane) {
-  static_assert(D % 16 == 0 && N % 16 == 0, "tiles of 16");
-#pragma unroll 2
-  for (int k = 0; k < D; k += 16) {
-    FragA a[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) load_a<kSmall, LD>(a[h], r, k + 8 * h, lane);
+      for (int i = 0; i < kP; ++i)
+        load_a<kSmall, LD>(a[i][h], r[i], k + 8 * h, lane);
 #pragma unroll
     for (int j = 0; j < N / 8; j += 2) {
-      float p[2][4] = {};
+      float p[kP][2][4] = {};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        FragB b[2];
-        load_b_rows2<kSmall, LD>(b, c, 8 * j, k + 8 * h, lane);
+        FragB b[kP][2];
+#pragma unroll
+        for (int i = 0; i < kP; ++i)
+          load_b_rows2<kSmall, LD>(b[i], c[i], 8 * j, k + 8 * h, lane);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj)
-          mma_3xtf32<kSmall, kSmall>(p[jj], a[h], b[jj]);
+#pragma unroll
+          for (int i = 0; i < kP; ++i)
+            mma_3xtf32<kSmall, kSmall>(p[i][jj], a[i][h], b[i][jj]);
       }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j + jj][e] += p[jj][e];
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < kP; ++i) acc[i][j + jj][e] += p[i][jj][e];
     }
   }
 }
@@ -341,16 +311,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [row0, row0 + ROWS) of a row-major [s, D] matrix into a tile with
-// row stride LD, copied by the kNumThreads threads of the block; rows at
-// or past s are zero-filled. 16 bytes per copy, neighbouring threads on
-// neighbouring addresses.
-template <int ROWS, int D, int LD, int kNumThreads = kThreads, typename T>
+// row stride LD; rows at or past s are zero-filled. 16 bytes per copy,
+// neighbouring threads on neighbouring addresses.
+template <int ROWS, int D, int LD, typename T>
 __device__ __forceinline__ void cp_async_tile(T* dst, const T* src, int row0,
                                               int s) {
   constexpr int kChunk = 16 / (int)sizeof(T);
   constexpr int kPerRow = D / kChunk;
 #pragma unroll
-  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kNumThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow;
     const int c = (idx - r * kPerRow) * kChunk;
     const bool valid = row0 + r < s;
@@ -361,12 +330,12 @@ __device__ __forceinline__ void cp_async_tile(T* dst, const T* src, int row0,
 
 // Whether the 16-byte chunks of a tile that this thread copied with
 // cp_async_tile (visible to it after cp_async_wait) are exact in TF32.
-template <int ROWS, int D, int LD, int kNumThreads = kThreads>
+template <int ROWS, int D, int LD>
 __device__ __forceinline__ bool tile_exact(const float* tile) {
   constexpr int kPerRow = D / 4;
   uint32_t bits = 0;
 #pragma unroll
-  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kNumThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow;
     const uint4 x = *reinterpret_cast<const uint4*>(
         tile + r * LD + (idx - r * kPerRow) * 4);

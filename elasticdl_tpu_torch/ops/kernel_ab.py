@@ -16,16 +16,11 @@ instantiation. The variant "no_exact" turns off the skipping of zero
 small parts, so on TF32-exact inputs it shows what that path saves and
 that it changes no bit; "cvt_rna" rounds to TF32 with the PTX
 instruction in place of the integer operations that give the same bits.
-The "fwd_" variants change the forward kernel: the D = 128 tiling (128
-q rows, 64-row K, V tiles, one block per SM) at every D
-("fwd_one_tiling"), or the D <= 64 one (64 q rows, 32-row tiles, two
-blocks per SM) at every D ("fwd_q64x2"); 32-row K, V tiles at D = 128
-("fwd_k32"); 64-row tiles at D <= 64 ("fwd_small_d_k64"); P V partials
-over 8 output tiles at D = 128 in place of 4 ("fwd_group8"); score_one's
-loop over D not unrolled ("fwd_score_unroll1"); and blocks ordered
-q-tile-fastest, so each head's q tiles go heaviest first but the heads
-one after another ("fwd_q_major"). Needs a CUDA device and nvcc, like
-the kernels.
+The "fwd_" variants change the forward kernel: 32-row K, V tiles in
+place of 64 ("fwd_k32"); P V partials over 8 output tiles at D = 128 in
+place of 4 ("fwd_group8"); and blocks ordered q-tile-fastest, so each
+head's q tiles go heaviest first but the heads one after another
+("fwd_q_major"). Needs a CUDA device and nvcc, like the kernels.
 """
 
 import ctypes
@@ -43,7 +38,6 @@ from elasticdl_tpu_torch.ops import flash_attention as fa
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_ab")
 NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
 _FWD = "flash_fwd.cu"
-_SCORE_LOOP = "  for (int k = 0; k < D; k += 16) {\n    FragA a[2];"
 # variant -> [(file in csrc, old text, new text)]
 VARIANTS = {
     "no_exact": [("flash_mma.cuh", "return (bits & 0x1fffu) == 0;",
@@ -53,14 +47,8 @@ VARIANTS = {
                  "  uint32_t r;\n"
                  "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(x));\n"
                  "  return r;")],
-    "fwd_one_tiling": [(_FWD, "kWide = D == 128;", "kWide = true;")],
-    "fwd_q64x2": [(_FWD, "kWide = D == 128;", "kWide = false;")],
-    "fwd_k32": [(_FWD, "kRowsK = kWide ? 64 : 32;", "kRowsK = 32;")],
-    "fwd_small_d_k64": [(_FWD, "kRowsK = kWide ? 64 : 32;",
-                         "kRowsK = 64;")],
+    "fwd_k32": [(_FWD, "kRowsK = 64;", "kRowsK = 32;")],
     "fwd_group8": [(_FWD, "kGroup = 4;", "kGroup = D == 128 ? 8 : 4;")],
-    "fwd_score_unroll1": [("flash_mma.cuh", "#pragma unroll 2\n" + _SCORE_LOOP,
-                           "#pragma unroll 1\n" + _SCORE_LOOP)],
     "fwd_q_major": [
         (_FWD, "q_tile = blockIdx.y, bh = blockIdx.x",
          "q_tile = blockIdx.x, bh = blockIdx.y"),
@@ -72,7 +60,6 @@ CASES = [
     ((4, 8, 4096, 128), True, False),
     ((4, 8, 4096, 128), True, True),
     ((4, 8, 4096, 64), True, True),
-    ((4, 8, 4096, 32), True, True),
 ]
 
 
