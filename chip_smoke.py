@@ -20,21 +20,36 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
 4. reference: a small LM (head size 128, ragged S=300, float32) on the card,
    through the kernels, against the same weights on the CPU through the
    plain versions: logits, loss and every gradient.
-5. train + eval, the main path: LocalTrainer on the 222M flagship LM
+5. train + eval, the direct path: LocalTrainer on the 222M flagship LM
    (S=4096, batch 4) takes 5 Adam steps on synthetic Markov tokens, then
    one evaluate_minibatch. Launch counts are reset just before and read
    just after; every kernel must have run there.
 6. profile: one more train step under torch.profiler: device time by
    kernel group and the device's busy share of the step.
+7. job, the main path through the control plane: the same flagship LM
+   trained as an elastic job in this process. Record files (64 training,
+   8 validation sequences) and a model-def file go to a temporary
+   directory; Master(args) shards them into tasks of 16 records, and the
+   Worker that build_worker(args, MasterClient(in-process stub)) assembles
+   pulls tasks, reads and decodes records, trains minibatches of 4 and
+   evaluates every 8 model versions, every request and response crossing
+   the wire format. Launch counts are reset just before worker.run() and
+   read just after, and must be exact; records_done, steps, logged losses
+   and evaluation results are checked. Then a checkpoint round trip:
+   save_trainer_checkpoint, restore into a fresh trainer through
+   restore_on_init, eval logits bitwise equal.
 Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
 import copy
 import json
+import logging
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -42,12 +57,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from elasticdl_tpu_torch.common import args as edl_args
 from elasticdl_tpu_torch.common.params import params_to_flax
+from elasticdl_tpu_torch.common.save_utils import save_trainer_checkpoint
+from elasticdl_tpu_torch.data.example import encode_example
 from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
+from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
+from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.ops import mma_peak
+from elasticdl_tpu_torch.worker.main import build_worker
+from elasticdl_tpu_torch.worker.master_client import MasterClient
 from elasticdl_tpu_torch.worker.trainer import LocalTrainer
 
 # H100 SXM data-sheet peaks (dense). An f32 product takes either f32 FMA
@@ -96,6 +118,24 @@ EXACT_TF32_PRODUCTS = {"flash_fwd": 1 + 2, "flash_fwd_lse": 1 + 2,
 TRAIN_STEPS = 5
 BATCH = 4
 SEQ = 4096
+# The job phase: 64 training records in tasks of 16 (4 tasks, 16 steps of
+# 4), 8 validation records evaluated every 8 model versions (at versions 8
+# and 16, 2 minibatches each), the loss logged every 4 steps.
+JOB_TRAIN_RECORDS = 64
+JOB_VALID_RECORDS = 8
+JOB_RECORDS_PER_TASK = 16
+JOB_EVAL_STEPS = 8
+JOB_LOG_STEPS = 4
+MODEL_DEF = """\
+from elasticdl_tpu_torch.models.transformer import transformer_lm as _lm
+from elasticdl_tpu_torch.models.transformer.transformer_lm import (  # noqa
+    eval_metrics_fn, feed, loss, optimizer,
+)
+
+
+def custom_model():
+    return _lm.custom_model(_lm.flagship_config({seq}))
+"""
 
 
 def emit(obj):
@@ -505,7 +545,8 @@ def phase_main_path():
             f"main-path launches {launches}, expected {expected}"
         )
     _profile_step(trainer, tokens[:BATCH])
-    return launches
+    return {"launches": launches, "step_ms": step_ms,
+            "tokens_per_s": BATCH * SEQ / (step_ms / 1e3)}
 
 
 def _kernel_group(name):
@@ -550,10 +591,209 @@ def _profile_step(trainer, rows):
           "largest_other_ms_count_name": sorted(other, reverse=True)[:6]})
 
 
+class _LossLog(logging.Handler):
+    """Collects the worker's loss log lines ("Step %d (version %d) loss
+    %.6f") with the host time each was written: the loss is materialized
+    there, so each line is also the moment the card finished that step."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        if record.msg.startswith("Step ") and len(record.args) == 3:
+            step, _, loss = record.args
+            self.lines.append((step, float(loss), time.perf_counter()))
+
+
+def _timed(obj, name, acc, key=None):
+    """Wraps obj.name to add its calls and host seconds to acc[key]
+    (key defaults to name)."""
+    inner = getattr(obj, name)
+    key = key or name
+
+    def call(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - start
+            acc[key + "_calls"] = acc.get(key + "_calls", 0) + 1
+
+    setattr(obj, name, call)
+
+
+def _write_job_inputs(root, cfg):
+    tokens = synthetic_lm_tokens(JOB_TRAIN_RECORDS + JOB_VALID_RECORDS, SEQ,
+                                 vocab=cfg.vocab, branching=4, seed=0)
+    paths = {}
+    for name, rows in (("train", tokens[:JOB_TRAIN_RECORDS]),
+                       ("valid", tokens[JOB_TRAIN_RECORDS:])):
+        paths[name] = os.path.join(root, f"{name}.edlr")
+        with RecordFileWriter(paths[name]) as writer:
+            for row in rows:
+                writer.write(encode_example({"tokens": row}))
+    paths["model_def"] = os.path.join(root, "flagship_lm.py")
+    with open(paths["model_def"], "w") as f:
+        f.write(MODEL_DEF.format(seq=SEQ))
+    return paths, tokens[JOB_TRAIN_RECORDS:JOB_TRAIN_RECORDS + BATCH]
+
+
+def phase_job(direct):
+    """The flagship LM trained as an elastic job through the control plane
+    in this process, then a checkpoint round trip."""
+    cfg = tlm.flagship_config(SEQ)
+    with tempfile.TemporaryDirectory() as root:
+        start = time.perf_counter()
+        paths, eval_rows = _write_job_inputs(root, cfg)
+        common = [
+            "--model_def", paths["model_def"],
+            "--distribution_strategy", "Local",
+            "--training_data", paths["train"],
+            "--validation_data", paths["valid"],
+            "--records_per_task", str(JOB_RECORDS_PER_TASK),
+            "--num_epochs", "1", "--minibatch_size", str(BATCH),
+            "--evaluation_steps", str(JOB_EVAL_STEPS), "--seed", "0",
+        ]
+        master_args = edl_args.master_parser().parse_args(
+            common + ["--instance_backend", "none"])
+        edl_args.validate_args(master_args)
+        master = Master(master_args)
+        # Where the host's time goes: the evaluation report as the worker
+        # sends it (encode, the stub's round trip, the master's handler),
+        # the handler alone (decode and metric), the metric alone; the
+        # task pulls and reports.
+        host = {}
+        _timed(master.servicer, "report_evaluation_metrics", host,
+               "servicer_report_evaluation_metrics")
+        _timed(master.evaluation_service, "report_evaluation_metrics", host,
+               "metric_update")
+        client = MasterClient(master.stub(), 0)
+        for name in ("report_evaluation_metrics", "get_task",
+                     "report_task_result", "report_version"):
+            _timed(client, name, host, "client_" + name)
+        worker_args = edl_args.worker_parser().parse_args(common + [
+            "--worker_id", "0", "--master_addr", "in-process",
+            "--job_type", "training_with_evaluation",
+            "--log_loss_steps", str(JOB_LOG_STEPS),
+        ])
+        edl_args.validate_args(worker_args)
+        worker = build_worker(worker_args, client)
+        setup_s = time.perf_counter() - start
+        inside = {}
+        _timed(worker.trainer, "train_minibatch", inside)
+        _timed(worker.trainer, "evaluate_minibatch", inside)
+        loss_log = _LossLog()
+        worker_logger = logging.getLogger(
+            "elasticdl_tpu_torch.worker.worker")
+        worker_logger.addHandler(loss_log)
+
+        fa.reset_launch_counts()
+        start = time.perf_counter()
+        try:
+            worker.run()
+        finally:
+            worker_logger.removeHandler(loss_log)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        launches = dict(fa.launches)
+
+        stats = master.task_d.stats()
+        evals = master.evaluation_service.completed_results
+        lines = loss_log.lines
+        losses = [loss for _, loss, _ in lines]
+        # Steady step time: between two log lines with no evaluation in
+        # between (evaluation runs after the step whose version is a
+        # multiple of JOB_EVAL_STEPS), tasks' boundaries included.
+        windows = [(b[2] - a[2]) / (b[0] - a[0])
+                   for a, b in zip(lines, lines[1:])
+                   if not any(v % JOB_EVAL_STEPS == 0
+                              for v in range(a[0], b[0]))]
+        step_ms = 1e3 * sum(windows) / len(windows) if windows else None
+        model_s = inside.get("train_minibatch", 0.0) + inside.get(
+            "evaluate_minibatch", 0.0)
+        eval_batches = inside.get("evaluate_minibatch_calls", 0)
+        result = {
+            "phase": "job", "setup_s": setup_s, "wall_s": wall_s,
+            "records_done": stats["records_done"], "steps": worker.steps,
+            "tasks_recovered": stats["tasks_recovered"],
+            "logged_losses": losses,
+            "eval_results": evals, "eval_minibatches": eval_batches,
+            "step_ms": step_ms,
+            "tokens_per_s": BATCH * SEQ / (step_ms / 1e3)
+            if step_ms else None,
+            "train_phase_step_ms": direct["step_ms"],
+            "train_phase_tokens_per_s": direct["tokens_per_s"],
+            "train_minibatch_s": inside.get("train_minibatch"),
+            "evaluate_minibatch_s": inside.get("evaluate_minibatch"),
+            "host_share": 1.0 - model_s / wall_s,
+            "host_s_by_call": host,
+            "launches": launches,
+        }
+        emit(result)
+        n_train = JOB_TRAIN_RECORDS // BATCH
+        expected = {"flash_fwd_lse": cfg.n_layers * n_train,
+                    "flash_dq": cfg.n_layers * n_train,
+                    "flash_dkv": cfg.n_layers * n_train,
+                    "flash_fwd": cfg.n_layers * eval_batches}
+        checks = [
+            (master.task_d.finished() and not master.task_d.job_failed,
+             "the job did not finish cleanly"),
+            (stats["records_done"] == JOB_TRAIN_RECORDS,
+             f"records_done {stats['records_done']}"),
+            (worker.steps == n_train, f"{worker.steps} steps"),
+            (eval_batches == 2 * JOB_VALID_RECORDS // BATCH,
+             f"{eval_batches} eval minibatches"),
+            (launches == expected,
+             f"job launches {launches}, expected {expected}"),
+            (len(losses) == n_train // JOB_LOG_STEPS
+             and all(math.isfinite(x) for x in losses)
+             and losses[-1] < losses[0], f"logged losses {losses}"),
+            ([v for v, _ in evals] == [JOB_EVAL_STEPS, 2 * JOB_EVAL_STEPS]
+             and all(math.isfinite(m["token_ce"]) for _, m in evals),
+             f"evaluation results {evals}"),
+        ]
+        for ok, what in checks:
+            if not ok:
+                raise AssertionError(f"job phase: {what}")
+
+        emit({"phase": "job", **_checkpoint_round_trip(
+            worker.trainer, root, eval_rows)})
+    return launches
+
+
+def _checkpoint_round_trip(trainer, root, rows):
+    """save_trainer_checkpoint, then restore_on_init into a fresh trainer:
+    eval logits on one batch bitwise equal."""
+    path = os.path.join(root, "ckpt.npz")
+    start = time.perf_counter()
+    save_trainer_checkpoint(trainer, path)
+    save_s = time.perf_counter() - start
+    fresh = LocalTrainer(tlm.custom_model(tlm.flagship_config(SEQ)),
+                         tlm.loss, tlm.optimizer(), seed=1)
+    fresh.restore_on_init = path
+    start = time.perf_counter()
+    fresh.init_variables_if_needed(None)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - start
+    want = trainer.evaluate_minibatch(rows[:, :-1])
+    got = fresh.evaluate_minibatch(rows[:, :-1])
+    result = {"checkpoint_bytes": os.path.getsize(path), "save_s": save_s,
+              "restore_s": restore_s,
+              "restored_version": fresh.get_model_version(),
+              "version": trainer.get_model_version(),
+              "logits_bitwise_equal": bool(np.array_equal(got, want))}
+    if not (result["logits_bitwise_equal"]
+            and result["restored_version"] == result["version"]):
+        raise AssertionError(f"checkpoint round trip: {result}")
+    return result
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
-              ("reference", phase_reference), ("main_path", phase_main_path)]
+              ("reference", phase_reference), ("main_path", phase_main_path),
+              ("job", lambda: phase_job(results["main_path"]))]
     results = {}
     for name, fn in phases:
         try:
@@ -563,8 +803,12 @@ def main():
             emit({"phase": name, "ok": False, "error": repr(e)})
             return 1
     report = results["kernels"]
-    for name, count in results["main_path"].items():
-        report[name]["launches"] = count
+    for name in fa.KERNEL_NAMES:
+        # `launches`: the job, the main path a user runs; beside it the
+        # direct LocalTrainer run of the train and eval phases.
+        report[name]["launches"] = results["job"].get(name, 0)
+        report[name]["train_phase_launches"] = (
+            results["main_path"]["launches"].get(name, 0))
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

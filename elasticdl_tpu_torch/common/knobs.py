@@ -1,0 +1,154 @@
+"""Registry of the ELASTICDL_* environment knobs the port reads
+(counterpart of elasticdl_tpu/common/knobs.py).
+
+Every environment variable a port module reads is declared here once, with
+its type, default and documentation, under the JAX package's name and
+default, so one environment means the same to both packages. Call sites
+read values through the typed accessors (`get_str` / `get_int` /
+`get_float`). Reads are live: os.environ is consulted on every call.
+
+Stdlib-only, imports nothing from the package.
+"""
+
+import logging
+import os
+
+_logger = logging.getLogger("elasticdl_tpu_torch.common.knobs")
+
+_TYPES = ("str", "int", "float")
+
+
+class Knob:
+    """One declared environment knob: name, type, default, doc."""
+
+    __slots__ = ("name", "type", "default", "doc")
+
+    def __init__(self, name, type, default, doc):
+        self.name = name
+        self.type = type
+        self.default = default
+        self.doc = doc
+
+
+_REGISTRY = {}
+
+
+def declare(name, type, default, doc):
+    """Register a knob. Re-declaring with a conflicting type or default
+    is an error (two modules silently disagreeing on a default is exactly
+    the bug the registry exists to prevent)."""
+    if type not in _TYPES:
+        raise ValueError(f"knob {name}: unknown type {type!r}")
+    if not name.startswith("ELASTICDL_"):
+        raise ValueError(f"knob {name}: names must start with ELASTICDL_")
+    prior = _REGISTRY.get(name)
+    if prior is not None:
+        if (prior.type, prior.default) != (type, default):
+            raise ValueError(
+                f"knob {name} re-declared as ({type}, {default!r}); "
+                f"conflicts with ({prior.type}, {prior.default!r})"
+            )
+        return prior
+    knob = Knob(name, type, default, doc)
+    _REGISTRY[name] = knob
+    return knob
+
+
+def _knob(name):
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"environment knob {name!r} is not declared in "
+            f"elasticdl_tpu_torch/common/knobs.py"
+        ) from None
+
+
+def raw(name):
+    """The raw environment string for a DECLARED knob ("" when unset).
+    For callers that need presence/emptiness semantics (JSON blobs,
+    forward-to-child-env logic) rather than a parsed value."""
+    _knob(name)
+    return os.environ.get(name, "")
+
+
+def is_set(name):
+    """True when the declared knob is present and non-empty."""
+    return bool(raw(name))
+
+
+def get_str(name):
+    knob = _knob(name)
+    value = os.environ.get(name, "")
+    return value if value else knob.default
+
+
+def get_int(name):
+    knob = _knob(name)
+    value = os.environ.get(name, "")
+    if value:
+        try:
+            return int(value)
+        except ValueError:
+            # Float-formatted values ("12.0") truncate, matching the
+            # int(float(...)) parsing the pre-registry helpers used.
+            try:
+                return int(float(value))
+            except ValueError:
+                _logger.warning("Bad %s=%r; using default %r", name,
+                                value, knob.default)
+    return knob.default
+
+
+def get_float(name):
+    knob = _knob(name)
+    value = os.environ.get(name, "")
+    if value:
+        try:
+            return float(value)
+        except ValueError:
+            _logger.warning("Bad %s=%r; using default %r", name, value,
+                            knob.default)
+    return knob.default
+
+
+# ---------------------------------------------------------------------------
+# The registry: the knobs of the modules ported so far.
+# ---------------------------------------------------------------------------
+
+# -- observability plane (observability/) --
+declare("ELASTICDL_OBS_MAX_LOG_MB", "float", 64.0,
+        "Size cap in MB for each observability log (traces.jsonl / "
+        "events.jsonl); crossing it rotates the file to <name>.1 with a "
+        "rotated marker event. 0 disables rotation.")
+declare("ELASTICDL_DATAPATH", "int", 1,
+        "Stage-level input-pipeline instrumentation (task/read/decode/"
+        "collate/h2d/starve stages as Timing phases, spans, and "
+        "edl_datapath_* series); 0 turns every stage into a no-op.")
+declare("ELASTICDL_DATAPATH_QUEUE_CAPACITY", "int", 1024,
+        "Default capacity QueueTelemetry assumes for a hand-off queue "
+        "whose constructor does not pass one (the prefetch queue passes "
+        "its real bound); sizes the backpressure watermark.")
+declare("ELASTICDL_DATAPATH_QUEUE_WATERMARK", "float", 0.8,
+        "Fraction of a hand-off queue's capacity at which occupancy "
+        "fires the edge-triggered datapath_backpressure event; <=0 "
+        "disables watermark events (the depth gauge stays live).")
+declare("ELASTICDL_EVENT_COALESCE_SECONDS", "float", 0.0,
+        "Coalescing window for high-frequency event kinds: after one "
+        "event of a coalesced kind is written, further events of that "
+        "kind within the window are folded into the next write (which "
+        "carries a coalesced=N field) instead of each taking a line. "
+        "0 (default) writes every event.")
+declare("ELASTICDL_EVENT_COALESCE_KINDS", "str", "membership_epoch",
+        "Comma-separated event kinds subject to the coalescing window "
+        "(per-epoch membership churn is the canonical spammer).")
+
+# -- worker task loop (worker/task_data_service.py) --
+declare("ELASTICDL_MASTER_PATIENCE_SECONDS", "float", 120.0,
+        "How long the worker task loop rides out an unreachable master "
+        "before letting the failure propagate.")
+declare("ELASTICDL_TASK_LEASE_BATCH", "int", 1,
+        "Tasks a worker leases per GetTask RPC (results are reported "
+        "in matching batches); 1 keeps the classic one-task-per-RPC "
+        "protocol. Raising it divides dispatch RPC load at fleet "
+        "scale.")

@@ -31,46 +31,84 @@ def params_from_flax(named):
         *path, leaf = name.split("/")
         if leaf not in _LEAF_TO_TORCH:
             raise ValueError(f"no torch counterpart for flax leaf {name!r}")
-        value = np.asarray(value, np.float32)
-        if leaf == "kernel":
-            value = value.reshape(value.shape[0], -1).T
-        elif leaf == "bias":
-            value = value.reshape(-1)
         key = ".".join(path + [_LEAF_TO_TORCH[leaf]])
-        state[key] = torch.tensor(value)
+        state[key] = FlaxLeaf(name, None, leaf, None).from_flax(value)
     return state
 
 
-def params_to_flax(module):
-    """The inverse: module -> {flax wire name: float32 numpy array}.
+class FlaxLeaf:
+    """One parameter of a torch module as a flax leaf: its wire name, the
+    parameter, and the layout maps between the two frameworks, which also
+    carry anything shaped like the parameter (an optimizer's moments)."""
+
+    __slots__ = ("name", "param", "leaf", "features")
+
+    def __init__(self, name, param, leaf, features):
+        self.name = name
+        self.param = param
+        self.leaf = leaf
+        self.features = features
+
+    def to_flax(self, value):
+        """torch-layout tensor -> flax-layout tensor (same device)."""
+        if self.leaf == "kernel":
+            value = value.T
+            if self.features is not None:
+                value = value.reshape(value.shape[0], *self.features)
+        elif self.leaf == "bias" and self.features is not None:
+            value = value.reshape(self.features)
+        return value
+
+    def from_flax(self, value):
+        """flax-layout array (or tensor) -> torch-layout float32 CPU
+        tensor."""
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        value = np.asarray(value, np.float32)
+        if self.leaf == "kernel":
+            value = value.reshape(value.shape[0], -1).T
+        elif self.leaf == "bias":
+            value = value.reshape(-1)
+        return torch.tensor(value)
+
+
+def flax_leaves(module):
+    """Every parameter of `module` as a FlaxLeaf, in the order jax flattens
+    the flax params tree (dict keys sorted at every level).
 
     The module tells which flax leaf each weight is: an nn.Linear's weight
     is a kernel (reshaped to [in, *features] where the module carries a
     `features` tuple, as a DenseGeneral does), an nn.Embedding's an
     embedding, any other weight a LayerNorm scale."""
-    named = {}
+    leaves = []
     for mod_name, mod in module.named_modules():
         prefix = mod_name.replace(".", "/")
         features = getattr(mod, "features", None)
         for leaf_name, param in mod.named_parameters(recurse=False):
-            value = param.detach().float().cpu().numpy()
             if leaf_name == "weight":
                 if isinstance(mod, nn.Linear):
-                    leaf, value = "kernel", value.T
-                    if features is not None:
-                        value = value.reshape(value.shape[0], *features)
+                    leaf = "kernel"
                 elif isinstance(mod, nn.Embedding):
                     leaf = "embedding"
                 else:
                     leaf = "scale"
             elif leaf_name == "bias":
                 leaf = "bias"
-                if features is not None:
-                    value = value.reshape(features)
             else:
                 raise ValueError(
                     f"no flax counterpart for {mod_name}.{leaf_name}"
                 )
             name = f"{prefix}/{leaf}" if prefix else leaf
-            named[name] = np.ascontiguousarray(value)
-    return named
+            leaves.append(FlaxLeaf(name, param, leaf, features))
+    return sorted(leaves, key=lambda x: tuple(x.name.split("/")))
+
+
+def params_to_flax(module):
+    """The inverse of params_from_flax: module -> {flax wire name: float32
+    numpy array}."""
+    return {
+        x.name: np.ascontiguousarray(
+            x.to_flax(x.param.detach()).float().cpu().numpy()
+        )
+        for x in flax_leaves(module)
+    }

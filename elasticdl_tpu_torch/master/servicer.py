@@ -1,0 +1,200 @@
+"""The master service (counterpart of elasticdl_tpu/master/servicer.py:24-210
+and :255-320).
+
+Serves the worker-facing task protocol: task pulls (with WAIT when the
+queue is momentarily empty but the job is unfinished), batched pulls, task
+results, evaluation metric reports, model version reports (the evaluation
+trigger) and the job status. Method names match rpc.MASTER_SERVICE; each
+takes (request, context) as a gRPC handler does. The comm-rank, step-lease,
+liveness, telemetry, profile and world-hint methods come with the AllReduce,
+policy and observability slices.
+"""
+
+import threading
+import time
+
+from elasticdl_tpu_torch.common import tensor_utils
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.observability import tracing
+from elasticdl_tpu_torch.proto import messages as pb
+
+logger = get_logger("master.servicer")
+
+
+class MasterServicer:
+    def __init__(
+        self,
+        task_dispatcher,
+        evaluation_service=None,
+        worker_liveness_timeout=60.0,
+    ):
+        self._task_d = task_dispatcher
+        self._evaluation_service = evaluation_service
+        # Same threshold the master watchdog uses, so alive_workers in the
+        # job status can't contradict actual liveness decisions.
+        self._worker_liveness_timeout = worker_liveness_timeout
+        self._lock = threading.Lock()
+        # worker_id -> last-RPC wall time, for the liveness watchdog.
+        self.worker_liveness = {}
+        self.max_model_version = 0
+        # Monotonic master incarnation stamped into JobStatusResponse so
+        # clients can tell a restart from a stall. 1 = first life (a master
+        # without a journal never restarts into the same job).
+        self.master_incarnation = 1
+
+    def _touch(self, worker_id):
+        with self._lock:
+            self.worker_liveness[worker_id] = time.time()
+
+    def snapshot_liveness(self):
+        """Copy of the liveness table (a watchdog iterates it while
+        handlers insert)."""
+        with self._lock:
+            return dict(self.worker_liveness)
+
+    def forget_worker(self, worker_id):
+        with self._lock:
+            self.worker_liveness.pop(worker_id, None)
+
+    # ---------- rpc methods (names match rpc.MASTER_SERVICE) ----------
+
+    def get_task(self, request, context):
+        self._touch(request.worker_id)
+        if request.task_type == pb.EVALUATION:
+            task_id, task = self._task_d.get_eval_task(request.worker_id)
+        else:
+            task_id, task = self._task_d.get(request.worker_id)
+        if task is None:
+            # Queue momentarily empty: tell the worker to WAIT unless the
+            # whole job is done (then task_id stays -1 with default type).
+            res = pb.Task(task_id=-1)
+            if not self._task_d.finished():
+                res.type = pb.WAIT
+            return res
+        # The dispatch is the root of the task's trace: an instant event
+        # here plus the task_id in every downstream span (the worker
+        # re-keys its context to this id) ties the chain together.
+        tracing.instant(
+            "dispatch_task", task_id=task_id, worker=request.worker_id
+        )
+        return self._stamp_lease(task.to_proto(task_id))
+
+    def _stamp_lease(self, task_pb):
+        """Stamp the dispatcher's lease token into an outgoing Task so the
+        worker can echo it with the result (exactly-once reporting across
+        master restarts)."""
+        task_pb.lease_token = self._task_d.lease_token(task_pb.task_id)
+        return task_pb
+
+    def get_task_batch(self, request, context):
+        """Lease batching: up to max_tasks tasks in one call. An empty
+        batch with finished=False is the WAIT analog."""
+        self._touch(request.worker_id)
+        leased = self._task_d.get_batch(
+            request.worker_id, max(1, request.max_tasks)
+        )
+        res = pb.TaskBatch()
+        for task_id, task in leased:
+            res.tasks.append(self._stamp_lease(task.to_proto(task_id)))
+            tracing.instant(
+                "dispatch_task", task_id=task_id, worker=request.worker_id
+            )
+        if not leased:
+            res.finished = self._task_d.finished()
+        return res
+
+    def report_task_result(self, request, context):
+        success = not request.err_message
+        self._task_d.report(
+            request.task_id, success, request.err_message,
+            lease_token=request.lease_token,
+        )
+        return pb.Empty()
+
+    def report_task_results(self, request, context):
+        """Batched analog of report_task_result."""
+        for entry in request.results:
+            self._task_d.report(
+                entry.task_id, not entry.err_message, entry.err_message,
+                lease_token=entry.lease_token,
+            )
+        return pb.Empty()
+
+    def report_evaluation_metrics(self, request, context):
+        self._touch(request.worker_id)
+        if self._evaluation_service is not None and request.model_outputs:
+            decoded = [
+                tensor_utils.tensor_pb_to_ndarray(t)
+                for t in request.model_outputs
+            ]
+            # Single-output models report one tensor; multi-output models
+            # report a list and their metrics receive the list.
+            outputs = decoded[0] if len(decoded) == 1 else decoded
+            labels = tensor_utils.tensor_pb_to_ndarray(request.labels)
+            self._evaluation_service.report_evaluation_metrics(
+                outputs, labels
+            )
+        return pb.Empty()
+
+    def report_version(self, request, context):
+        with self._lock:
+            self.max_model_version = max(
+                self.max_model_version, request.model_version
+            )
+        if self._evaluation_service is not None:
+            self._evaluation_service.add_evaluation_task_if_needed(
+                request.model_version
+            )
+        return pb.Empty()
+
+    def get_job_status(self, request, context):
+        """Telemetry for monitors. Workers with a call inside the liveness
+        timeout count as alive."""
+        stats = self._task_d.stats()
+        now = time.time()
+        with self._lock:
+            alive = sum(
+                1
+                for ts in self.worker_liveness.values()
+                if now - ts < self._worker_liveness_timeout
+            )
+            last_seen_ago = {
+                wid: now - ts
+                for wid, ts in self.worker_liveness.items()
+            }
+            version = self.max_model_version
+        res = pb.JobStatusResponse(
+            todo_tasks=stats["todo"],
+            doing_tasks=stats["doing"],
+            epoch=stats["epoch"],
+            num_epochs=stats["num_epochs"],
+            model_version=version,
+            alive_workers=alive,
+            finished=self._task_d.finished(),
+            job_failed=stats["job_failed"],
+            records_done=stats["records_done"],
+            tasks_recovered=stats.get("tasks_recovered", 0),
+            tasks_abandoned=stats.get("tasks_abandoned", 0),
+            master_incarnation=self.master_incarnation,
+        )
+        # Policy plane: active blacklists, backup races.
+        res.policy_blacklisted.extend(
+            f"worker-{wid}" for wid in stats.get("blacklisted", [])
+        )
+        res.backup_tasks_inflight = stats.get("backups_inflight", 0)
+        res.backup_wins = stats.get("backup_wins", 0)
+        for wid, age in last_seen_ago.items():
+            res.worker_last_seen_ago[wid] = age
+        for wid, n in stats["doing_by_worker"].items():
+            res.worker_doing_tasks[wid] = n
+        if (
+            self._evaluation_service is not None
+            and self._evaluation_service.completed_results
+        ):
+            eval_version, metrics = (
+                self._evaluation_service.completed_results[-1]
+            )
+            res.last_eval_version = eval_version
+            for name, value in metrics.items():
+                res.last_eval_metrics[name] = float(value)
+        return res

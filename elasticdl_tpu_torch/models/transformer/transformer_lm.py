@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.common.evaluation_utils import MeanMetric
 from elasticdl_tpu_torch.common.model_utils import Modes
+from elasticdl_tpu_torch.data.example import batch_examples
 from elasticdl_tpu_torch.ops import optimizers
 from elasticdl_tpu_torch.ops.flash_attention import flash_attention
 
@@ -267,10 +268,10 @@ def optimizer():
 
 
 def feed(records, mode, metadata):
-    """Decoded records ({"tokens": int[S+1]}) -> (features, labels)."""
-    tokens = np.stack(
-        [np.asarray(r["tokens"]) for r in records]
-    ).astype(np.int32)  # [B, S+1]
+    """Serialized Example records, each {"tokens": int[S+1]}, ->
+    (features, labels), as the worker loop hands them over."""
+    batch = batch_examples(records)
+    tokens = batch["tokens"].astype(np.int32)  # [B, S+1]
     features = tokens[:, :-1]
     labels = tokens[:, 1:] if mode != Modes.PREDICTION else None
     return features, labels

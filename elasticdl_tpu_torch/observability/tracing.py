@@ -1,0 +1,223 @@
+"""Tracing: Chrome-trace JSONL spans (counterpart of
+elasticdl_tpu/observability/tracing.py, without its gRPC interceptors, which
+come with the transport).
+
+Each process appends complete ("ph": "X") events to its own
+`trace_<role>.jsonl`, loadable in Perfetto / chrome://tracing. The trace
+"pid" is a stable hash of the process's role string — NOT the OS pid — so
+the master and each worker get distinct, deterministic process rows even
+when one interpreter hosts several roles.
+
+Trace context is a contextvar carrying (trace_id, span_id, job, task_id,
+lease_epoch); the worker re-keys it to each task, so every span of a task
+shares a trace id. Recording costs nothing until a recorder is installed
+(set_recorder).
+"""
+
+import contextlib
+import contextvars
+import json
+import os
+import threading
+import time
+import uuid
+import zlib
+
+_context = contextvars.ContextVar("edl_trace_context", default=None)
+
+_recorder = None
+
+class TraceContext:
+    __slots__ = ("trace_id", "span_id", "job", "task_id", "lease_epoch")
+
+    def __init__(
+        self, trace_id=None, span_id="", job="", task_id=-1, lease_epoch=-1
+    ):
+        self.trace_id = trace_id or uuid.uuid4().hex[:16]
+        self.span_id = span_id
+        self.job = job
+        self.task_id = task_id
+        self.lease_epoch = lease_epoch
+
+    def args(self):
+        out = {"trace_id": self.trace_id}
+        if self.job:
+            out["job"] = self.job
+        if self.task_id >= 0:
+            out["task_id"] = self.task_id
+        if self.lease_epoch >= 0:
+            out["lease_epoch"] = self.lease_epoch
+        return out
+
+
+def set_context(task_id=None, lease_epoch=None, job=None, trace_id=None):
+    """Create/refresh this thread's trace context; returns it. Starting a
+    new task (task_id given, different from the current one) mints a new
+    trace id so each task forms its own trace tree."""
+    ctx = _context.get()
+    if ctx is None or (
+        trace_id is not None and trace_id != ctx.trace_id
+    ) or (
+        task_id is not None and task_id != ctx.task_id
+    ):
+        ctx = TraceContext(
+            trace_id=trace_id,
+            job=job if job is not None else (ctx.job if ctx else ""),
+            task_id=task_id if task_id is not None else -1,
+            lease_epoch=(
+                lease_epoch
+                if lease_epoch is not None
+                else (ctx.lease_epoch if ctx else -1)
+            ),
+        )
+        _context.set(ctx)
+        return ctx
+    if job is not None:
+        ctx.job = job
+    if lease_epoch is not None:
+        ctx.lease_epoch = lease_epoch
+    return ctx
+
+
+def role_pid(role):
+    """Deterministic per-role trace pid (distinct process rows in the
+    merged trace even when several roles share one OS process)."""
+    return zlib.crc32(role.encode()) & 0x7FFFFFF
+
+
+class SpanRecorder:
+    """Appends Chrome-trace events to a JSONL file; thread-safe.
+    Size-capped (observability/rotation.py): a rotated generation keeps
+    the previous cap's worth of spans as <path>.1 and re-stamps the
+    process-name metadata plus a `rotated` marker so the fresh file is
+    independently loadable in Perfetto."""
+
+    def __init__(self, path, process_name, max_bytes=None):
+        from elasticdl_tpu_torch.observability.rotation import SizeCappedFile
+
+        self.path = path
+        self.process_name = process_name
+        self.pid = role_pid(process_name)
+        self._lock = threading.Lock()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._file = SizeCappedFile(
+            path, max_bytes=max_bytes, on_rotate=self._on_rotate
+        )
+        # Perfetto reads process names from this metadata event.
+        self._write(self._process_meta())
+
+    def _process_meta(self):
+        return {
+            "ph": "M",
+            "name": "process_name",
+            "pid": self.pid,
+            "tid": 0,
+            "args": {"name": self.process_name},
+        }
+
+    def _on_rotate(self, generation):
+        # Runs under self._lock mid-write (rotation.py callback): these
+        # are the new generation's first lines.
+        for event in (
+            self._process_meta(),
+            {
+                "ph": "i",
+                "s": "p",
+                "name": "rotated",
+                "cat": "edl",
+                "ts": round(time.time() * 1e6, 1),
+                "pid": self.pid,
+                "tid": 0,
+                "args": {"generation": generation},
+            },
+        ):
+            self._file.append_line(
+                json.dumps(event, separators=(",", ":"))
+            )
+
+    def _write(self, event):
+        line = json.dumps(event, separators=(",", ":"))
+        with self._lock:
+            if self._file.closed:
+                return
+            self._file.write_line(line)
+
+    def record(self, name, start_s, dur_s, cat="edl", args=None):
+        """One complete span; times in seconds (perf-epoch: time.time)."""
+        ctx = _context.get()
+        merged = ctx.args() if ctx is not None else {}
+        if args:
+            merged.update(args)
+        self._write(
+            {
+                "ph": "X",
+                "name": name,
+                "cat": cat,
+                "ts": round(start_s * 1e6, 1),
+                "dur": round(dur_s * 1e6, 1),
+                "pid": self.pid,
+                "tid": threading.get_ident() & 0xFFFF,
+                "args": merged,
+            }
+        )
+
+    def instant(self, name, cat="edl", args=None):
+        ctx = _context.get()
+        merged = ctx.args() if ctx is not None else {}
+        if args:
+            merged.update(args)
+        self._write(
+            {
+                "ph": "i",
+                "s": "p",
+                "name": name,
+                "cat": cat,
+                "ts": round(time.time() * 1e6, 1),
+                "pid": self.pid,
+                "tid": threading.get_ident() & 0xFFFF,
+                "args": merged,
+            }
+        )
+
+    def close(self):
+        with self._lock:
+            if not self._file.closed:
+                self._file.close()
+
+
+def set_recorder(recorder):
+    global _recorder
+    _recorder = recorder
+
+
+def get_recorder():
+    return _recorder
+
+
+@contextlib.contextmanager
+def span(name, cat="edl", **args):
+    """Record a span around the with-body (no-op without a recorder; the
+    body's exceptions still propagate and the span still closes)."""
+    rec = _recorder
+    if rec is None:
+        yield
+        return
+    start = time.time()
+    try:
+        yield
+    finally:
+        rec.record(name, start, time.time() - start, cat=cat, args=args)
+
+
+def record_span(name, start_s, dur_s, cat="edl", args=None):
+    """Record an already-measured span, for callers that time the
+    interval themselves."""
+    rec = _recorder
+    if rec is not None:
+        rec.record(name, start_s, dur_s, cat=cat, args=args)
+
+
+def instant(name, cat="edl", **args):
+    rec = _recorder
+    if rec is not None:
+        rec.instant(name, cat=cat, args=args)

@@ -17,6 +17,12 @@ builds the torch optimizer whose steps match the JAX package's
   starts at initial_accumulator_value and the update is
   lr * g * rsqrt(acc + eps), where torch.optim.Adagrad starts at 0 and
   divides by sqrt(acc) + eps.
+
+`optax_state_leaves` and `load_optax_state_leaves` carry a torch
+optimizer's state in optax's form: the leaves of `to_optax().init(params)`
+in jax's flatten order, each moment in the flax layout of its parameter.
+That is how worker checkpoints (common/save_utils.py) store it, so a
+checkpoint restores in either package.
 """
 
 import torch
@@ -82,6 +88,83 @@ class AMSGrad(torch.optim.Optimizer):
                 torch.maximum(nu_max, nu / (1 - b2**count), out=nu_max)
                 p.sub_(group["lr"] * (mu_hat / (nu_max.sqrt() + group["eps"])))
         return loss
+
+
+def _optax_state_fields(spec):
+    """The torch state keys holding each field of optax's state, in the
+    order of optax's state NamedTuple ("step" is optax's int32 count)."""
+    if spec.name == "sgd":
+        return ()
+    if spec.name == "momentum":
+        return ("momentum_buffer",)  # TraceState.trace
+    if spec.name == "adagrad":
+        return ("sum_of_squares",)  # ScaleByRssState
+    if spec.hyperparams["amsgrad"]:
+        return ("step", "mu", "nu", "nu_max")  # ScaleByAmsgradState
+    return ("step", "exp_avg", "exp_avg_sq")  # ScaleByAdamState
+
+
+def _initial_state(spec, field, param):
+    """optax's initial value of a per-parameter field (torch creates its
+    state at the first step)."""
+    if field == "sum_of_squares":
+        return torch.full_like(
+            param, spec.hyperparams["initial_accumulator_value"]
+        )
+    return torch.zeros_like(param)
+
+
+def optax_state_leaves(optimizer, spec, leaves):
+    """The optimizer's state as optax's state leaves (tensors on the
+    parameters' device; the count as a 0-d int32 tensor). `leaves` are the
+    parameters as common/params.flax_leaves lists them."""
+    out = []
+    for field in _optax_state_fields(spec):
+        if field == "step":
+            steps = {int(optimizer.state.get(x.param, {}).get("step", 0))
+                     for x in leaves}
+            if len(steps) > 1:
+                raise ValueError(f"parameters at different steps: {steps}")
+            out.append(torch.tensor(steps.pop() if steps else 0,
+                                    dtype=torch.int32))
+            continue
+        for x in leaves:
+            value = optimizer.state.get(x.param, {}).get(field)
+            if value is None:
+                value = _initial_state(spec, field, x.param.detach())
+            out.append(x.to_flax(value))
+    return out
+
+
+def load_optax_state_leaves(optimizer, spec, leaves, values):
+    """The inverse of optax_state_leaves: replaces the optimizer's state
+    with `values` (optax's state leaves, numpy or tensors)."""
+    values = list(values)
+    expected = sum(1 if f == "step" else len(leaves)
+                   for f in _optax_state_fields(spec))
+    if len(values) != expected:
+        raise ValueError(
+            f"{spec.name} state has {expected} leaves, got {len(values)}"
+        )
+    state = {x.param: {} for x in leaves}
+    it = iter(values)
+    for field in _optax_state_fields(spec):
+        if field == "step":
+            count = int(next(it))
+            for x in leaves:
+                # torch.optim.Adam keeps a float32 CPU tensor, AMSGrad an int.
+                state[x.param]["step"] = (
+                    count if spec.hyperparams["amsgrad"]
+                    else torch.tensor(float(count))
+                )
+            continue
+        for x in leaves:
+            state[x.param][field] = x.from_flax(next(it)).to(
+                x.param.device, x.param.dtype
+            )
+    optimizer.state.clear()
+    optimizer.state.update(state)
+
 
 # name -> (constructor kwargs accepted, default values)
 _SUPPORTED = {

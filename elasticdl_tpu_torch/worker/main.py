@@ -1,0 +1,94 @@
+"""Worker assembly (counterpart of elasticdl_tpu/worker/main.py:60-125):
+from worker args and a master client, the reader, the model spec, the
+trainer, the callbacks and the Worker.
+
+The process entry point (`main`, with observability setup and telemetry
+push) comes with the gRPC transport; until then a worker runs in the
+master's process, its MasterClient on an in-process stub
+(master/master.py:Master.stub). Arguments that ask for what is not ported
+raise NotImplementedError.
+"""
+
+import sys
+
+from elasticdl_tpu_torch.common.constants import DistributionStrategy, JobType
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.model_utils import get_model_spec
+from elasticdl_tpu_torch.common.save_utils import ExportModelCallback
+from elasticdl_tpu_torch.data.prefetch import PrefetchReader
+from elasticdl_tpu_torch.data.reader import CompositeReader, create_data_reader
+from elasticdl_tpu_torch.worker.trainer import LocalTrainer
+from elasticdl_tpu_torch.worker.worker import Worker
+
+logger = get_logger("worker.main")
+
+_JOB_TYPES = {
+    "training_only": JobType.TRAINING_ONLY,
+    "training_with_evaluation": JobType.TRAINING_WITH_EVALUATION,
+    "evaluation_only": JobType.EVALUATION_ONLY,
+    "prediction_only": JobType.PREDICTION_ONLY,
+}
+
+
+def build_trainer(args, spec, device=None):
+    if args.distribution_strategy != DistributionStrategy.LOCAL:
+        raise NotImplementedError(
+            f"--distribution_strategy {args.distribution_strategy} is not "
+            "ported to elasticdl_tpu_torch yet; use "
+            f"{DistributionStrategy.LOCAL}"
+        )
+    return LocalTrainer(
+        spec.build_model(), spec.loss, spec.build_optimizer_spec(),
+        seed=args.seed, device=device,
+    )
+
+
+def build_worker(args, master_client, device=None):
+    """The Worker that `worker/main.py:main` runs in the JAX package, on the
+    given MasterClient; `device=None` trains on the CUDA device."""
+    if args.profile_dir:
+        raise NotImplementedError(
+            "--profile_dir (the worker's device trace) is not ported yet"
+        )
+    if args.multi_host:
+        raise NotImplementedError(
+            "--multi_host (step-synchronized leases) is not ported yet"
+        )
+    if args.model_zoo:
+        sys.path.insert(0, args.model_zoo)
+    spec = get_model_spec(args.model_def)
+    job_type = _JOB_TYPES[args.job_type]
+    reader_factory = spec.create_data_reader or create_data_reader
+    if job_type == JobType.PREDICTION_ONLY:
+        origins = [args.prediction_data]
+    else:
+        origins = [
+            o for o in (args.training_data, args.validation_data) if o
+        ]
+    if len(origins) == 1:
+        reader = reader_factory(origins[0])
+    else:
+        # Training + validation are distinct origins: route each task to
+        # the reader owning its shard (see CompositeReader).
+        reader = CompositeReader([reader_factory(o) for o in origins])
+    if args.prefetch_records > 0:
+        reader = PrefetchReader(reader, buffer_records=args.prefetch_records)
+    trainer = build_trainer(args, spec, device=device)
+    extra_callbacks = []
+    if args.output:
+        extra_callbacks.append(ExportModelCallback(args.output))
+    if args.checkpoint_dir_for_init:
+        # Worker-side restore, applied right after the trainer's lazy init
+        # on the first batch.
+        trainer.restore_on_init = args.checkpoint_dir_for_init
+    return Worker(
+        args.worker_id,
+        master_client,
+        reader,
+        spec,
+        trainer,
+        minibatch_size=args.minibatch_size,
+        job_type=job_type,
+        log_loss_steps=args.log_loss_steps,
+        extra_callbacks=extra_callbacks,
+    )

@@ -4,6 +4,10 @@
 The step runs eagerly: forward, backward and the optimizer update in one
 method (`_step`), on the trainer's device. The JAX package's compile cache,
 tracked_jit and StepCostModel are XLA machinery and have no counterpart.
+
+Exported state has the JAX trainer's form, so common/save_utils.py writes
+the JAX package's checkpoint: flax-named weights, and the optimizer state as
+optax's state leaves (ops/optimizers.optax_state_leaves).
 """
 
 from abc import ABC, abstractmethod
@@ -13,7 +17,16 @@ import torch
 
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.log_utils import get_logger
-from elasticdl_tpu_torch.common.params import params_from_flax, params_to_flax
+from elasticdl_tpu_torch.common.params import (
+    flax_leaves,
+    params_from_flax,
+    params_to_flax,
+)
+from elasticdl_tpu_torch.common.save_utils import restore_trainer_checkpoint
+from elasticdl_tpu_torch.ops.optimizers import (
+    load_optax_state_leaves,
+    optax_state_leaves,
+)
 
 logger = get_logger("worker.trainer")
 
@@ -62,6 +75,9 @@ class TorchTrainer(Trainer):
         self._generator.manual_seed(seed)
         self._optimizer = None
         self._version = 0
+        # Checkpoint path to restore from right after lazy init (worker-side
+        # resume for strategies whose state lives in the worker).
+        self.restore_on_init = None
 
     # ---------- init ----------
 
@@ -80,8 +96,12 @@ class TorchTrainer(Trainer):
         logger.info("Initialized model with %d parameters", n_params)
 
     def init_variables_if_needed(self, features):
-        if self._optimizer is None:
-            self._materialize()
+        if self._optimizer is not None:
+            return
+        self._materialize()
+        if self.restore_on_init:
+            path, self.restore_on_init = self.restore_on_init, None
+            restore_trainer_checkpoint(self, path)
 
     def load_flax_params(self, named):
         """Loads flax-named weights ({wire name: array}, as the JAX package's
@@ -125,12 +145,25 @@ class TorchTrainer(Trainer):
         return self._version
 
     def export_variables(self):
+        """{"variables": {flax wire name: numpy array}, "opt_state": optax's
+        state leaves (tensors left on the device: callers that persist them
+        copy per leaf), "rng": the generator's state, "version"}; the
+        weights and state are None before the first batch."""
         return {
-            "variables": params_to_flax(self._model),
-            "opt_state": self._optimizer.state_dict(),
+            "variables": (None if self._optimizer is None
+                          else params_to_flax(self._model)),
+            "opt_state": self.optimizer_state_leaves(),
             "rng": self._generator.get_state().numpy(),
             "version": self._version,
         }
+
+    def optimizer_state_leaves(self):
+        """The optimizer's state as optax's state leaves, without copying
+        the weights to the host (None before the first batch)."""
+        if self._optimizer is None:
+            return None
+        return optax_state_leaves(self._optimizer, self._optimizer_spec,
+                                  flax_leaves(self._model))
 
     def restore_variables(self, exported):
         if self._optimizer is None:
@@ -140,7 +173,10 @@ class TorchTrainer(Trainer):
             self._model.parameters()
         )
         if exported.get("opt_state") is not None:
-            self._optimizer.load_state_dict(exported["opt_state"])
+            load_optax_state_leaves(
+                self._optimizer, self._optimizer_spec,
+                flax_leaves(self._model), exported["opt_state"],
+            )
         else:
             logger.warning(
                 "Checkpoint has no optimizer state; re-initializing it"

@@ -1,0 +1,295 @@
+"""The worker loop: pull tasks, train/evaluate/predict minibatches, report
+(counterpart of elasticdl_tpu/worker/worker.py).
+
+Job-type dispatch, per-minibatch retry (<= 64), evaluation tasks interleaved
+into training, prediction output processing, train-end callback task
+handling. The step-synchronized lease loop (multi-host AllReduce) and the
+device trace window (profile_dir) come with the AllReduce and observability
+slices; asking for either raises NotImplementedError.
+"""
+
+import traceback
+
+from elasticdl_tpu_torch.common.constants import (
+    DEFAULT_MAX_MINIBATCH_RETRY_NUM,
+    JobType,
+)
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.model_utils import Modes
+from elasticdl_tpu_torch.common.rpc import RpcError
+from elasticdl_tpu_torch.common.timing import Timing
+from elasticdl_tpu_torch.observability import datapath, tracing
+from elasticdl_tpu_torch.observability.metrics import default_registry
+from elasticdl_tpu_torch.proto import messages as pb
+from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
+
+logger = get_logger("worker.worker")
+
+_REG = default_registry()
+_STEPS = _REG.counter(
+    "edl_worker_steps_total", "Minibatch steps this worker completed"
+)
+_TASKS = _REG.counter(
+    "edl_worker_tasks_total",
+    "Tasks this worker processed, by result",
+    labelnames=("result",),
+)
+_PHASE_SECONDS = _REG.histogram(
+    "edl_phase_seconds",
+    "Worker phase latency (task_process/batch_process + trainer phases)",
+    labelnames=("phase",),
+)
+
+
+class Worker:
+    def __init__(
+        self,
+        worker_id,
+        master_client,
+        data_reader,
+        model_spec,
+        trainer,
+        minibatch_size=64,
+        job_type=JobType.TRAINING_ONLY,
+        log_loss_steps=100,
+        max_minibatch_retries=DEFAULT_MAX_MINIBATCH_RETRY_NUM,
+        extra_callbacks=(),
+        profile_dir="",
+        lease_mode=False,
+    ):
+        if lease_mode:
+            raise NotImplementedError(
+                "step-synchronized lease mode (multi-host AllReduce) is not "
+                "ported to elasticdl_tpu_torch yet"
+            )
+        if profile_dir:
+            raise NotImplementedError(
+                "the worker's device trace window (profile_dir) is not "
+                "ported to elasticdl_tpu_torch yet"
+            )
+        self._worker_id = worker_id
+        self._mc = master_client
+        self._tds = TaskDataService(master_client, data_reader)
+        self._spec = model_spec
+        self._trainer = trainer
+        self._minibatch_size = minibatch_size
+        self._job_type = job_type
+        self._log_loss_steps = log_loss_steps
+        self._max_minibatch_retries = max_minibatch_retries
+        self._metadata = data_reader.metadata
+        self._steps = 0
+        self._timing = Timing().bind_histogram(_PHASE_SECONDS)
+        # Data-plane stages recorded off the worker loop (task acquire,
+        # read/starve, decode) mirror into this Timing as input_<stage>
+        # phases; the trainer's h2d stage binds its own Timing at the
+        # call site so bench attribution sees it in the trainer summary.
+        datapath.get().bind_timing(self._timing)
+        trainer_timing = getattr(trainer, "timing", None)
+        if trainer_timing is not None:
+            # Trainer phases (pull/step/push) reach /metrics through the
+            # same labeled histogram.
+            trainer_timing.bind_histogram(_PHASE_SECONDS)
+        self._callbacks = (
+            model_spec.callbacks() if model_spec.callbacks else []
+        ) + list(extra_callbacks)
+
+    # ---------- public ----------
+
+    def run(self):
+        if self._job_type in (
+            JobType.TRAINING_ONLY,
+            JobType.TRAINING_WITH_EVALUATION,
+        ):
+            self._train_and_evaluate()
+        elif self._job_type == JobType.EVALUATION_ONLY:
+            self._evaluate_only()
+        elif self._job_type == JobType.PREDICTION_ONLY:
+            self._predict_only()
+        else:
+            raise ValueError(f"unknown job type {self._job_type}")
+
+    # ---------- job loops ----------
+
+    def _train_and_evaluate(self):
+        while True:
+            task = self._tds.get_task()
+            if task is None:
+                # Batched leases: results buffered past the last fetch
+                # must land before the loop exits.
+                self._tds.flush_reports()
+                logger.info("Worker %d: no more tasks", self._worker_id)
+                break
+            if task.type == pb.TRAINING:
+                self._run_task(task, self._process_train_batch)
+                # In local/AllReduce modes the worker is the version source
+                # (the PS plays that role in PS mode): reporting after each
+                # training task drives version-triggered evaluation. A lost
+                # report only delays the next eval trigger — never worth a
+                # worker's life during a master blip.
+                try:
+                    self._mc.report_version(
+                        self._trainer.get_model_version()
+                    )
+                except RpcError:
+                    logger.warning(
+                        "report_version failed (master unreachable?); "
+                        "continuing",
+                    )
+                # Interleave pending evaluation tasks between training
+                # tasks.
+                if self._job_type == JobType.TRAINING_WITH_EVALUATION:
+                    self._drain_eval_tasks()
+            elif task.type == pb.EVALUATION:
+                self._run_task(task, self._process_eval_batch)
+            elif task.type == pb.TRAIN_END_CALLBACK:
+                self._run_train_end_callbacks(task)
+            else:
+                logger.warning("Skipping unexpected task %s", task)
+                self._tds.report_task(task.task_id)
+
+    def _evaluate_only(self):
+        while True:
+            task = self._tds.get_task(pb.EVALUATION)
+            if task is None:
+                break
+            self._run_task(task, self._process_eval_batch)
+
+    def _predict_only(self):
+        processor = self._spec.prediction_outputs_processor
+        while True:
+            task = self._tds.get_task(pb.PREDICTION)
+            if task is None:
+                break
+            self._run_task(
+                task,
+                lambda records, task=task: self._process_predict_batch(
+                    records, processor
+                ),
+            )
+        # Optional end-of-stream hook: buffering processors (e.g. the
+        # ODPS writer's) flush their tail here.
+        close = getattr(processor, "close", None)
+        if close is not None:
+            close()
+
+    def _drain_eval_tasks(self):
+        while True:
+            task = self._tds.try_get_eval_task()
+            if task is None:
+                return
+            self._run_task(task, self._process_eval_batch)
+
+    # ---------- task/batch processing ----------
+
+    def _run_task(self, task, process_batch):
+        # Re-key this thread's trace context to the task: every span and
+        # RPC from here to report_task_result (PS pulls/pushes included)
+        # carries the task id and one fresh trace id, which is what lets
+        # trace_report.py stitch the task's cross-process chain together.
+        tracing.set_context(task_id=task.task_id)
+        try:
+            with self._timing.record("task_process"), tracing.span(
+                "task_process",
+                task_type=pb.TaskType.Name(task.type),
+            ):
+                for records in self._tds.read_batches(
+                    task, self._minibatch_size
+                ):
+                    with self._timing.record("batch_process"), tracing.span(
+                        "batch_process"
+                    ):
+                        self._process_with_retries(process_batch, records)
+            self._tds.report_task(task.task_id)
+            _TASKS.labels(result="success").inc()
+        except Exception as e:
+            logger.error(
+                "Task %d failed: %s\n%s",
+                task.task_id,
+                e,
+                traceback.format_exc(),
+            )
+            self._tds.report_task(task.task_id, err_message=str(e))
+            _TASKS.labels(result="failure").inc()
+        finally:
+            # Per-task phase breakdown at DEBUG; in the finally so a failed
+            # task's time can't leak into the next task's report.
+            self._timing.report(logger, reset=True)
+            trainer_timing = getattr(self._trainer, "timing", None)
+            if trainer_timing is not None:
+                trainer_timing.report(logger, reset=True)
+            # One `datapath` event per task: the per-stage seconds this
+            # task spent in the feed path, keyed by task id.
+            datapath.get().flush_event(task_id=task.task_id)
+
+    def _process_with_retries(self, process_batch, records):
+        """Per-minibatch retry: transient failures (PS restart, comm
+        regroup) retry up to the cap; then the whole task is failed back to
+        the master for re-dispatch."""
+        for attempt in range(self._max_minibatch_retries):
+            try:
+                process_batch(records)
+                return
+            except Exception:
+                if attempt == self._max_minibatch_retries - 1:
+                    raise
+                logger.warning(
+                    "Minibatch failed (attempt %d):\n%s",
+                    attempt + 1,
+                    traceback.format_exc(),
+                )
+
+    def _process_train_batch(self, records):
+        with datapath.get().stage("decode"):
+            features, labels = self._spec.feed(
+                records, Modes.TRAINING, self._metadata
+            )
+        accepted, version, loss = self._trainer.train_minibatch(
+            features, labels
+        )
+        if accepted:
+            self._steps += 1
+            _STEPS.inc()
+            if self._steps % self._log_loss_steps == 0:
+                # Only materialize the on-device loss when logging; every
+                # other step stays dispatch-ahead (no wait for the card).
+                logger.info(
+                    "Step %d (version %d) loss %.6f",
+                    self._steps,
+                    version,
+                    float(loss),
+                )
+
+    def _process_eval_batch(self, records):
+        with datapath.get().stage("decode"):
+            features, labels = self._spec.feed(
+                records, Modes.EVALUATION, self._metadata
+            )
+        outputs = self._trainer.evaluate_minibatch(features)
+        self._mc.report_evaluation_metrics(outputs, labels)
+
+    def _process_predict_batch(self, records, processor):
+        with datapath.get().stage("decode"):
+            features, _ = self._spec.feed(
+                records, Modes.PREDICTION, self._metadata
+            )
+        outputs = self._trainer.predict_minibatch(features)
+        if processor is not None:
+            processor.process(outputs, self._worker_id)
+
+    def _run_train_end_callbacks(self, task):
+        try:
+            for cb in self._callbacks:
+                on_train_end = getattr(cb, "on_train_end", None)
+                if on_train_end:
+                    on_train_end(self._trainer)
+            self._tds.report_task(task.task_id)
+        except Exception as e:
+            self._tds.report_task(task.task_id, err_message=str(e))
+
+    @property
+    def steps(self):
+        return self._steps
+
+    @property
+    def trainer(self):
+        return self._trainer

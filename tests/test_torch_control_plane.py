@@ -1,0 +1,441 @@
+"""The port's control plane (elasticdl_tpu_torch/master, worker/worker.py,
+task_data_service.py, master_client.py, common/rpc.py, save_utils.py)
+against the JAX package's: the task dispatcher's decisions, the servicer's
+answers, a tiny-LM job through both workers, a recovery drill, and worker
+checkpoints restored across the two packages."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from elasticdl_tpu.common import save_utils as jax_save_utils
+from elasticdl_tpu.common.constants import JobType as JaxJobType
+from elasticdl_tpu.common.model_utils import get_model_spec as jax_spec
+from elasticdl_tpu.data import reader as jax_reader
+from elasticdl_tpu.master.evaluation_service import (
+    EvaluationService as JaxEvaluationService,
+)
+from elasticdl_tpu.master.servicer import MasterServicer as JaxServicer
+from elasticdl_tpu.master.task_dispatcher import (
+    TaskDispatcher as JaxDispatcher,
+)
+from elasticdl_tpu.models.transformer import transformer_lm as jlm
+from elasticdl_tpu.proto import elasticdl_tpu_pb2 as pb2
+from elasticdl_tpu.worker.master_client import (
+    MasterClient as JaxMasterClient,
+)
+from elasticdl_tpu.worker.trainer import LocalTrainer as JaxLocalTrainer
+from elasticdl_tpu.worker.worker import Worker as JaxWorker
+from elasticdl_tpu_torch.common import rpc, save_utils
+from elasticdl_tpu_torch.common.constants import MAX_TASK_RETRIES, JobType
+from elasticdl_tpu_torch.common.model_utils import get_model_spec
+from elasticdl_tpu_torch.common.tensor_utils import ndarray_to_tensor_pb
+from elasticdl_tpu_torch.data import reader
+from elasticdl_tpu_torch.data.example import encode_example
+from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
+from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.servicer import MasterServicer
+from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
+from elasticdl_tpu_torch.proto import messages as pb
+from elasticdl_tpu_torch.worker import task_data_service
+from elasticdl_tpu_torch.worker.master_client import MasterClient
+from elasticdl_tpu_torch.worker.trainer import LocalTrainer
+from elasticdl_tpu_torch.worker.worker import Worker
+
+from test_torch_trainer import LOSS_ATOL, TINY
+from test_utils import start_master
+
+torch.set_num_threads(1)
+
+# Eval outputs and metrics of the same weights in the two frameworks
+# (test_torch_trainer.py holds logits to the same bound).
+EVAL_ATOL = 1e-4
+LM_SPEC = "elasticdl_tpu_torch.models.transformer.transformer_lm"
+
+
+@pytest.fixture(autouse=True)
+def _short_waits(monkeypatch):
+    monkeypatch.setattr(task_data_service, "_WAIT_SLEEP_SECONDS", 0.001)
+
+
+# ---------- (a) the dispatcher's decisions ----------
+
+
+def _dispatch_scenario(dispatcher_cls):
+    """One scripted scenario: shuffled shards over 2 epochs, a failing
+    task requeued up to MAX_TASK_RETRIES, a dead worker's tasks recovered,
+    evaluation tasks, batched leases; then a second dispatcher whose task
+    exhausts its retries. Returns the dispatch log and both stats."""
+    d = dispatcher_cls({"a": (0, 50), "b": (10, 35)}, {"v": (0, 20)},
+                       records_per_task=8, num_epochs=2, shuffle=True,
+                       seed=7)
+    log = []
+
+    def record(task_id, task):
+        log.append((task_id,) if task is None else (
+            task_id, task.shard_name, task.start, task.end, int(task.type)))
+        return task_id
+
+    def get(worker, eval_only=False):
+        return record(*(d.get_eval_task(worker) if eval_only
+                        else d.get(worker)))
+
+    d.report(get(0), True)
+    for _ in range(MAX_TASK_RETRIES):  # fails, requeued at the front
+        d.report(get(1), False, "boom")
+    d.report(get(1), True)  # its last allowed retry succeeds
+    get(2)
+    get(2)
+    d.recover_tasks(2)  # a dead worker: both tasks back in the queue
+    d.create_evaluation_tasks(5)
+    d.report(get(0, eval_only=True), True)
+    for task_id, task in d.get_batch(3, 4):
+        d.report(record(task_id, task), True)
+    worker = 0
+    while (task_id := get(worker)) >= 0:
+        d.report(task_id, True)
+        worker = (worker + 1) % 3
+    result = {"stats": d.stats(), "done": (d.finished(), d.job_failed)}
+
+    doomed = dispatcher_cls({"a": (0, 8)}, records_per_task=8, seed=1)
+    for _ in range(MAX_TASK_RETRIES + 1):
+        doomed.report(record(*doomed.get(0)), False, "boom")
+    return dict(result, log=log, doomed_stats=doomed.stats(),
+                doomed_done=(doomed.finished(), doomed.job_failed))
+
+
+def test_dispatcher_scenario_matches_jax_package():
+    ours = _dispatch_scenario(TaskDispatcher)
+    theirs = _dispatch_scenario(JaxDispatcher)
+    assert ours == theirs
+    assert ours["stats"]["records_done"] == 2 * (50 + 35)
+    assert ours["stats"]["tasks_recovered"] == 2
+    assert ours["done"] == (True, False)
+    assert ours["doomed_stats"]["tasks_abandoned"] == 1
+    assert ours["doomed_done"] == (True, True)
+
+
+# ---------- (b) the servicer through the in-process stub ----------
+
+
+def _servicer_pair():
+    def build(dispatcher_cls, service_cls, servicer_cls):
+        d = dispatcher_cls({"t": (0, 24)}, {"v": (0, 8)},
+                           records_per_task=8, shuffle=False)
+        evaluation = service_cls(d, tlm.eval_metrics_fn, eval_steps=2)
+        return servicer_cls(d, evaluation)
+
+    return (build(TaskDispatcher, EvaluationService, MasterServicer),
+            build(JaxDispatcher, JaxEvaluationService, JaxServicer))
+
+
+def test_servicer_through_stub_answers_as_jax_servicer():
+    ours, theirs = _servicer_pair()
+    stub = rpc.InProcessStub(ours, rpc.MASTER_SERVICE)
+    logits = np.random.default_rng(0).standard_normal(
+        (2, 3, 5)).astype(np.float32)
+    labels = np.array([[1, 2, 3], [4, 0, 1]], np.int32)
+    calls = [
+        ("get_task", "GetTaskRequest", dict(worker_id=0)),
+        ("get_task_batch", "GetTaskRequest", dict(worker_id=1, max_tasks=2)),
+        ("report_task_result", "ReportTaskResultRequest",
+         dict(task_id=0, lease_token=1)),
+        ("report_task_results", "ReportTaskResultsRequest",
+         dict(results=[dict(task_id=1, lease_token=2),
+                       dict(task_id=2, err_message="boom", lease_token=3)])),
+        ("report_version", "ReportVersionRequest", dict(model_version=2)),
+        ("get_task", "GetTaskRequest", dict(worker_id=0,
+                                            task_type=pb.EVALUATION)),
+        ("report_evaluation_metrics", "ReportEvaluationMetricsRequest",
+         dict(worker_id=0)),
+        ("report_task_result", "ReportTaskResultRequest", dict(task_id=3)),
+        ("get_task", "GetTaskRequest", dict(worker_id=2)),
+        ("get_task", "GetTaskRequest", dict(worker_id=2,
+                                            task_type=pb.EVALUATION)),
+        ("get_job_status", "GetJobStatusRequest", {}),
+    ]
+    for method, req_name, fields in calls:
+        ours_req = getattr(pb, req_name)()
+        theirs_req = getattr(pb2, req_name)()
+        for name, value in fields.items():
+            if name == "results":
+                for entry in value:
+                    ours_req.results.add(**entry)
+                    theirs_req.results.add(**entry)
+            else:
+                setattr(ours_req, name, value)
+                setattr(theirs_req, name, value)
+        if method == "report_evaluation_metrics":
+            for req in (ours_req, theirs_req):
+                out = ndarray_to_tensor_pb(logits).SerializeToString()
+                lab = ndarray_to_tensor_pb(labels).SerializeToString()
+                if req is ours_req:
+                    req.model_outputs.append(pb.Tensor.FromString(out))
+                    req.labels = pb.Tensor.FromString(lab)
+                else:
+                    req.model_outputs.add().ParseFromString(out)
+                    req.labels.ParseFromString(lab)
+        got = getattr(stub, method)(ours_req)
+        want = getattr(theirs, method)(theirs_req, None)
+        if method == "get_job_status":
+            # seconds since each worker's last call differ between runs
+            assert sorted(got.worker_last_seen_ago) == sorted(
+                want.worker_last_seen_ago)
+            got.worker_last_seen_ago.clear()
+            want.worker_last_seen_ago.clear()
+            assert got.last_eval_metrics.keys() == {"token_ce"}
+        assert type(got).__name__ == type(want).__name__
+        parsed = type(want).FromString(got.SerializeToString())
+        assert parsed == want, method
+
+
+def test_stub_surfaces_handler_errors_as_rpc_errors():
+    class Broken:
+        def get_task(self, request, context):
+            raise RuntimeError("dispatcher down")
+
+    stub = rpc.InProcessStub(Broken(), rpc.MASTER_SERVICE)
+    with pytest.raises(rpc.RpcError) as err:
+        stub.get_task(pb.GetTaskRequest(worker_id=1))
+    assert err.value.code() == rpc.StatusCode.UNKNOWN
+    assert "dispatcher down" in err.value.details()
+    with pytest.raises(rpc.RpcError) as err:
+        stub.report_version(pb.ReportVersionRequest(model_version=1))
+    assert err.value.code() == rpc.StatusCode.UNIMPLEMENTED
+
+
+# ---------- (c) a tiny-LM job through both workers ----------
+
+
+def _lm_records():
+    tokens = synthetic_lm_tokens(32, TINY["max_len"], vocab=TINY["vocab"],
+                                 branching=4, seed=0)
+    records = [encode_example({"tokens": t}) for t in tokens]
+    return records[:24], records[24:]
+
+
+def _jax_trainer(named):
+    """A JAX LocalTrainer holding the flax-named weights `named` (its own
+    jitted init would cost seconds of compiling on the CPU)."""
+    params = {}
+    for name, value in named.items():
+        *path, leaf = name.split("/")
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = jax.numpy.asarray(value)
+    trainer = JaxLocalTrainer(jlm.custom_model(jlm.LMConfig(**TINY)),
+                              jlm.loss, jlm.optimizer())
+    trainer.restore_variables({"variables": {"params": params},
+                               "version": 0})
+    return trainer
+
+
+def _port_trainer(named=None, **kwargs):
+    trainer = LocalTrainer(tlm.custom_model(tlm.LMConfig(**TINY)), tlm.loss,
+                           tlm.optimizer(), device="cpu", **kwargs)
+    if named is not None:
+        trainer.load_flax_params(named)
+    return trainer
+
+
+def _recording(trainer, losses):
+    """Records each step's loss (the worker itself materializes it only at
+    log steps)."""
+    step = trainer.train_minibatch
+
+    def train_minibatch(features, labels):
+        result = step(features, labels)
+        losses.append(float(result[2]))
+        return result
+
+    trainer.train_minibatch = train_minibatch
+    return trainer
+
+
+def _task_log(reader_obj, log):
+    read = reader_obj.read_records
+
+    def read_records(task):
+        log.append((task.task_id, task.shard_name, task.start, task.end,
+                    int(task.type)))
+        yield from read(task)
+
+    reader_obj.read_records = read_records
+    return reader_obj
+
+
+_SHARDS = dict(training_shards={"train": (0, 24)},
+               evaluation_shards={"valid": (0, 8)})
+
+
+@pytest.fixture(scope="module")
+def jax_job():
+    """The tiny-LM job through the JAX package's Worker behind its gRPC
+    master, once per module: its results, and its trained trainer (whose
+    jitted step and forward later tests reuse instead of compiling
+    again)."""
+    train, valid = _lm_records()
+    initial = _port_trainer(seed=0)
+    initial.init_variables_if_needed(None)
+    start = initial.export_variables()["variables"]
+    jt = _jax_trainer(start)
+    losses, tasks = [], []
+    jreader = _task_log(jax_reader.CompositeReader([
+        jax_reader.InMemoryReader(train, "train"),
+        jax_reader.InMemoryReader(valid, "valid")]), tasks)
+    with start_master(records_per_task=8, num_epochs=1, shuffle=False,
+                      eval_metrics_factory=jlm.eval_metrics_fn,
+                      eval_steps=2, **_SHARDS) as m:
+        JaxWorker(
+            0, JaxMasterClient(m["addr"], 0), jreader, jax_spec(
+                "elasticdl_tpu.models.transformer.transformer_lm"),
+            _recording(jt, losses), minibatch_size=4,
+            job_type=JaxJobType.TRAINING_WITH_EVALUATION,
+        ).run()
+        done = (m["task_d"].finished(), m["task_d"].job_failed)
+        records_done = m["task_d"].stats()["records_done"]
+        evals = list(m["evaluation_service"].completed_results)
+    del jt.train_minibatch  # the recording wrapper
+    return dict(start=start, trainer=jt, losses=losses, tasks=tasks,
+                done=done, records_done=records_done, evals=evals)
+
+
+def test_tiny_lm_job_matches_jax_worker(jax_job):
+    train, valid = _lm_records()
+    assert jax_job["done"] == (True, False)
+    losses, tasks = [], []
+    task_d = TaskDispatcher(_SHARDS["training_shards"],
+                            _SHARDS["evaluation_shards"], records_per_task=8,
+                            num_epochs=1, shuffle=False)
+    evaluation = EvaluationService(task_d, tlm.eval_metrics_fn, eval_steps=2)
+    servicer = MasterServicer(task_d, evaluation)
+    preader = _task_log(reader.CompositeReader([
+        reader.InMemoryReader(train, "train"),
+        reader.InMemoryReader(valid, "valid")]), tasks)
+    client = MasterClient(rpc.InProcessStub(servicer, rpc.MASTER_SERVICE), 0)
+    worker = Worker(0, client, preader, get_model_spec(LM_SPEC),
+                    _recording(_port_trainer(jax_job["start"]), losses),
+                    minibatch_size=4,
+                    job_type=JobType.TRAINING_WITH_EVALUATION)
+    worker.run()
+    assert task_d.finished() and not task_d.job_failed
+
+    assert tasks == jax_job["tasks"]
+    assert len(losses) == worker.steps == 6
+    np.testing.assert_allclose(losses, jax_job["losses"], atol=LOSS_ATOL)
+    assert task_d.stats()["records_done"] == jax_job["records_done"] == 24
+    assert [v for v, _ in evaluation.completed_results] == [
+        v for v, _ in jax_job["evals"]] == [2, 4, 6]
+    for (_, ours), (_, theirs) in zip(evaluation.completed_results,
+                                      jax_job["evals"]):
+        assert abs(ours["token_ce"] - theirs["token_ce"]) < EVAL_ATOL
+
+
+# ---------- (d) a recovery drill ----------
+
+
+class _Killed(BaseException):
+    """A worker process dying: nothing in the worker loop catches it."""
+
+
+class _DyingClient(MasterClient):
+    """Worker 0's client: after its first task completes, the next task it
+    leases is its last — the worker dies holding it."""
+
+    def __init__(self, stub, worker_id):
+        super().__init__(stub, worker_id)
+        self.leased = 0
+
+    def get_task(self, task_type=pb.TRAINING):
+        task = super().get_task(task_type)
+        if task.task_id >= 0:
+            self.leased += 1
+            if self.leased == 2:
+                raise _Killed(task.task_id)
+        return task
+
+
+def test_recovery_drill_keeps_records_done_exact():
+    train, _ = _lm_records()
+    task_d = TaskDispatcher({"train": (0, 24)}, records_per_task=8,
+                            num_epochs=1, shuffle=True, seed=3)
+    servicer = MasterServicer(task_d)
+    spec = get_model_spec(LM_SPEC)
+
+    def worker(worker_id, client_cls):
+        client = client_cls(rpc.InProcessStub(servicer, rpc.MASTER_SERVICE),
+                            worker_id)
+        return Worker(worker_id, client,
+                      reader.InMemoryReader(train, "train"), spec,
+                      _port_trainer(seed=worker_id), minibatch_size=4)
+
+    first = worker(0, _DyingClient)
+    with pytest.raises(_Killed):
+        first.run()
+    assert first.steps == 2  # one task of 8 records
+    assert task_d.stats()["doing_by_worker"] == {0: 1}
+    task_d.recover_tasks(0)  # the instance manager saw worker 0 die
+
+    second = worker(1, MasterClient)
+    second.run()
+    stats = task_d.stats()
+    assert task_d.finished() and not task_d.job_failed
+    assert stats["records_done"] == 24  # every record once, none twice
+    assert stats["tasks_recovered"] == 1
+    assert second.steps == 4
+
+
+# ---------- (e) worker checkpoints across the two packages ----------
+
+
+def test_checkpoints_restore_across_packages(tmp_path, jax_job):
+    train, _ = _lm_records()
+    x, y = tlm.feed(train[:4], "training", None)
+    x2, y2 = tlm.feed(train[4:8], "training", None)
+
+    # JAX -> port, through restore_on_init: the JAX job's trained trainer
+    # (6 Adam steps) saved by the JAX package.
+    jt = jax_job["trainer"]
+    jax_save_utils.save_trainer_checkpoint(jt, str(tmp_path / "jax"))
+    ours = _port_trainer(seed=5)
+    ours.restore_on_init = str(tmp_path / "jax.npz")
+    np.testing.assert_allclose(ours.evaluate_minibatch(x),
+                               jt.evaluate_minibatch(x), atol=EVAL_ATOL)
+    assert ours.get_model_version() == jt.get_model_version() == 6
+    # One further Adam step from the restored moments matches.
+    _, version, loss = ours.train_minibatch(x2, y2)
+    _, jversion, jloss = jt.train_minibatch(x2, y2)
+    assert version == jversion == 7
+    assert abs(loss.item() - float(jloss)) < LOSS_ATOL
+    np.testing.assert_allclose(ours.evaluate_minibatch(x),
+                               jt.evaluate_minibatch(x), atol=EVAL_ATOL)
+
+    # port -> JAX: the port's file restores into the JAX trainer.
+    _, _, loss = ours.train_minibatch(x, y)
+    save_utils.save_trainer_checkpoint(ours, str(tmp_path / "port"))
+    jax_save_utils.restore_trainer_checkpoint(jt, str(tmp_path / "port"))
+    assert jt.get_model_version() == 8
+    np.testing.assert_allclose(jt.evaluate_minibatch(x),
+                               ours.evaluate_minibatch(x), atol=EVAL_ATOL)
+    _, _, loss = ours.train_minibatch(x2, y2)
+    _, _, jloss = jt.train_minibatch(x2, y2)
+    assert abs(loss.item() - float(jloss)) < LOSS_ATOL
+    np.testing.assert_allclose(jt.evaluate_minibatch(x),
+                               ours.evaluate_minibatch(x), atol=EVAL_ATOL)
+
+    # port -> port is exact, and a weights-only export restores weights.
+    save_utils.save_trainer_checkpoint(ours, str(tmp_path / "again"))
+    again = _port_trainer(seed=6)
+    again.restore_on_init = str(tmp_path / "again")
+    np.testing.assert_array_equal(again.evaluate_minibatch(x),
+                                  ours.evaluate_minibatch(x))
+    assert again.train_minibatch(x2, y2)[2].item() == \
+        ours.train_minibatch(x2, y2)[2].item()
+    save_utils.ExportModelCallback(str(tmp_path / "export")).on_train_end(
+        ours)
+    with np.load(tmp_path / "export.npz") as data:
+        assert not any(k.startswith("__opt__") for k in data.files)
+        assert "params/lm_head/kernel" in data.files

@@ -1,6 +1,7 @@
 """The port stands alone: every module of elasticdl_tpu_torch (and
-chip_smoke.py) imports with jax, flax and optax blocked and loads nothing of
-the JAX package."""
+chip_smoke.py) imports with jax, flax, optax, grpc, google.protobuf and
+ml_dtypes blocked (none is on the card's machine) and loads nothing of the
+JAX package."""
 
 import os
 import pkgutil
@@ -15,7 +16,8 @@ PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
 
 _GUARD = """
 import importlib, sys
-for name in ("jax", "flax", "optax"):
+for name in ("jax", "flax", "optax", "grpc", "google.protobuf",
+             "ml_dtypes"):
     sys.modules[name] = None
 for name in sys.argv[1:]:
     importlib.import_module(name)
@@ -37,6 +39,9 @@ def test_port_imports_with_jax_blocked():
     modules = _port_modules()
     assert "elasticdl_tpu_torch.ops.flash_attention" in modules
     assert "elasticdl_tpu_torch.worker.trainer" in modules
+    assert "elasticdl_tpu_torch.worker.worker" in modules
+    assert "elasticdl_tpu_torch.master.servicer" in modules
+    assert "elasticdl_tpu_torch.proto.messages" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],
         cwd=REPO, capture_output=True, text=True, timeout=120,

@@ -13,7 +13,9 @@ import jax
 from elasticdl_tpu.common.pytree_utils import flatten_params
 from elasticdl_tpu.models.transformer import transformer_lm as jlm
 from elasticdl_tpu_torch.common.model_utils import Modes, get_model_spec
+from elasticdl_tpu.data.example import encode_example as jax_encode_example
 from elasticdl_tpu_torch.common.params import params_from_flax, params_to_flax
+from elasticdl_tpu_torch.data.example import encode_example
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 
 torch.set_num_threads(1)
@@ -188,7 +190,8 @@ def test_model_spec_feed_and_metrics():
     spec = get_model_spec(
         "elasticdl_tpu_torch.models.transformer.transformer_lm"
     )
-    records = [{"tokens": np.arange(9) + i} for i in range(3)]
+    records = [encode_example({"tokens": np.arange(9) + i})
+               for i in range(3)]
     features, labels = spec.feed(records, Modes.TRAINING, None)
     assert features.shape == labels.shape == (3, 8)
     assert features.dtype == np.int32
@@ -199,3 +202,21 @@ def test_model_spec_feed_and_metrics():
     metric.update(logits, labels)
     assert abs(metric.result() - np.log(64)) < 1e-5
     assert spec.build_optimizer_spec().to_flags() == jlm.optimizer().to_flags()
+
+
+@pytest.mark.parametrize("mode", [Modes.TRAINING, Modes.PREDICTION])
+def test_feed_matches_jax_feed(mode):
+    """Both feeds take the same serialized Example records (written by the
+    JAX package's codec) and give equal arrays."""
+    tokens = np.random.default_rng(0).integers(0, 64, (4, 17))
+    records = [jax_encode_example({"tokens": t.astype(np.int32)})
+               for t in tokens]
+    features, labels = tlm.feed(records, mode, None)
+    jfeatures, jlabels = jlm.feed(records, mode, None)
+    assert features.dtype == jfeatures.dtype == np.int32
+    np.testing.assert_array_equal(features, jfeatures)
+    np.testing.assert_array_equal(features, tokens[:, :-1])
+    if mode == Modes.PREDICTION:
+        assert labels is None and jlabels is None
+    else:
+        np.testing.assert_array_equal(labels, jlabels)
