@@ -38,7 +38,33 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    and evaluation results are checked. Then a checkpoint round trip:
    save_trainer_checkpoint, restore into a fresh trainer through
    restore_on_init, eval logits bitwise equal.
-Then the {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+8. ps_step, the parameter-server path direct: DeepFMCriteoPS at full width
+   (39 fields over 5,546,673 shared ids, deep_dim 8, DNN (16, 4)) at batch
+   16384 with its tables in 2 in-process PS shards (Adam), on four seeded
+   id batches uniform over the id space. First one batch at the same
+   weights on the card and on the CPU: loss, dense gradients and row
+   gradients within 1e-5 of the largest value. Then three runs of 4 warm-up
+   and 8 timed steps: float32 wire inline, float32 wire pipelined (push
+   thread, lookahead pulls, row cache), bfloat16 wire pipelined; each
+   prints examples/s, ms per step, the trainer's phase split, bytes to and
+   from the card per step, the row cache's hit ratio, rows per table per
+   shard and the device's busy share over one profiled step. Every push
+   must be accepted and each shard's version equal the steps taken.
+9. ps_job, the parameter-server path through every layer: 16384 training
+   and 4096 validation synthetic Criteo records in .edlr files, Master with
+   ParameterServerStrategy and 2 shards, tasks of 4096 records, minibatch
+   1024, evaluation every 8 versions, one worker from build_worker on the
+   shards' in-process stubs: 16 steps. After step 8 shard 0 is relaunched
+   empty and re-seeded by the worker. records_done must be 16384, all 16
+   pushes accepted, evaluation must report auc and accuracy, the logged
+   losses finite and falling. Then a PS checkpoint round trip: shards saved
+   at the last version and restored into fresh shards give bitwise-equal
+   eval outputs. Prints wall time, host share, host time by call (the
+   feed's record decode per record among them) and checkpoint bytes, save
+   and restore seconds.
+The PS phases launch none of the flash-attention kernels; their counts are
+reset before each and read after it. Then the {"kernels": [...]} line, and
+last {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -57,19 +83,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from elasticdl_tpu_torch import native
 from elasticdl_tpu_torch.common import args as edl_args
 from elasticdl_tpu_torch.common.params import params_to_flax
 from elasticdl_tpu_torch.common.save_utils import save_trainer_checkpoint
 from elasticdl_tpu_torch.data.example import encode_example
+from elasticdl_tpu_torch.data.gen.criteo import iter_criteo_records
 from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
 from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
 from elasticdl_tpu_torch.master.master import Master
+from elasticdl_tpu_torch.models.dac_ctr import deepfm_ps
+from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.ops import mma_peak
+from elasticdl_tpu_torch.ps import checkpoint as ps_checkpoint
+from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
 from elasticdl_tpu_torch.worker.main import build_worker
 from elasticdl_tpu_torch.worker.master_client import MasterClient
+from elasticdl_tpu_torch.worker.ps_client import PSClient
+from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
 from elasticdl_tpu_torch.worker.trainer import LocalTrainer
 
 # H100 SXM data-sheet peaks (dense). An f32 product takes either f32 FMA
@@ -136,6 +170,30 @@ from elasticdl_tpu_torch.models.transformer.transformer_lm import (  # noqa
 def custom_model():
     return _lm.custom_model(_lm.flagship_config({seq}))
 """
+
+# The parameter-server phases: DeepFM-PS as the JAX package's PS bench runs
+# it (bench/workloads.py: batch 16384, 2 shards, 4 distinct id batches, 4
+# warm-up steps so the timed steps meet warm rows), and a job through the
+# master with tasks of 4096 records and minibatches of 1024 (16 steps; the
+# record decode costs ~1 ms per record on one host core, so the job's
+# minibatch is smaller than the direct phase's).
+PS_SPEC = "elasticdl_tpu_torch.models.dac_ctr.deepfm_ps"
+PS_BATCH = 16384
+PS_SHARDS = 2
+PS_WARMUP = 4
+PS_STEPS = 8
+PS_RUNS = (("f32_inline", "float32", False),
+           ("f32_pipelined", "float32", True),
+           ("bf16_pipelined", "bfloat16", True))
+# Card against CPU: the same float32 arithmetic summed in another order,
+# as a share of the largest value compared.
+PS_CHECK_RTOL = 1e-5
+PS_JOB_TRAIN = 16384
+PS_JOB_VALID = 4096
+PS_JOB_TASK = 4096
+PS_JOB_BATCH = 1024
+PS_JOB_EVAL_STEPS = 8
+PS_RESEED_AFTER = 8
 
 
 def emit(obj):
@@ -789,15 +847,385 @@ def _checkpoint_round_trip(trainer, root, rows):
     return result
 
 
+def _ps_batches(n, batch, seed):
+    """Distinct seeded id batches, ids uniform over the shared id space (as
+    the JAX package's bench/matrix.py makes them)."""
+    rng = np.random.default_rng(seed)
+    return [({"dense": rng.normal(size=(batch, 13)).astype(np.float32),
+              "ids": rng.integers(0, TOTAL_IDS, size=(batch, NUM_FIELDS))
+              .astype(np.int32)},
+             rng.integers(0, 2, batch).astype(np.int64)) for _ in range(n)]
+
+
+def _ps_trainer(wire, pipelined, device=None, seed=0):
+    spec = deepfm_ps
+    shards = [ParameterServer(i, PS_SHARDS, optimizer_spec=spec.optimizer())
+              for i in range(PS_SHARDS)]
+    client = PSClient([s.stub() for s in shards], worker_id=0,
+                      wire_dtype=wire)
+    trainer = ParameterServerTrainer(
+        spec.custom_model(), spec.loss, spec.optimizer(), client,
+        embedding_inputs=spec.embedding_inputs, pipeline_pushes=pipelined,
+        seed=seed, device=device)
+    return trainer, client, shards
+
+
+def _record_pushes(client):
+    """Wraps client.push_gradients: the list it returns gets, per push, the
+    dense and sparse gradients as pushed and whether all shards accepted."""
+    pushes = []
+    inner = client.push_gradients
+
+    def push(dense, sparse, version, **kw):
+        accepted, new_version = inner(dense, sparse, version, **kw)
+        pushes.append((dense, sparse, accepted))
+        return accepted, new_version
+
+    client.push_gradients = push
+    return pushes
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _ps_card_vs_cpu(batch):
+    """One inline step at the same weights on the card and on the CPU, each
+    through its own two fresh shards (which create the same rows)."""
+    errors, losses = {}, {}
+    cpu, cpu_client, _ = _ps_trainer("float32", False, device="cpu")
+    card, card_client, _ = _ps_trainer("float32", False)
+    cpu.init_variables_if_needed(batch[0])
+    card.load_flax_params(params_to_flax(cpu._model))
+    got = {}
+    for name, trainer, client in (("cpu", cpu, cpu_client),
+                                  ("card", card, card_client)):
+        pushes = _record_pushes(client)
+        losses[name] = float(trainer.train_minibatch(*batch)[2])
+        got[name] = pushes[0]
+        client.close()
+    errors["loss"] = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    dense, sparse, _ = got["card"]
+    cpu_dense, cpu_sparse, _ = got["cpu"]
+    for name in cpu_dense:
+        errors[name] = _rel_err(dense[name], cpu_dense[name])
+    for table in cpu_sparse:
+        errors[table + " rows"] = _rel_err(sparse[table][0],
+                                           cpu_sparse[table][0])
+        if not np.array_equal(sparse[table][1], cpu_sparse[table][1]):
+            errors[table + " ids"] = float("inf")
+    result = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+              "tolerance": PS_CHECK_RTOL, "max_rel_err": errors}
+    emit({"phase": "ps_step", "card_vs_cpu": result})
+    bad = {k: v for k, v in errors.items() if not v <= PS_CHECK_RTOL}
+    if bad:
+        raise AssertionError(f"ps_step card vs CPU: {bad}")
+
+
+def _ps_profile_step(trainer, batch):
+    """One inline-synchronized step under torch.profiler: the device's busy
+    share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        trainer.train_minibatch(*batch)[2].item()
+        trainer._flush_pushes()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy_us / 1e3 if busy_us else "not measured",
+            "device_busy_share": busy_us / 1e3 / wall_ms if busy_us
+            else None}
+
+
+def _ps_run(name, wire, pipelined, batches):
+    trainer, client, shards = _ps_trainer(wire, pipelined)
+    pushes = _record_pushes(client)
+    n = len(batches)
+
+    def step(i):
+        features, labels = batches[i % n]
+        return trainer.train_minibatch(
+            features, labels, next_features=batches[(i + 1) % n][0])[2]
+
+    for i in range(PS_WARMUP):
+        step(i)
+    trainer._flush_pushes()
+    torch.cuda.synchronize()
+    trainer.timing.reset()
+    trainer.h2d_bytes = trainer.d2h_bytes = 0
+    cache0 = trainer._row_cache.stats()
+    start = time.perf_counter()
+    for i in range(PS_WARMUP, PS_WARMUP + PS_STEPS):
+        loss = step(i)
+    loss = float(loss)
+    trainer._flush_pushes()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    cache1 = trainer._row_cache.stats()
+    lookups = cache1["lookups"] - cache0["lookups"]
+    profiled = _ps_profile_step(trainer, batches[0])
+    versions = [s.parameters.version for s in shards]
+    result = {
+        "phase": "ps_step", "run": name, "wire": wire,
+        "pipelined": pipelined, "batch": PS_BATCH, "shards": PS_SHARDS,
+        "steps": PS_STEPS, "loss": loss,
+        "examples_per_s": PS_STEPS * PS_BATCH / elapsed,
+        "ms_per_step": 1e3 * elapsed / PS_STEPS,
+        "phase_ms_per_step": {
+            k: 1e3 * v["total_s"] / PS_STEPS
+            for k, v in sorted(trainer.timing.summary().items())},
+        "h2d_bytes_per_step": trainer.h2d_bytes / PS_STEPS,
+        "d2h_bytes_per_step": trainer.d2h_bytes / PS_STEPS,
+        "row_cache_hit_ratio": (cache1["hits"] - cache0["hits"]) / lookups
+        if lookups else None,
+        "rows_per_table_per_shard": [
+            {t: len(tab) for t, tab in
+             s.parameters.embedding_tables.items()} for s in shards],
+        "profiled_step": profiled,
+        "pushes": len(pushes),
+        "all_accepted": all(accepted for _, _, accepted in pushes),
+        "ps_versions": versions,
+    }
+    emit(result)
+    steps = PS_WARMUP + PS_STEPS + 1
+    trainer.close()
+    client.close()
+    if not (result["all_accepted"] and len(pushes) == steps
+            and versions == [steps] * PS_SHARDS and math.isfinite(loss)):
+        raise AssertionError(
+            f"ps_step {name}: {len(pushes)} pushes, all accepted "
+            f"{result['all_accepted']}, versions {versions}, loss {loss}")
+    return result
+
+
+def phase_ps_step():
+    """DeepFM-PS at batch 16384 through in-process PS shards: card against
+    CPU on one batch, then the three timed runs."""
+    start = time.perf_counter()
+    native.lib()  # the PS host library, built with g++ at first use
+    build_s = time.perf_counter() - start
+    batches = _ps_batches(PS_WARMUP, PS_BATCH, seed=0)
+    emit({"phase": "ps_step", "host_library_build_s": build_s,
+          "host_library": native.library_path()})
+    _ps_card_vs_cpu(batches[0])
+    return {name: _ps_run(name, wire, pipelined, batches)
+            for name, wire, pipelined in PS_RUNS}
+
+
+def _write_ps_job_inputs(root):
+    paths = {}
+    for name, count, seed in (("train", PS_JOB_TRAIN, 0),
+                              ("valid", PS_JOB_VALID, 1)):
+        paths[name] = os.path.join(root, f"criteo_{name}.edlr")
+        with RecordFileWriter(paths[name]) as writer:
+            for record in iter_criteo_records(count, seed=seed):
+                writer.write(record)
+    return paths
+
+
+def phase_ps_job():
+    """DeepFM-PS trained as an elastic job through the master's tasks and
+    two in-process shards, with a shard relaunched mid-job, then a PS
+    checkpoint round trip."""
+    with tempfile.TemporaryDirectory() as root:
+        start = time.perf_counter()
+        paths = _write_ps_job_inputs(root)
+        write_s = time.perf_counter() - start
+        common = [
+            "--model_def", PS_SPEC,
+            "--distribution_strategy", "ParameterServerStrategy",
+            "--training_data", paths["train"],
+            "--validation_data", paths["valid"],
+            "--records_per_task", str(PS_JOB_TASK),
+            "--num_epochs", "1", "--minibatch_size", str(PS_JOB_BATCH),
+            "--evaluation_steps", str(PS_JOB_EVAL_STEPS), "--seed", "0",
+        ]
+        master_args = edl_args.master_parser().parse_args(
+            common + ["--instance_backend", "none",
+                      "--num_ps", str(PS_SHARDS)])
+        edl_args.validate_args(master_args)
+        master = Master(master_args)
+        client = MasterClient(master.stub(), 0)
+        worker_args = edl_args.worker_parser().parse_args(common + [
+            "--worker_id", "0", "--master_addr", "in-process",
+            "--job_type", "training_with_evaluation",
+            "--log_loss_steps", "4",
+        ])
+        edl_args.validate_args(worker_args)
+        worker = build_worker(worker_args, client,
+                              ps_stubs=master.ps_stubs())
+        trainer = worker.trainer
+        host = {}
+        for name in ("report_evaluation_metrics", "get_task",
+                     "report_task_result", "report_version"):
+            _timed(client, name, host, "client_" + name)
+        _timed(master.servicer, "report_evaluation_metrics", host,
+               "servicer_report_evaluation_metrics")
+        fed = {"records": 0}
+        inner_feed = worker._spec.feed
+
+        def feed(records, mode, metadata):
+            fed["records"] += len(records)
+            return inner_feed(records, mode, metadata)
+
+        worker._spec.feed = feed
+        _timed(worker._spec, "feed", host, "feed")
+        inside = {}
+        _timed(trainer, "train_minibatch", inside)
+        _timed(trainer, "evaluate_minibatch", inside)
+        pushes = _record_pushes(trainer._ps)
+        timed_train = trainer.train_minibatch
+        drill = {}
+
+        def train(features, labels):
+            if inside.get("train_minibatch_calls", 0) == PS_RESEED_AFTER:
+                # Between steps 8 and 9 shard 0 comes back empty, as a
+                # relaunched PS pod on the same address.
+                trainer._flush_pushes()
+                drill["version_before"] = trainer.get_model_version()
+                fresh = master.relaunch_ps(0)
+                drill["fresh_initialized"] = fresh.parameters.initialized
+            return timed_train(features, labels)
+
+        trainer.train_minibatch = train
+        loss_log = _LossLog()
+        worker_logger = logging.getLogger(
+            "elasticdl_tpu_torch.worker.worker")
+        worker_logger.addHandler(loss_log)
+        fa.reset_launch_counts()
+        start = time.perf_counter()
+        try:
+            worker.run()
+            trainer.close()
+        finally:
+            worker_logger.removeHandler(loss_log)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        launches = dict(fa.launches)
+
+        stats = master.task_d.stats()
+        evals = master.evaluation_service.completed_results
+        losses = [loss for _, loss, _ in loss_log.lines]
+        versions = [s.parameters.version for s in master.ps_servers]
+        model_s = inside.get("train_minibatch", 0.0) + inside.get(
+            "evaluate_minibatch", 0.0)
+        n_steps = PS_JOB_TRAIN // PS_JOB_BATCH
+        drill["fresh_shard_initialized_after"] = (
+            master.ps_servers[0].parameters.initialized)
+        result = {
+            "phase": "ps_job", "write_records_s": write_s, "wall_s": wall_s,
+            "records_done": stats["records_done"], "steps": worker.steps,
+            "pushes": len(pushes),
+            "pushes_accepted": sum(a for _, _, a in pushes),
+            "ps_versions": versions, "reseed_drill": drill,
+            "logged_losses": losses, "eval_results": evals,
+            "train_minibatch_s": inside.get("train_minibatch"),
+            "evaluate_minibatch_s": inside.get("evaluate_minibatch"),
+            "host_share": 1.0 - model_s / wall_s,
+            "host_s_by_call": host,
+            "records_decoded": fed["records"],
+            "decode_ms_per_record": 1e3 * host.get("feed", 0.0)
+            / max(fed["records"], 1),
+            "launches": launches,
+        }
+        emit(result)
+        checks = [
+            (master.task_d.finished() and not master.task_d.job_failed,
+             "the job did not finish cleanly"),
+            (stats["records_done"] == PS_JOB_TRAIN,
+             f"records_done {stats['records_done']}"),
+            (worker.steps == n_steps, f"{worker.steps} steps"),
+            (len(pushes) == n_steps and all(a for _, _, a in pushes),
+             f"{len(pushes)} pushes, accepted {result['pushes_accepted']}"),
+            (versions == [n_steps] * PS_SHARDS, f"PS versions {versions}"),
+            (drill.get("fresh_initialized") is False
+             and drill["fresh_shard_initialized_after"],
+             f"re-seed drill {drill}"),
+            (evals and all({"auc", "accuracy"} <= set(m)
+                           and all(math.isfinite(x) for x in m.values())
+                           for _, m in evals),
+             f"evaluation results {evals}"),
+            (len(losses) >= 2 and all(math.isfinite(x) for x in losses)
+             and losses[-1] < losses[0], f"logged losses {losses}"),
+            (not any(launches.values()), f"launches {launches}"),
+        ]
+        for ok, what in checks:
+            if not ok:
+                raise AssertionError(f"ps_job phase: {what}")
+        emit({"phase": "ps_job", **_ps_checkpoint_round_trip(
+            master, trainer, root)})
+    return launches
+
+
+def _ps_checkpoint_round_trip(master, trainer, root):
+    """Every shard saved at the last version, restored into fresh shards:
+    a fresh worker's eval outputs bitwise equal to the job's worker's."""
+    features, _ = deepfm_ps.feed(
+        list(iter_criteo_records(PS_JOB_BATCH, seed=1)), "evaluation", None)
+    # First, so that rows the evaluation creates are in the checkpoint.
+    want = trainer.evaluate_minibatch(features)
+    ckpt_dir = os.path.join(root, "ps_ckpt")
+    version = master.ps_servers[0].parameters.version
+    start = time.perf_counter()
+    for i, server in enumerate(master.ps_servers):
+        ps_checkpoint.CheckpointSaver(ckpt_dir, i, PS_SHARDS).save(
+            version, server.parameters)
+    save_s = time.perf_counter() - start
+    vdir = os.path.join(ckpt_dir, f"version-{version}")
+    nbytes = sum(os.path.getsize(os.path.join(vdir, f))
+                 for f in os.listdir(vdir))
+    start = time.perf_counter()
+    fresh = [ParameterServer(i, PS_SHARDS,
+                             optimizer_spec=deepfm_ps.optimizer(),
+                             checkpoint_dir_for_init=ckpt_dir)
+             for i in range(PS_SHARDS)]
+    restore_s = time.perf_counter() - start
+    client = PSClient([s.stub() for s in fresh], worker_id=1)
+    restored = ParameterServerTrainer(
+        deepfm_ps.custom_model(), deepfm_ps.loss, deepfm_ps.optimizer(),
+        client, embedding_inputs=deepfm_ps.embedding_inputs, seed=1)
+    got = restored.evaluate_minibatch(features)
+    client.close()
+    result = {"checkpoint_bytes": nbytes, "save_s": save_s,
+              "restore_s": restore_s, "version": version,
+              "restored_version": restored.get_model_version(),
+              "rows_per_table": {
+                  t: sum(len(s.parameters.embedding_tables[t])
+                         for s in fresh)
+                  for t in fresh[0].parameters.embedding_tables},
+              "eval_outputs_bitwise_equal": bool(np.array_equal(got, want))}
+    if not (result["eval_outputs_bitwise_equal"]
+            and result["restored_version"] == version):
+        raise AssertionError(f"PS checkpoint round trip: {result}")
+    return result
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
               ("reference", phase_reference), ("main_path", phase_main_path),
-              ("job", lambda: phase_job(results["main_path"]))]
+              ("job", lambda: phase_job(results["main_path"])),
+              ("ps_step", phase_ps_step), ("ps_job", phase_ps_job)]
     results = {}
     for name, fn in phases:
         try:
+            if name == "ps_step":
+                fa.reset_launch_counts()
             results[name] = fn()
+            if name == "ps_step":
+                # The PS path runs no flash-attention kernel.
+                ps_launches = dict(fa.launches)
+                emit({"phase": "ps_step", "launches": ps_launches})
+                if any(ps_launches.values()):
+                    raise AssertionError(f"ps_step launches {ps_launches}")
         except Exception as e:  # report which phase failed, then stop
             traceback.print_exc()
             emit({"phase": name, "ok": False, "error": repr(e)})

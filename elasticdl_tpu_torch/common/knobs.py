@@ -152,3 +152,35 @@ declare("ELASTICDL_TASK_LEASE_BATCH", "int", 1,
         "in matching batches); 1 keeps the classic one-task-per-RPC "
         "protocol. Raising it divides dispatch RPC load at fleet "
         "scale.")
+
+# -- PS wire codec, prefetch overlap and shard recovery (worker/, ps/) --
+declare("ELASTICDL_WIRE_DTYPE", "str", "float32",
+        "Default PS wire codec when the PSClient isn't given one "
+        "explicitly: float32 or bfloat16 (bf16 embedding legs); the int8 "
+        "codec is not ported yet.")
+declare("ELASTICDL_PS_MAX_PUSH_BYTES", "int", 64 * 1024 * 1024,
+        "Packed gradient pushes larger than this split into chunked "
+        "sub-requests, so one giant embedding slice can't stall the "
+        "channel. <=0 disables chunking.")
+declare("ELASTICDL_PREFETCH_DEPTH", "int", 1,
+        "PS-trainer embedding prefetch lookahead: 1 issues the next "
+        "batch's pull RPCs while the current step computes (async "
+        "pipelined mode only); 0 restores the inline blocking prefetch.")
+declare("ELASTICDL_PREFETCH_CACHE_ROWS", "int", 1 << 22,
+        "Max cached embedding rows per table in the worker's versioned "
+        "row cache (the table flushes whole when exceeded and re-fills "
+        "on the following misses). 0 disables the cache.")
+declare("ELASTICDL_PREFETCH_CACHE_DENSE_IDS", "int", 1 << 24,
+        "Upper bound on embedding ids the worker row cache will index "
+        "(its id->slot index is a dense int32 array of this size at "
+        "most, ~64 MB at the cap). A table with larger ids stops "
+        "caching and pulls every prefetch from the PS.")
+declare("ELASTICDL_PREFETCH_CACHE_STALENESS", "int", 8,
+        "Staleness budget of the worker row cache, in PS model "
+        "versions: a cached row only hits while it was filled within "
+        "this many versions of the newest version the worker has seen "
+        "— the bounded-staleness contract async SGD already absorbs. "
+        "Negative disables the version check (never invalidate).")
+declare("ELASTICDL_PS_DEGRADED_BLOCK_SECONDS", "float", 20.0,
+        "Budget for _sync_model's re-seed/backoff loop on a degraded PS "
+        "shard before failing the minibatch up the retry ladder.")

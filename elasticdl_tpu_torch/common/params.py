@@ -11,6 +11,7 @@ to a state_dict key by joining with '.' and renaming the leaf:
   bias        bias        [*out] -> [prod(out)]
   scale       weight      LayerNorm scale, unchanged
   embedding   weight      [num, features], unchanged
+  table       table       a local DistributedEmbedding table, unchanged
 
 A DenseGeneral kernel such as the LM's qkv [d, 3, H, Dh] flattens its
 output axes in order, which is the (3, H, Dh) order the model splits.
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 _LEAF_TO_TORCH = {"kernel": "weight", "bias": "bias", "scale": "weight",
-                  "embedding": "weight"}
+                  "embedding": "weight", "table": "table"}
 
 
 def params_from_flax(named):
@@ -92,8 +93,8 @@ def flax_leaves(module):
                     leaf = "embedding"
                 else:
                     leaf = "scale"
-            elif leaf_name == "bias":
-                leaf = "bias"
+            elif leaf_name in ("bias", "table"):
+                leaf = leaf_name
             else:
                 raise ValueError(
                     f"no flax counterpart for {mod_name}.{leaf_name}"

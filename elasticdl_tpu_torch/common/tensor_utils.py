@@ -12,12 +12,18 @@ bfloat16 without ml_dtypes: numpy has no bfloat16 dtype here, so
   bfloat16 range round to infinity);
 - decoding a DT_BFLOAT16 tensor gives a float32 array holding the bfloat16
   values exactly (every bfloat16 is a float32), not a bfloat16 array.
-The packed and quantized parameter-server codec (:143-461 there) comes with
-the parameter-server slice.
+
+The parameter server's pieces follow (:120-461 there): indexed slices, ids
+as raw int64 bytes, and the packed push (a slim span header plus one
+out-of-band payload joined from views of the gradient arrays). Under the
+bfloat16 wire a sparse span carries bfloat16 bits rounded from float32 as
+above, and decodes to float32. The int8 block-quantized codec (:163-233
+there) is not ported yet: asking for it raises NotImplementedError.
 """
 
 import numpy as np
 
+from elasticdl_tpu_torch import native
 from elasticdl_tpu_torch.proto import messages as pb
 
 _NP_TO_PB = {
@@ -61,10 +67,18 @@ def float32_to_bfloat16_bits(values) -> np.ndarray:
     # np.array copies to a C-contiguous array and, unlike
     # np.ascontiguousarray, keeps a 0-d array 0-d.
     floats = np.array(values, dtype=np.float32)
-    bits = floats.view(np.uint32).astype(np.uint64)  # no overflow below
-    rounded = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16
-    nan_bits = ((bits >> 16) & 0x8000) | 0x7FC0
-    return np.where(np.isnan(floats), nan_bits, rounded).astype(np.uint16)
+    bits = floats.reshape(-1).view(np.uint32)
+    # In uint32: no bit pattern but a NaN's (above 0xFF800000) can carry
+    # past 32 bits, and NaNs are replaced below.
+    rounded = (bits >> np.uint32(16)) & np.uint32(1)
+    rounded += bits
+    rounded += np.uint32(0x7FFF)
+    rounded >>= np.uint32(16)
+    nan = np.isnan(floats.reshape(-1))
+    if nan.any():
+        rounded[nan] = (bits[nan] >> np.uint32(16)) & np.uint32(0x8000) | (
+            np.uint32(0x7FC0))
+    return rounded.astype(np.uint16).reshape(floats.shape)
 
 
 def bfloat16_bits_to_float32(bits) -> np.ndarray:
@@ -157,3 +171,270 @@ def tensor_pb_to_ndarray(tensor_pb: pb.Tensor) -> np.ndarray:
     dtype = pb_dtype_to_np(tensor_pb.dtype)
     arr = np.frombuffer(tensor_pb.content, dtype=dtype)
     return arr.reshape(tuple(tensor_pb.dims)).copy()
+
+
+# ---------------------------------------------------------------------------
+# indexed slices and ids
+# ---------------------------------------------------------------------------
+
+
+def ndarray_to_indexed_slices_pb(values, ids, name: str = "",
+                                 wire_dtype=None) -> pb.IndexedSlices:
+    if values.ndim != 2 or len(ids) != values.shape[0]:
+        raise ValueError(
+            f"IndexedSlices needs values [len(ids), dim]; "
+            f"got values {values.shape}, {len(ids)} ids"
+        )
+    return pb.IndexedSlices(
+        concat_tensors=ndarray_to_tensor_pb(values, name, wire_dtype),
+        ids_bytes=ids_to_bytes(ids),
+    )
+
+
+def indexed_slices_pb_to_ndarrays(slices_pb: pb.IndexedSlices):
+    values = tensor_pb_to_ndarray(slices_pb.concat_tensors)
+    if slices_pb.ids_bytes:
+        ids = ids_from_bytes(slices_pb.ids_bytes)
+    else:  # older writers used the repeated form
+        ids = np.asarray(slices_pb.ids, dtype=np.int64)
+    return values, ids
+
+
+def ids_to_bytes(ids) -> bytes:
+    """Embedding ids -> raw little-endian int64 bytes (the wire form of
+    every ids field)."""
+    return np.ascontiguousarray(ids, dtype=np.int64).tobytes()
+
+
+def ids_from_bytes(buf) -> np.ndarray:
+    """Raw little-endian int64 id bytes -> ndarray VIEW (no copy)."""
+    return np.frombuffer(buf, dtype=np.int64)
+
+
+def tensor_pb_to_bfloat16_bits(tensor_pb: pb.Tensor) -> np.ndarray:
+    """A DT_BFLOAT16 tensor -> its uint16 bit patterns, not widened (a
+    caller that uploads them to a device widens there, moving half the
+    bytes)."""
+    if tensor_pb.dtype != pb.DT_BFLOAT16:
+        raise ValueError(
+            f"tensor {tensor_pb.name!r} is not bfloat16 "
+            f"(dtype {pb.DataType.Name(tensor_pb.dtype)})"
+        )
+    return np.frombuffer(tensor_pb.content, dtype=np.uint16).reshape(
+        tuple(tensor_pb.dims))
+
+
+def _reject_int8(wire_dtype):
+    if wire_dtype == "int8" or wire_dtype == pb.DT_INT8:
+        raise NotImplementedError(
+            "the int8 block-quantized wire is not ported to "
+            "elasticdl_tpu_torch yet; use float32 or bfloat16"
+        )
+
+
+# ---------------------------------------------------------------------------
+# out-of-band (packed) tensor transport
+# ---------------------------------------------------------------------------
+#
+# A packed push is a slim span header plus ONE payload. PackedPayload keeps
+# zero-copy byte views over the source arrays; PackedPushRequest joins the
+# header with those views when it serializes, so the payload is copied once
+# between the arrays and the wire. The receiver decodes float32 spans as
+# np.frombuffer views into the received bytes.
+
+# field 12, wire type 2 (length-delimited): (12 << 3) | 2.
+_PACKED_PAYLOAD_TAG = bytes([(12 << 3) | 2])
+
+
+def _encode_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        bits = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(bits | 0x80)
+        else:
+            out.append(bits)
+            return bytes(out)
+
+
+def _byte_view(arr: np.ndarray) -> memoryview:
+    """Zero-copy uint8 view of a C-contiguous array's bytes."""
+    return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
+class PackedPayload:
+    """Ordered zero-copy byte parts forming one contiguous payload."""
+
+    def __init__(self):
+        self._parts = []
+        self.nbytes = 0
+
+    def add_array(self, arr) -> tuple:
+        """Append an array's bytes; returns (offset, nbytes). Keeps a VIEW
+        over the array: the caller must not mutate it before the request
+        serializes."""
+        view = _byte_view(arr)
+        offset = self.nbytes
+        self._parts.append(view)
+        self.nbytes += len(view)
+        return offset, len(view)
+
+    @property
+    def parts(self):
+        return list(self._parts)
+
+    def slice_parts(self, start: int, end: int):
+        """Zero-copy views covering payload bytes [start, end) (the chunked
+        push splitter)."""
+        out, pos = [], 0
+        for part in self._parts:
+            plen = len(part)
+            lo, hi = max(start, pos), min(end, pos + plen)
+            if lo < hi:
+                out.append(part[lo - pos:hi - pos])
+            pos += plen
+            if pos >= end:
+                break
+        return out
+
+
+def pack_tensor_span(name, arr, payload: PackedPayload,
+                     wire_dtype=None) -> pb.TensorSpan:
+    """Append one tensor to the payload; returns its TensorSpan header.
+    `wire_dtype=pb.DT_BFLOAT16` rounds a float array to bfloat16 (to
+    nearest, ties to even); otherwise the array's own dtype ships
+    byte-exact."""
+    _reject_int8(wire_dtype)
+    arr = np.asarray(arr)
+    if wire_dtype == pb.DT_BFLOAT16:
+        span = pb.TensorSpan(name=name, dims=list(arr.shape),
+                             dtype=pb.DT_BFLOAT16)
+        arr = float32_to_bfloat16_bits(arr)
+    elif wire_dtype is None:
+        span = pb.TensorSpan(name=name, dims=list(arr.shape),
+                             dtype=np_dtype_to_pb(arr.dtype))
+    else:
+        raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
+    span.offset, span.nbytes = payload.add_array(arr)
+    return span
+
+
+def pack_slices_span(name, values, ids, payload: PackedPayload,
+                     wire_dtype=None) -> pb.SlicesSpan:
+    """Sparse rows (values [k, dim] + int64 ids [k]) into the payload."""
+    span = pb.SlicesSpan(
+        values=pack_tensor_span(name, values, payload, wire_dtype))
+    span.ids_offset, span.ids_nbytes = payload.add_array(
+        np.ascontiguousarray(ids, dtype=np.int64)
+    )
+    return span
+
+
+def _payload_view(buf, offset, nbytes, dtype, what):
+    if offset < 0 or nbytes < 0 or offset + nbytes > len(buf):
+        raise ValueError(
+            f"packed {what} range [{offset}, {offset + nbytes}) outside "
+            f"the {len(buf)}-byte payload (truncated or corrupt push)"
+        )
+    dtype = np.dtype(dtype)
+    if nbytes % dtype.itemsize:
+        raise ValueError(
+            f"packed {what}: {nbytes} bytes is not a multiple of "
+            f"{dtype} itemsize"
+        )
+    return np.frombuffer(buf, dtype=dtype, count=nbytes // dtype.itemsize,
+                         offset=offset)
+
+
+def unpack_tensor_span(span: pb.TensorSpan, payload_buf) -> np.ndarray:
+    """TensorSpan -> ndarray: a read-only VIEW into payload_buf for most
+    dtypes (zero copy); bfloat16 spans widen to float32 here, their one
+    materialization on the receiving side. Raises ValueError on any
+    out-of-bounds range (truncated payload)."""
+    if span.scales_nbytes:
+        _reject_int8(pb.DT_INT8)
+    buf = memoryview(payload_buf)
+    what = f"span {span.name!r}"
+    if span.dtype == pb.DT_BFLOAT16:
+        flat = bfloat16_bits_to_float32(_payload_view(
+            buf, span.offset, span.nbytes, np.uint16, what))
+    else:
+        flat = _payload_view(buf, span.offset, span.nbytes,
+                             pb_dtype_to_np(span.dtype), what)
+    shape = tuple(span.dims)
+    expected = 1
+    for d in shape:
+        expected *= int(d)
+    if flat.size != expected:
+        raise ValueError(
+            f"span {span.name!r}: {flat.size} elements cannot fill "
+            f"shape {shape}"
+        )
+    return flat.reshape(shape)
+
+
+def unpack_slices_span(span: pb.SlicesSpan, payload_buf):
+    """SlicesSpan -> (values [k, dim], ids [k] int64), both views where the
+    dtype allows (see unpack_tensor_span)."""
+    values = unpack_tensor_span(span.values, payload_buf)
+    ids = _payload_view(
+        memoryview(payload_buf), span.ids_offset, span.ids_nbytes,
+        np.int64, f"slices {span.values.name!r} ids",
+    )
+    if values.ndim != 2 or ids.size != values.shape[0]:
+        raise ValueError(
+            f"slices {span.values.name!r}: {ids.size} ids for values "
+            f"{values.shape}"
+        )
+    return values, ids
+
+
+class PackedPushRequest:
+    """A PushGradientsPackedRequest as a slim header message plus an
+    out-of-band payload: `SerializeToString()` emits the serialized header
+    followed by the payload field's wire bytes (tag, varint length, raw
+    parts), valid proto3 that the ordinary FromString decodes. `header`
+    must leave `payload` unset."""
+
+    def __init__(self, header, parts, nbytes):
+        self._header = header
+        self._parts = parts
+        self._nbytes = int(nbytes)
+
+    def SerializeToString(self) -> bytes:  # noqa: N802 (message contract)
+        head = self._header.SerializeToString()
+        if not self._nbytes:
+            return head
+        return b"".join(
+            [head, _PACKED_PAYLOAD_TAG, _encode_varint(self._nbytes)]
+            + list(self._parts)
+        )
+
+
+def merge_indexed_slices(values_list, ids_list):
+    """Concatenate sparse updates, then sum duplicate ids."""
+    values = np.concatenate(values_list, axis=0)
+    ids = np.concatenate(ids_list, axis=0)
+    return deduplicate_indexed_slices(values, ids)
+
+
+def deduplicate_indexed_slices(values, ids):
+    """float32 rows [n, dim] with int64 ids [n] -> (rows summed per id,
+    unique ids ascending), by the host library's radix sort."""
+    values = np.ascontiguousarray(values, dtype=np.float32)
+    ids = np.ascontiguousarray(ids, dtype=np.int64)
+    if values.ndim != 2 or len(ids) != values.shape[0]:
+        raise ValueError(
+            f"dedup needs values [len(ids), dim]; got values "
+            f"{values.shape}, {len(ids)} ids"
+        )
+    out_ids = np.empty(len(ids), dtype=np.int64)
+    out_values = np.empty_like(values)
+    if not len(ids):
+        return out_values, out_ids
+    n = native.lib().edl_dedup_sum(
+        native.i64p(ids), native.f32p(values), len(ids), values.shape[1],
+        native.i64p(out_ids), native.f32p(out_values),
+    )
+    return out_values[:n], out_ids[:n]

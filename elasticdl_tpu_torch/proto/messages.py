@@ -9,8 +9,9 @@ protobuf runtime writes for the same values, and `FromString()` reads what it
 writes. The encoding rules kept here:
 
 - scalars at their default (0, False, "", b"", enum 0) are left out;
-- int32, int64 and enum values are varints, negative ones as ten-byte
-  two's-complement varints (a Task with task_id -1 is the "no task" answer);
+- int32, int64, uint64 and enum values are varints, negative ones as
+  ten-byte two's-complement varints (a Task with task_id -1 is the "no task"
+  answer);
 - float is a little-endian fixed32;
 - repeated numeric fields are written packed and read packed or unpacked;
 - a map is a repeated entry message (key = 1, value = 2), each entry
@@ -32,7 +33,7 @@ _MASK64 = (1 << 64) - 1
 # Wire types.
 _VARINT, _FIXED64, _LEN, _FIXED32 = 0, 1, 2, 5
 
-_VARINT_KINDS = ("int32", "int64", "bool", "enum")
+_VARINT_KINDS = ("int32", "int64", "uint64", "bool", "enum")
 
 
 class EnumType:
@@ -109,6 +110,8 @@ def _from_varint(kind, value):
         return value != 0
     if kind == "int64":
         return _signed(value, 64)
+    if kind == "uint64":
+        return value & _MASK64
     return _signed(value, 32)  # int32 and (open) enums
 
 
@@ -158,8 +161,8 @@ def _is_default(kind, value):
 
 
 def _default(kind):
-    return {"int32": 0, "int64": 0, "enum": 0, "bool": False, "float": 0.0,
-            "string": "", "bytes": b""}.get(kind)
+    return {"int32": 0, "int64": 0, "uint64": 0, "enum": 0, "bool": False,
+            "float": 0.0, "string": "", "bytes": b""}.get(kind)
 
 
 def _read_field(buf, pos, wire_type):
@@ -206,8 +209,8 @@ def _decode_scalar(kind, wire_type, raw):
 
 class Field:
     """One field of a message: number, name, kind ("int32", "int64",
-    "bool", "float", "string", "bytes", "enum" or a Message class) and
-    label ("single", "repeated" or "map"; a map's key kind is `key`)."""
+    "uint64", "bool", "float", "string", "bytes", "enum" or a Message class)
+    and label ("single", "repeated" or "map"; a map's key kind is `key`)."""
 
     __slots__ = ("number", "name", "kind", "label", "key")
 
@@ -293,6 +296,10 @@ class Message:
         chunks = []
         self._chunks(chunks)
         return b"".join(chunks)
+
+    def ByteSize(self):
+        """The encoded size, without joining the encoding."""
+        return self._chunks([])
 
     def _chunks(self, chunks):
         """Appends this message's encoding to `chunks`; returns its size."""
@@ -513,9 +520,127 @@ class ReportTaskResultsRequest(Message):
     FIELDS = (Field(1, "results", ReportTaskResultRequest, "repeated"),)
 
 
+# ---------- the parameter server's messages ----------
+
+
+class IndexedSlices(Message):
+    FIELDS = (
+        Field(1, "concat_tensors", Tensor),
+        Field(2, "ids", "int64", "repeated"),
+        Field(3, "ids_bytes", "bytes"),
+    )
+
+
+class EmbeddingTableInfo(Message):
+    FIELDS = (
+        Field(1, "name", "string"),
+        Field(2, "dim", "int64"),
+        Field(3, "initializer", "string"),
+        Field(4, "dtype", "enum"),
+    )
+
+
+class Model(Message):
+    FIELDS = (
+        Field(1, "version", "int32"),
+        Field(2, "dense_parameters", Tensor, "repeated"),
+        Field(3, "embedding_tables", IndexedSlices, "map", key="string"),
+        Field(4, "embedding_table_infos", EmbeddingTableInfo, "repeated"),
+        Field(5, "total_records", "int64"),
+    )
+
+
+class PullDenseParametersRequest(Message):
+    FIELDS = (Field(1, "version", "int32"),)
+
+
+class PullDenseParametersResponse(Message):
+    FIELDS = (
+        Field(1, "initialized", "bool"),
+        Field(2, "version", "int32"),
+        Field(3, "dense_parameters", Tensor, "repeated"),
+    )
+
+
+class PullEmbeddingVectorsRequest(Message):
+    FIELDS = (
+        Field(1, "name", "string"),
+        Field(2, "ids", "int64", "repeated"),
+        Field(3, "ids_bytes", "bytes"),
+        Field(4, "value_dtype", "enum"),
+    )
+
+
+class PullEmbeddingTableRequest(Message):
+    FIELDS = (
+        Field(1, "name", "string"),
+        Field(2, "start_row", "int64"),
+        Field(3, "max_rows", "int64"),
+    )
+
+
+class PushGradientsRequest(Message):
+    FIELDS = (
+        Field(1, "gradients", Model),
+        Field(2, "learning_rate", "float"),
+        Field(3, "worker_id_plus_one", "int32"),
+        Field(4, "batch_size", "int32"),
+    )
+
+
+class PushGradientsResponse(Message):
+    FIELDS = (
+        Field(1, "accepted", "bool"),
+        Field(2, "version", "int32"),
+        Field(3, "apply_seconds", "float"),
+    )
+
+
+class TensorSpan(Message):
+    FIELDS = (
+        Field(1, "name", "string"),
+        Field(2, "dims", "int64", "repeated"),
+        Field(3, "dtype", "enum"),
+        Field(4, "offset", "int64"),
+        Field(5, "nbytes", "int64"),
+        Field(6, "scales_offset", "int64"),
+        Field(7, "scales_nbytes", "int64"),
+        Field(8, "block_size", "int32"),
+    )
+
+
+class SlicesSpan(Message):
+    FIELDS = (
+        Field(1, "values", TensorSpan),
+        Field(2, "ids_offset", "int64"),
+        Field(3, "ids_nbytes", "int64"),
+    )
+
+
+class PushGradientsPackedRequest(Message):
+    FIELDS = (
+        Field(1, "version", "int32"),
+        Field(2, "learning_rate", "float"),
+        Field(3, "worker_id_plus_one", "int32"),
+        Field(4, "batch_size", "int32"),
+        Field(5, "dense", TensorSpan, "repeated"),
+        Field(6, "sparse", SlicesSpan, "repeated"),
+        Field(7, "push_id", "uint64"),
+        Field(8, "chunk_index", "int32"),
+        Field(9, "chunk_count", "int32"),
+        Field(10, "payload_offset", "int64"),
+        Field(11, "payload_total_bytes", "int64"),
+        Field(12, "payload", "bytes"),
+    )
+
+
 MESSAGES = (
     Empty, Task, Tensor, Example, GetTaskRequest, ReportTaskResultRequest,
     ReportEvaluationMetricsRequest, ReportVersionRequest,
     GetJobStatusRequest, JobStatusResponse, TaskBatch,
-    ReportTaskResultsRequest,
+    ReportTaskResultsRequest, IndexedSlices, EmbeddingTableInfo, Model,
+    PullDenseParametersRequest, PullDenseParametersResponse,
+    PullEmbeddingVectorsRequest, PullEmbeddingTableRequest,
+    PushGradientsRequest, PushGradientsResponse, TensorSpan, SlicesSpan,
+    PushGradientsPackedRequest,
 )

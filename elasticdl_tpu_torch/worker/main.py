@@ -1,12 +1,13 @@
-"""Worker assembly (counterpart of elasticdl_tpu/worker/main.py:60-125):
+"""Worker assembly (counterpart of elasticdl_tpu/worker/main.py:28-125):
 from worker args and a master client, the reader, the model spec, the
 trainer, the callbacks and the Worker.
 
 The process entry point (`main`, with observability setup and telemetry
 push) comes with the gRPC transport; until then a worker runs in the
 master's process, its MasterClient on an in-process stub
-(master/master.py:Master.stub). Arguments that ask for what is not ported
-raise NotImplementedError.
+(master/master.py:Master.stub) and, under ParameterServerStrategy, its
+PSClient on the shards' in-process stubs (Master.ps_stubs). Arguments that
+ask for what is not ported raise NotImplementedError.
 """
 
 import sys
@@ -17,6 +18,8 @@ from elasticdl_tpu_torch.common.model_utils import get_model_spec
 from elasticdl_tpu_torch.common.save_utils import ExportModelCallback
 from elasticdl_tpu_torch.data.prefetch import PrefetchReader
 from elasticdl_tpu_torch.data.reader import CompositeReader, create_data_reader
+from elasticdl_tpu_torch.worker.ps_client import PSClient
+from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
 from elasticdl_tpu_torch.worker.trainer import LocalTrainer
 from elasticdl_tpu_torch.worker.worker import Worker
 
@@ -30,12 +33,30 @@ _JOB_TYPES = {
 }
 
 
-def build_trainer(args, spec, device=None):
-    if args.distribution_strategy != DistributionStrategy.LOCAL:
+def build_trainer(args, spec, ps_stubs=None, device=None):
+    strategy = args.distribution_strategy
+    if strategy == DistributionStrategy.PARAMETER_SERVER:
+        if not ps_stubs:
+            raise ValueError(
+                "ParameterServerStrategy needs the PS shards' stubs "
+                "(ps_stubs, e.g. Master.ps_stubs())"
+            )
+        return ParameterServerTrainer(
+            spec.build_model(),
+            spec.loss,
+            spec.build_optimizer_spec(),
+            PSClient(ps_stubs, worker_id=args.worker_id,
+                     wire_dtype=args.ps_wire_dtype),
+            embedding_inputs=getattr(spec.module, "embedding_inputs", None),
+            seed=args.seed,
+            model_steps=args.get_model_steps,
+            device=device,
+        )
+    if strategy != DistributionStrategy.LOCAL:
         raise NotImplementedError(
-            f"--distribution_strategy {args.distribution_strategy} is not "
-            "ported to elasticdl_tpu_torch yet; use "
-            f"{DistributionStrategy.LOCAL}"
+            f"--distribution_strategy {strategy} is not ported to "
+            f"elasticdl_tpu_torch yet; use {DistributionStrategy.LOCAL} or "
+            f"{DistributionStrategy.PARAMETER_SERVER}"
         )
     return LocalTrainer(
         spec.build_model(), spec.loss, spec.build_optimizer_spec(),
@@ -43,9 +64,10 @@ def build_trainer(args, spec, device=None):
     )
 
 
-def build_worker(args, master_client, device=None):
+def build_worker(args, master_client, ps_stubs=None, device=None):
     """The Worker that `worker/main.py:main` runs in the JAX package, on the
-    given MasterClient; `device=None` trains on the CUDA device."""
+    given MasterClient and, under ParameterServerStrategy, the PS shards'
+    stubs; `device=None` trains on the CUDA device."""
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir (the worker's device trace) is not ported yet"
@@ -73,13 +95,14 @@ def build_worker(args, master_client, device=None):
         reader = CompositeReader([reader_factory(o) for o in origins])
     if args.prefetch_records > 0:
         reader = PrefetchReader(reader, buffer_records=args.prefetch_records)
-    trainer = build_trainer(args, spec, device=device)
+    trainer = build_trainer(args, spec, ps_stubs=ps_stubs, device=device)
     extra_callbacks = []
     if args.output:
         extra_callbacks.append(ExportModelCallback(args.output))
-    if args.checkpoint_dir_for_init:
+    if args.checkpoint_dir_for_init and args.distribution_strategy != (
+            DistributionStrategy.PARAMETER_SERVER):
         # Worker-side restore, applied right after the trainer's lazy init
-        # on the first batch.
+        # on the first batch; the PS strategy restores on the PS side.
         trainer.restore_on_init = args.checkpoint_dir_for_init
     return Worker(
         args.worker_id,

@@ -17,6 +17,7 @@ setup(
     package_data={"elasticdl_tpu.proto": ["*.proto"],
                   "elasticdl_tpu.native": ["*.cc", "Makefile"],
                   "elasticdl_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
+                  "elasticdl_tpu_torch.native": ["*.cc"],
                   "elasticdl_tpu_torch.proto": ["*.proto"]},
     python_requires=">=3.10",
     install_requires=[

@@ -42,6 +42,12 @@ def test_port_imports_with_jax_blocked():
     assert "elasticdl_tpu_torch.worker.worker" in modules
     assert "elasticdl_tpu_torch.master.servicer" in modules
     assert "elasticdl_tpu_torch.proto.messages" in modules
+    for name in ("native", "common.hash_utils", "ps.servicer",
+                 "ps.checkpoint", "ps.parameter_server", "worker.ps_client",
+                 "worker.ps_trainer", "worker.row_cache", "layers.embedding",
+                 "preprocessing.layers", "models.dac_ctr.deepfm_ps",
+                 "data.gen.criteo"):
+        assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],
         cwd=REPO, capture_output=True, text=True, timeout=120,

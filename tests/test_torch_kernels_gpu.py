@@ -148,3 +148,44 @@ def test_unsupported_inputs_raise(cuda):
     shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_fwd(shifted, k, v, True, emit_lse=False)
+
+
+def test_ps_host_apply_matches_numpy_reference(cuda):
+    """The parameter server's host library, built on the card's machine,
+    against its numpy reference: Adam on a dense parameter and on table
+    rows (float32, the same arithmetic in another order)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ops import optimizers
+    from elasticdl_tpu_torch.ps.embedding_table import EmbeddingTable
+    from elasticdl_tpu_torch.ps.optimizer import PSOptimizer, numpy_rule
+
+    spec = optimizers.adam(0.01)
+    rng = np.random.default_rng(0)
+    param = rng.normal(size=(64, 16)).astype(np.float32)
+    ref = param.copy()
+    table = EmbeddingTable("t", 8, seed=1)
+    ids = np.arange(32, dtype=np.int64)
+    ref_rows = table.lookup(ids).copy()
+    opt = PSOptimizer(spec)
+    slots = {}
+
+    def slot_of(key):
+        def get(name, init):
+            return slots.setdefault((key, name), np.full(
+                ref.shape if key is None else 8, init, np.float32))
+        return get
+
+    for step in range(1, 4):
+        grad = rng.normal(size=param.shape).astype(np.float32)
+        rows = rng.normal(size=(32, 8)).astype(np.float32)
+        opt.begin_apply()
+        opt.apply_dense("p", param, grad)
+        opt.apply_sparse(table, ids, rows)
+        opt.end_apply()
+        numpy_rule(spec, ref, grad, 0.01, step, slot_of(None))
+        for j in range(32):
+            numpy_rule(spec, ref_rows[j], rows[j], 0.01, step, slot_of(j))
+    np.testing.assert_allclose(param, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(table.lookup(ids), ref_rows, rtol=0,
+                               atol=1e-6)

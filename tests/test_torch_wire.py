@@ -66,6 +66,51 @@ CASES = {
         alerts_fired=13, policy_actions=14, policy_blacklisted=["worker-3"],
         backup_tasks_inflight=15, backup_wins=16, master_incarnation=17,
         last_eval_metrics={"token_ce": 1.5})),
+    "IndexedSlices": ("IndexedSlices", dict(
+        concat_tensors=_TENSOR, ids_bytes=np.arange(3, dtype=np.int64)
+        .tobytes())),
+    "IndexedSlices_repeated_ids": ("IndexedSlices", dict(
+        concat_tensors=_TENSOR, ids=[5, -1, 2**40])),
+    "EmbeddingTableInfo": ("EmbeddingTableInfo", dict(
+        name="deep", dim=8, initializer="uniform(-0.05,0.05)",
+        dtype=pb.DT_FLOAT32)),
+    "Model": ("Model", dict(
+        version=7, dense_parameters=[_TENSOR, _TENSOR],
+        embedding_tables={"deep": dict(concat_tensors=_TENSOR,
+                                       ids_bytes=b"\1" * 16)},
+        embedding_table_infos=[dict(name="deep", dim=8)],
+        total_records=2**33)),
+    "Model_empty": ("Model", {}),
+    "PullDenseParametersRequest": ("PullDenseParametersRequest",
+                                   dict(version=-1)),
+    "PullDenseParametersResponse": ("PullDenseParametersResponse", dict(
+        initialized=True, version=3, dense_parameters=[_TENSOR])),
+    "PullEmbeddingVectorsRequest": ("PullEmbeddingVectorsRequest", dict(
+        name="wide", ids=[1, 2], ids_bytes=b"\0" * 8,
+        value_dtype=pb.DT_BFLOAT16)),
+    "PullEmbeddingTableRequest": ("PullEmbeddingTableRequest", dict(
+        name="wide", start_row=65536, max_rows=1024)),
+    "PushGradientsRequest": ("PushGradientsRequest", dict(
+        gradients=dict(version=2, dense_parameters=[_TENSOR]),
+        learning_rate=0.125, worker_id_plus_one=1, batch_size=16384)),
+    "PushGradientsResponse": ("PushGradientsResponse", dict(
+        accepted=True, version=9, apply_seconds=0.03125)),
+    "PushGradientsResponse_rejected": ("PushGradientsResponse", dict(
+        accepted=False, version=9)),
+    "TensorSpan": ("TensorSpan", dict(
+        name="w", dims=[3, 4], dtype=pb.DT_INT8, offset=64, nbytes=12,
+        scales_offset=76, scales_nbytes=4, block_size=256)),
+    "SlicesSpan": ("SlicesSpan", dict(
+        values=dict(name="deep", dims=[2, 8], dtype=pb.DT_BFLOAT16,
+                    nbytes=32), ids_offset=32, ids_nbytes=16)),
+    "PushGradientsPackedRequest": ("PushGradientsPackedRequest", dict(
+        version=4, learning_rate=0.5, worker_id_plus_one=2, batch_size=8,
+        dense=[dict(name="w", dims=[2], dtype=pb.DT_FLOAT32, nbytes=8)],
+        sparse=[dict(values=dict(name="deep", dims=[1, 2], nbytes=8),
+                     ids_offset=16, ids_nbytes=8)],
+        push_id=(2**63) + 12345, chunk_index=1, chunk_count=3,
+        payload_offset=1 << 20, payload_total_bytes=3 << 20,
+        payload=b"\x00\xff" * 12)),
     "JobStatusResponse_maps": ("JobStatusResponse", dict(
         records_done=64, last_eval_metrics={"token_ce": 1.5, "z": -0.0},
         worker_last_seen_ago={0: 0.25, -1: 3.0},
@@ -82,9 +127,9 @@ def _build(module, cls_name, values):
         sub = _sub_class(module, cls_name, name)
         if isinstance(value, dict) and sub is None:  # scalar map
             field.update(value)
-        elif isinstance(value, dict) and name == "features":  # message map
-            for key, item in value.items():
-                _assign(field, key, _build(module, "Tensor", item), module)
+        elif isinstance(value, dict) and _is_map(cls_name, name):
+            for key, item in value.items():  # message map
+                _assign(field, key, _build(module, sub, item), module)
         elif isinstance(value, dict):  # singular message
             if module is pb:
                 setattr(msg, name, _build(module, sub, value))
@@ -105,6 +150,10 @@ def _assign(mapping, key, value, module):
         mapping[key] = value
     else:
         mapping[key].CopyFrom(value)
+
+
+def _is_map(cls_name, field_name):
+    return getattr(pb, cls_name)._by_name[field_name].label == "map"
 
 
 def _sub_class(module, cls_name, field_name):
@@ -196,7 +245,8 @@ def test_schema_copy_matches_and_messages_follow_it():
 
     with open(ours) as f:
         text = re.sub(r"//[^\n]*", "", f.read())
-    scalar = {"int32": "int32", "int64": "int64", "bool": "bool",
+    scalar = {"int32": "int32", "int64": "int64", "uint64": "uint64",
+              "bool": "bool",
               "float": "float", "string": "string", "bytes": "bytes",
               "TaskType": "enum", "DataType": "enum"}
     for cls in pb.MESSAGES:
