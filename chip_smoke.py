@@ -43,28 +43,55 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    16384 with its tables in 2 in-process PS shards (Adam), on four seeded
    id batches uniform over the id space. First one batch at the same
    weights on the card and on the CPU: loss, dense gradients and row
-   gradients within 1e-5 of the largest value. Then three runs of 4 warm-up
-   and 8 timed steps: float32 wire inline, float32 wire pipelined (push
-   thread, lookahead pulls, row cache), bfloat16 wire pipelined; each
-   prints examples/s, ms per step, the trainer's phase split, bytes to and
-   from the card per step, the row cache's hit ratio, rows per table per
-   shard and the device's busy share over one profiled step. Every push
-   must be accepted and each shard's version equal the steps taken.
-9. ps_job, the parameter-server path through every layer: 16384 training
+   gradients within 1e-5 of the largest value. Then five runs of 4 warm-up
+   and 8 timed steps, one after the other: float32 and int8 wires inline,
+   then float32 wire pipelined (push thread, lookahead pulls, row cache),
+   bfloat16 wire pipelined, int8 wire pipelined (int8: dense gradients in
+   int8 blocks with error feedback, bfloat16 rows); each prints
+   examples/s, ms per step, the trainer's phase split, bytes to and from
+   the card and pushed per step, the row cache's hit ratio, rows per table
+   per shard and the device's busy share over one profiled step. Every
+   push must be accepted and each shard's version equal the steps taken;
+   the int8 inline run's loss on each timed step must be within 1e-3 of
+   the float32 inline run's (the pipelined gap is printed: a push races
+   the next step's pull, so pipelined runs do not repeat exactly).
+9. ps_job, the parameter-server path through every layer: 262144 training
    and 4096 validation synthetic Criteo records in .edlr files, Master with
-   ParameterServerStrategy and 2 shards, tasks of 4096 records, minibatch
-   1024, evaluation every 8 versions, one worker from build_worker on the
-   shards' in-process stubs: 16 steps. After step 8 shard 0 is relaunched
-   empty and re-seeded by the worker. records_done must be 16384, all 16
-   pushes accepted, evaluation must report auc and accuracy, the logged
-   losses finite and falling. Then a PS checkpoint round trip: shards saved
-   at the last version and restored into fresh shards give bitwise-equal
-   eval outputs. Prints wall time, host share, host time by call (the
-   feed's record decode per record among them) and checkpoint bytes, save
+   ParameterServerStrategy and 2 shards, tasks and minibatches of 16384,
+   evaluation every 8 versions, one worker from build_worker on the
+   shards' in-process stubs: 16 steps, the records decoded column by
+   column in the host library. After step 8 shard 0 is relaunched empty
+   and re-seeded by the worker. records_done must be 262144, all 16 pushes
+   accepted, evaluation must report auc and accuracy, the logged losses
+   finite and falling. Then a PS checkpoint round trip: shards saved at
+   the last version and restored into fresh shards give bitwise-equal eval
+   outputs. Prints wall time, host share, host time by call (the feed's
+   and the decode's ms per record among them) and checkpoint bytes, save
    and restore seconds.
-The PS phases launch none of the flash-attention kernels; their counts are
-reset before each and read after it. Then the {"kernels": [...]} line, and
-last {"ok": true, "device": {...}}.
+10. ctr_zoo: DeepFM, wide & deep, DCN and xDeepFM with their tables on
+   the card at full width (5,546,673 ids, D 8, DNN (16, 4), CIN (16, 16),
+   3 cross layers) on LocalTrainer, batch 16384 of Criteo records fed
+   through the decode: 4 warm-up and 8 timed steps each (ms per step,
+   examples/s), then one batch at the same weights on the card and on the
+   CPU: loss within 1e-5 relative, every gradient within 1e-5 of its
+   largest value.
+11. lm_ps: the flagship LM (full width and depth, batch 4 x S 4096) as a
+   job through Master with ParameterServerStrategy and 2 shards, its model
+   spec without embedding_inputs: tok_emb and pos_emb move to the PS and
+   the ids feed is derived. One job on the float32 wire and one on the
+   int8 wire, 6 steps each: records_done exact, every push accepted,
+   losses falling, exact flash-attention launch counts (12 forward
+   launches come from the capture forward that derives the feed); the
+   export loaded into a stock TransformerLM gives the PS trainer's logits
+   bitwise; on the float32 job's first batch the loss and the tok_emb and
+   pos_emb row gradients equal a direct LocalTrainer step from the same
+   weights (1e-5 / 1e-4 of the largest value). Prints the tables moved,
+   ms per step and its phase split, payload bytes per push, the device's
+   busy share over one profiled step, and the process's peak RSS.
+The PS and CTR phases but lm_ps launch none of the flash-attention kernels;
+their counts are reset before each and read after it. Then each phase's
+seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
+{...}}.
 """
 
 import concurrent.futures
@@ -73,6 +100,7 @@ import json
 import logging
 import math
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -85,14 +113,27 @@ import torch.nn.functional as F
 
 from elasticdl_tpu_torch import native
 from elasticdl_tpu_torch.common import args as edl_args
-from elasticdl_tpu_torch.common.params import params_to_flax
+from elasticdl_tpu_torch.common import tensor_utils
+from elasticdl_tpu_torch.common.params import (
+    flax_leaves,
+    params_from_flax,
+    params_to_flax,
+)
 from elasticdl_tpu_torch.common.save_utils import save_trainer_checkpoint
 from elasticdl_tpu_torch.data.example import encode_example
 from elasticdl_tpu_torch.data.gen.criteo import iter_criteo_records
 from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
 from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
 from elasticdl_tpu_torch.master.master import Master
-from elasticdl_tpu_torch.models.dac_ctr import deepfm_ps
+from elasticdl_tpu_torch.data.example import batch_examples
+from elasticdl_tpu_torch.models.dac_ctr import (
+    dcn,
+    deepfm,
+    deepfm_ps,
+    transform as criteo_transform,
+    wide_deep,
+    xdeepfm,
+)
 from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
@@ -174,26 +215,64 @@ def custom_model():
 # The parameter-server phases: DeepFM-PS as the JAX package's PS bench runs
 # it (bench/workloads.py: batch 16384, 2 shards, 4 distinct id batches, 4
 # warm-up steps so the timed steps meet warm rows), and a job through the
-# master with tasks of 4096 records and minibatches of 1024 (16 steps; the
-# record decode costs ~1 ms per record on one host core, so the job's
-# minibatch is smaller than the direct phase's).
+# master with tasks and minibatches of 16384 records (16 steps; the records
+# are decoded column by column in the host library).
 PS_SPEC = "elasticdl_tpu_torch.models.dac_ctr.deepfm_ps"
 PS_BATCH = 16384
 PS_SHARDS = 2
 PS_WARMUP = 4
 PS_STEPS = 8
+# f32 and bf16 pipelined run one after the other in one process, so their
+# comparison shares the host's state; int8 follows them.
 PS_RUNS = (("f32_inline", "float32", False),
+           ("int8_inline", "int8", False),
            ("f32_pipelined", "float32", True),
-           ("bf16_pipelined", "bfloat16", True))
+           ("bf16_pipelined", "bfloat16", True),
+           ("int8_pipelined", "int8", True))
 # Card against CPU: the same float32 arithmetic summed in another order,
 # as a share of the largest value compared.
 PS_CHECK_RTOL = 1e-5
-PS_JOB_TRAIN = 16384
+# The int8 wire's loss on each timed step against the f32 wire's on the same
+# batches from the same weights, both inline: int8 dense gradients (error
+# feedback) and bfloat16 rows move a BCE loss of ~0.8 by far less than this.
+# Inline runs repeat exactly; pipelined ones do not (a push races the next
+# step's pull, so which version a step reads depends on timing: two f32
+# pipelined runs differed by 2.3e-3 in their last loss), so the pipelined
+# gap is printed, not held to this bound.
+PS_INT8_LOSS_ATOL = 1e-3
+PS_JOB_BATCH = 16384
+PS_JOB_STEPS = 16
+PS_JOB_TRAIN = PS_JOB_STEPS * PS_JOB_BATCH
 PS_JOB_VALID = 4096
-PS_JOB_TASK = 4096
-PS_JOB_BATCH = 1024
+PS_JOB_TASK = PS_JOB_BATCH
 PS_JOB_EVAL_STEPS = 8
 PS_RESEED_AFTER = 8
+
+# The device-resident CTR family at full width: V = 5,546,673 shared ids,
+# D = 8, DNN (16, 4), CIN (16, 16), 3 cross layers; batch 16384 of Criteo
+# records fed through the decode, 2 distinct batches, 4 warm-up and 8 timed
+# steps on LocalTrainer.
+CTR_HEADS = (("deepfm", deepfm), ("wide_deep", wide_deep), ("dcn", dcn),
+             ("xdeepfm", xdeepfm))
+CTR_BATCH = 16384
+CTR_WARMUP = 4
+CTR_STEPS = 8
+# Card against CPU on one batch from the same weights: loss relative,
+# gradients as a share of each parameter's largest gradient.
+CTR_CHECK_RTOL = 1e-5
+
+# The flagship LM on the parameter server: its model spec declares no
+# embedding_inputs, so tok_emb and pos_emb move to 2 in-process shards and
+# the ids feed is derived. One job per wire, each 6 steps of 4 sequences
+# from .edlr records (tasks of 8), the loss logged every step.
+LM_PS_WIRES = ("float32", "int8")
+LM_PS_STEPS = 6
+LM_PS_TASK = 8
+# (c): the first batch through the PS path against a direct LocalTrainer
+# step from the same weights: the loss relative, the tok_emb row gradients
+# as a share of their largest (float32 sums in another order).
+LM_PS_LOSS_RTOL = 1e-5
+LM_PS_GRAD_RTOL = 1e-4
 
 
 def emit(obj):
@@ -681,6 +760,28 @@ def _timed(obj, name, acc, key=None):
     setattr(obj, name, call)
 
 
+def _timed_batches(tds, acc):
+    """Wraps tds.read_batches: acc["read_batches"] sums the host seconds
+    the worker waits for each minibatch of records (the reader, its
+    prefetch queue and the data-path accounting)."""
+    inner = tds.read_batches
+
+    def read_batches(*args, **kwargs):
+        it = inner(*args, **kwargs)
+        while True:
+            start = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                acc["read_batches"] = (acc.get("read_batches", 0.0)
+                                       + time.perf_counter() - start)
+            yield batch
+
+    tds.read_batches = read_batches
+
+
 def _write_job_inputs(root, cfg):
     tokens = synthetic_lm_tokens(JOB_TRAIN_RECORDS + JOB_VALID_RECORDS, SEQ,
                                  vocab=cfg.vocab, branching=4, seed=0)
@@ -752,6 +853,7 @@ def phase_job(direct):
             worker.run()
         finally:
             worker_logger.removeHandler(loss_log)
+            criteo_transform.batch_examples = batch_examples
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - start
         launches = dict(fa.launches)
@@ -885,6 +987,23 @@ def _record_pushes(client):
     return pushes
 
 
+def _count_push_bytes(client):
+    """Wraps client._build_packed_requests: the dict it returns sums the
+    payload bytes of every push ("bytes") and counts the pushes."""
+    counts = {"bytes": 0, "pushes": 0}
+    inner = client._build_packed_requests
+
+    def build(*args, **kwargs):
+        requests = inner(*args, **kwargs)
+        counts["bytes"] += sum(r._nbytes for reqs in requests.values()
+                               for r in reqs)
+        counts["pushes"] += 1
+        return requests
+
+    client._build_packed_requests = build
+    return counts
+
+
 def _rel_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     if got.shape != want.shape:
@@ -948,6 +1067,7 @@ def _ps_profile_step(trainer, batch):
 def _ps_run(name, wire, pipelined, batches):
     trainer, client, shards = _ps_trainer(wire, pipelined)
     pushes = _record_pushes(client)
+    push_bytes = _count_push_bytes(client)
     n = len(batches)
 
     def step(i):
@@ -962,13 +1082,14 @@ def _ps_run(name, wire, pipelined, batches):
     trainer.timing.reset()
     trainer.h2d_bytes = trainer.d2h_bytes = 0
     cache0 = trainer._row_cache.stats()
+    bytes0, pushes0 = push_bytes["bytes"], push_bytes["pushes"]
     start = time.perf_counter()
-    for i in range(PS_WARMUP, PS_WARMUP + PS_STEPS):
-        loss = step(i)
-    loss = float(loss)
+    losses = [step(i) for i in range(PS_WARMUP, PS_WARMUP + PS_STEPS)]
     trainer._flush_pushes()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
+    losses = [float(x) for x in losses]
+    loss = losses[-1]
     cache1 = trainer._row_cache.stats()
     lookups = cache1["lookups"] - cache0["lookups"]
     profiled = _ps_profile_step(trainer, batches[0])
@@ -984,6 +1105,9 @@ def _ps_run(name, wire, pipelined, batches):
             for k, v in sorted(trainer.timing.summary().items())},
         "h2d_bytes_per_step": trainer.h2d_bytes / PS_STEPS,
         "d2h_bytes_per_step": trainer.d2h_bytes / PS_STEPS,
+        "push_payload_bytes_per_step": (push_bytes["bytes"] - bytes0)
+        / max(push_bytes["pushes"] - pushes0, 1),
+        "timed_losses": losses,
         "row_cache_hit_ratio": (cache1["hits"] - cache0["hits"]) / lookups
         if lookups else None,
         "rows_per_table_per_shard": [
@@ -1016,8 +1140,19 @@ def phase_ps_step():
     emit({"phase": "ps_step", "host_library_build_s": build_s,
           "host_library": native.library_path()})
     _ps_card_vs_cpu(batches[0])
-    return {name: _ps_run(name, wire, pipelined, batches)
+    runs = {name: _ps_run(name, wire, pipelined, batches)
             for name, wire, pipelined in PS_RUNS}
+    # The int8 wire against float32 on the same batches from the same
+    # weights: inline (held to the bound) and pipelined (printed).
+    gaps = {mode: max(abs(a - b) for a, b in zip(
+        runs[f"int8_{mode}"]["timed_losses"],
+        runs[f"f32_{mode}"]["timed_losses"]))
+        for mode in ("inline", "pipelined")}
+    emit({"phase": "ps_step", "int8_vs_f32_loss_max_abs_diff": gaps,
+          "tolerance_inline": PS_INT8_LOSS_ATOL})
+    if not gaps["inline"] <= PS_INT8_LOSS_ATOL:
+        raise AssertionError(f"int8 vs f32 inline losses differ by {gaps}")
+    return runs
 
 
 def _write_ps_job_inputs(root):
@@ -1078,6 +1213,9 @@ def phase_ps_job():
 
         worker._spec.feed = feed
         _timed(worker._spec, "feed", host, "feed")
+        # The decode alone, inside the feed (the transform is the rest).
+        _timed(criteo_transform, "batch_examples", host, "decode")
+        _timed_batches(worker._tds, host)
         inside = {}
         _timed(trainer, "train_minibatch", inside)
         _timed(trainer, "evaluate_minibatch", inside)
@@ -1122,6 +1260,7 @@ def phase_ps_job():
             master.ps_servers[0].parameters.initialized)
         result = {
             "phase": "ps_job", "write_records_s": write_s, "wall_s": wall_s,
+            "minibatch": PS_JOB_BATCH,
             "records_done": stats["records_done"], "steps": worker.steps,
             "pushes": len(pushes),
             "pushes_accepted": sum(a for _, _, a in pushes),
@@ -1132,7 +1271,9 @@ def phase_ps_job():
             "host_share": 1.0 - model_s / wall_s,
             "host_s_by_call": host,
             "records_decoded": fed["records"],
-            "decode_ms_per_record": 1e3 * host.get("feed", 0.0)
+            "feed_ms_per_record": 1e3 * host.get("feed", 0.0)
+            / max(fed["records"], 1),
+            "decode_ms_per_record": 1e3 * host.get("decode", 0.0)
             / max(fed["records"], 1),
             "launches": launches,
         }
@@ -1208,18 +1349,355 @@ def _ps_checkpoint_round_trip(master, trainer, root):
     return result
 
 
+# ---------- the CTR family on the card ----------
+
+
+def _ctr_batches():
+    """Two batches of CTR_BATCH Criteo records, fed (decoded and
+    transformed) on the host; and the feed's ms per record."""
+    batches, feed_s = [], 0.0
+    for seed in (10, 11):
+        records = list(iter_criteo_records(CTR_BATCH, seed=seed))
+        start = time.perf_counter()
+        batches.append(criteo_transform.feed(records, "training", None))
+        feed_s += time.perf_counter() - start
+    return batches, 1e3 * feed_s / (len(batches) * CTR_BATCH)
+
+
+def _ctr_card_vs_cpu(module, batch):
+    """One batch through the same weights on the card and on the CPU:
+    loss and every gradient."""
+    features, labels = batch
+    cpu = module.custom_model().to_empty(device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = module.custom_model().to_empty(device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    got = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        logits = model({k: torch.as_tensor(v).to(device)
+                        for k, v in features.items()})
+        loss = module.loss(labels, logits)
+        loss.backward()
+        got[name] = (loss.item(), {
+            leaf.name: leaf.to_flax(leaf.param.grad).cpu().numpy()
+            for leaf in flax_leaves(model)})
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = got["card"], got["cpu"]
+    errors = {"loss": abs(loss_card - loss_cpu) / abs(loss_cpu)}
+    for name in grads_cpu:
+        errors[name] = _rel_err(grads_card[name], grads_cpu[name])
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu,
+            "tolerance": CTR_CHECK_RTOL, "max_rel_err": errors}
+
+
+def _ctr_run(name, module, batches):
+    torch.cuda.reset_peak_memory_stats()
+    trainer = LocalTrainer(module.custom_model(), module.loss,
+                           module.optimizer())
+    for i in range(CTR_WARMUP):
+        trainer.train_minibatch(*batches[i % len(batches)])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = [trainer.train_minibatch(*batches[i % len(batches)])[2]
+              for i in range(CTR_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    losses = [float(x) for x in losses]
+    result = {
+        "phase": "ctr_zoo", "model": name, "batch": CTR_BATCH,
+        "vocab": TOTAL_IDS,
+        "params": sum(p.numel() for p in trainer._model.parameters()),
+        "steps": CTR_STEPS, "ms_per_step": 1e3 * elapsed / CTR_STEPS,
+        "examples_per_s": CTR_STEPS * CTR_BATCH / elapsed,
+        "timed_losses": losses,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card_vs_cpu": _ctr_card_vs_cpu(module, batches[0]),
+    }
+    emit(result)
+    bad = {k: v for k, v in result["card_vs_cpu"]["max_rel_err"].items()
+           if not v <= CTR_CHECK_RTOL}
+    if bad or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ctr_zoo {name}: {bad}, losses {losses}")
+    return result
+
+
+def phase_ctr_zoo():
+    """DeepFM, wide & deep, DCN and xDeepFM with device-resident tables at
+    full width on LocalTrainer: ms per step, and card against CPU on one
+    batch. None launches a flash-attention kernel."""
+    batches, feed_ms = _ctr_batches()
+    emit({"phase": "ctr_zoo", "feed_ms_per_record": feed_ms,
+          "batch": CTR_BATCH})
+    fa.reset_launch_counts()
+    results = {}
+    for name, module in CTR_HEADS:
+        results[name] = _ctr_run(name, module, batches)
+        torch.cuda.empty_cache()
+    launches = dict(fa.launches)
+    emit({"phase": "ctr_zoo", "launches": launches})
+    if any(launches.values()):
+        raise AssertionError(f"ctr_zoo launches {launches}")
+    return results
+
+
+# ---------- the flagship LM on the parameter server ----------
+
+
+def _write_lm_ps_inputs(root, cfg):
+    tokens = synthetic_lm_tokens(LM_PS_STEPS * BATCH, SEQ, vocab=cfg.vocab,
+                                 branching=4, seed=2)
+    paths = {"train": os.path.join(root, "lm_ps_train.edlr"),
+             "model_def": os.path.join(root, "flagship_lm_ps.py")}
+    with RecordFileWriter(paths["train"]) as writer:
+        for row in tokens:
+            writer.write(encode_example({"tokens": row}))
+    with open(paths["model_def"], "w") as f:
+        f.write(MODEL_DEF.format(seq=SEQ))
+    return paths, tokens
+
+
+def _lm_ps_worker(paths, wire):
+    common = [
+        "--model_def", paths["model_def"],
+        "--distribution_strategy", "ParameterServerStrategy",
+        "--training_data", paths["train"],
+        "--records_per_task", str(LM_PS_TASK), "--num_epochs", "1",
+        "--minibatch_size", str(BATCH), "--seed", "0",
+    ]
+    master_args = edl_args.master_parser().parse_args(
+        common + ["--instance_backend", "none", "--num_ps", str(PS_SHARDS)])
+    edl_args.validate_args(master_args)
+    master = Master(master_args)
+    worker_args = edl_args.worker_parser().parse_args(common + [
+        "--worker_id", "0", "--master_addr", "in-process",
+        "--job_type", "training_only", "--log_loss_steps", "1",
+        "--ps_wire_dtype", wire,
+    ])
+    edl_args.validate_args(worker_args)
+    worker = build_worker(worker_args, MasterClient(master.stub(), 0),
+                          ps_stubs=master.ps_stubs())
+    return master, worker
+
+
+def _job_phase_seconds(timing):
+    """The worker resets its trainer's Timing after each task: the dict
+    this returns keeps the seconds per phase over the whole job (read it
+    with the last summary added, see _lm_ps_job)."""
+    total = {}
+    inner = timing.report
+
+    def report(logger, reset=False):
+        if reset:
+            for phase, s in timing.summary().items():
+                total[phase] = total.get(phase, 0.0) + s["total_s"]
+        return inner(logger, reset=reset)
+
+    timing.report = report
+    return total
+
+
+def _capture_first_step(trainer):
+    """Wraps trainer._ps_step: the dict it returns gets the first step's
+    batch, the weights and rows it ran on, its loss and row gradients."""
+    first = {}
+    inner = trainer._ps_step
+
+    def ps_step(features, labels, rows):
+        if not first:
+            first["dense"] = params_to_flax(trainer._model)
+            first["rows"] = {t: r.detach().float().cpu().numpy()
+                             for t, r in rows.items()}
+        loss, dense_grads, row_grads = inner(features, labels, rows)
+        if "loss" not in first:
+            first.update(
+                features=features.cpu().numpy(), labels=labels.cpu().numpy(),
+                loss=float(loss),
+                row_grads={t: g.float().cpu().numpy()
+                           for t, g in row_grads.items()})
+        return loss, dense_grads, row_grads
+
+    trainer._ps_step = ps_step
+    return first
+
+
+def _lm_ps_against_local(cfg, first):
+    """(c): the first batch through a direct LocalTrainer step from the
+    same weights, its tables holding the PS rows the PS step read (float32
+    rows, as under the PS)."""
+    named = dict(first["dense"])
+    tokens = first["features"]
+    # The feed's ids: the tokens, and the positions arange(S) (pos_emb's
+    # rows and row gradients are [S, d], summed over the batch).
+    ids = {"tok_emb": tokens.reshape(-1), "pos_emb": np.arange(SEQ)}
+    for table, num in (("tok_emb", cfg.vocab), ("pos_emb", cfg.max_len)):
+        full = np.zeros((num, cfg.d_model), np.float32)
+        full[ids[table]] = first["rows"][table]
+        named[f"{table}/embedding"] = full
+    trainer = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer())
+    trainer.load_flax_params(named)
+    model = trainer._model
+    model.tok_emb.compute_dtype = model.pos_emb.compute_dtype = torch.float32
+    loss = trainer.train_minibatch(tokens, first["labels"])[2].item()
+    errors = {"loss": abs(loss - first["loss"]) / abs(loss)}
+    for table in ("tok_emb", "pos_emb"):
+        values, unique = tensor_utils.deduplicate_indexed_slices(
+            first["row_grads"][table], ids[table])
+        local = getattr(model, table).weight.grad[
+            torch.as_tensor(unique, device="cuda")].cpu().numpy()
+        errors[f"{table} rows"] = _rel_err(values, local)
+    result = {"loss_ps": first["loss"], "loss_local": loss,
+              "tolerance": {"loss": LM_PS_LOSS_RTOL,
+                            "row_grads": LM_PS_GRAD_RTOL},
+              "max_rel_err": errors}
+    ok = errors["loss"] <= LM_PS_LOSS_RTOL and all(
+        v <= LM_PS_GRAD_RTOL for k, v in errors.items() if k != "loss")
+    return result, ok
+
+
+def _lm_ps_export_check(cfg, trainer, tokens):
+    """(d): the export loads into a stock TransformerLM whose logits equal
+    the PS trainer's forward bitwise (the same float32 gathers). Under the
+    int8 wire the trainer's rows cross it as bfloat16, so the stock tables
+    are the exported ones rounded to bfloat16."""
+    batch = tokens[:1, :-1]
+    want = trainer.evaluate_minibatch(batch)
+    exported = trainer.export_variables()["variables"]
+    stock = tlm.custom_model(cfg).to_empty(device="cuda")
+    loaded = dict(exported)
+    if trainer._bf16_wire:
+        for table in trainer._embedding_vocab:
+            name = f"{table}/embedding"
+            loaded[name] = tensor_utils.bfloat16_bits_to_float32(
+                tensor_utils.float32_to_bfloat16_bits(exported[name]))
+    stock.load_state_dict(params_from_flax(loaded))
+    stock.tok_emb.compute_dtype = stock.pos_emb.compute_dtype = torch.float32
+    stock.eval()
+    with torch.no_grad():
+        got = stock(torch.as_tensor(batch, device="cuda")).cpu().numpy()
+    return {"export_tables": {k: list(v.shape) for k, v in exported.items()
+                              if k.endswith("/embedding")},
+            "export_logits_bitwise_equal": bool(np.array_equal(got, want))}
+
+
+def _lm_ps_job(cfg, paths, tokens, wire):
+    master, worker = _lm_ps_worker(paths, wire)
+    trainer = worker.trainer
+    first = _capture_first_step(trainer)
+    phase_s = _job_phase_seconds(trainer.timing)
+    push_bytes = _count_push_bytes(trainer._ps)
+    accepted = []
+    inner_push = trainer._ps.push_gradients
+
+    def push(*args, **kwargs):
+        result = inner_push(*args, **kwargs)
+        accepted.append(result[0])
+        return result
+
+    trainer._ps.push_gradients = push
+    loss_log = _LossLog()
+    worker_logger = logging.getLogger("elasticdl_tpu_torch.worker.worker")
+    worker_logger.addHandler(loss_log)
+    fa.reset_launch_counts()
+    start = time.perf_counter()
+    try:
+        worker.run()
+        trainer.close()
+    finally:
+        worker_logger.removeHandler(loss_log)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = dict(fa.launches)
+    stats = master.task_d.stats()
+    losses = [loss for _, loss, _ in loss_log.lines]
+    versions = [s.parameters.version for s in master.ps_servers]
+    for phase, summary in trainer.timing.summary().items():
+        # What ran after the last task's report (the last push).
+        phase_s[phase] = phase_s.get(phase, 0.0) + summary["total_s"]
+    steps = worker.steps
+    moved = {t: {"vocab": v, "bytes": v * trainer._embedding_dims[t] * 4}
+             for t, v in sorted(trainer._embedding_vocab.items())}
+    result = {
+        "phase": "lm_ps", "wire": wire, "batch": BATCH, "seq": SEQ,
+        "shards": PS_SHARDS, "tables_moved": moved,
+        "dense_params": sum(p.numel() for p in trainer._model.parameters()),
+        "feed_derived": not hasattr(worker._spec.module, "embedding_inputs")
+        and trainer._embedding_inputs is not None,
+        "records_done": stats["records_done"], "steps": steps,
+        "losses": losses, "wall_s": wall_s,
+        "ms_per_step": 1e3 * wall_s / max(steps, 1),
+        "phase_ms_per_step": {k: 1e3 * v / max(steps, 1)
+                              for k, v in sorted(phase_s.items())},
+        "push_payload_bytes_per_push": push_bytes["bytes"]
+        / max(push_bytes["pushes"], 1),
+        "pushes": len(accepted), "all_accepted": all(accepted),
+        "ps_versions": versions, "launches": launches,
+    }
+    n = LM_PS_STEPS * cfg.n_layers
+    expected = {"flash_fwd_lse": n, "flash_dq": n, "flash_dkv": n,
+                # the capture forward that derives the feed, at init
+                "flash_fwd": cfg.n_layers}
+    checks = [
+        (set(moved) == {"tok_emb", "pos_emb"} and result["feed_derived"],
+         f"tables moved {moved}, feed derived {result['feed_derived']}"),
+        (stats["records_done"] == LM_PS_STEPS * BATCH
+         and steps == LM_PS_STEPS, f"records_done {stats['records_done']}, "
+         f"steps {steps}"),
+        (len(accepted) == steps and all(accepted)
+         and versions == [steps] * PS_SHARDS,
+         f"pushes {accepted}, PS versions {versions}"),
+        (len(losses) == steps and all(math.isfinite(x) for x in losses)
+         and losses[-1] < losses[0], f"losses {losses}"),
+        (launches == expected, f"launches {launches}, expected {expected}"),
+    ]
+    result.update(_lm_ps_export_check(cfg, trainer, tokens))
+    checks.append((result["export_logits_bitwise_equal"],
+                   "exported stock model's logits differ"))
+    # One more step under the profiler, after the counts were read.
+    result["profiled_step"] = _ps_profile_step(
+        trainer, (tokens[:BATCH, :-1], tokens[:BATCH, 1:]))
+    trainer.close()
+    if wire == "float32":
+        del worker, trainer
+        torch.cuda.empty_cache()
+        result["against_local_trainer"], ok = _lm_ps_against_local(cfg,
+                                                                   first)
+        checks.append((ok, f"first step against LocalTrainer "
+                           f"{result['against_local_trainer']}"))
+    emit(result)
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"lm_ps {wire}: {what}")
+    return result
+
+
+def phase_lm_ps():
+    """The flagship LM (full width and depth) on ParameterServerStrategy
+    through the master, its tables moved to the PS automatically: a job
+    on the float32 wire and one on the int8 wire."""
+    cfg = tlm.flagship_config(SEQ)
+    with tempfile.TemporaryDirectory() as root:
+        paths, tokens = _write_lm_ps_inputs(root, cfg)
+        results = {wire: _lm_ps_job(cfg, paths, tokens, wire)
+                   for wire in LM_PS_WIRES}
+    emit({"phase": "lm_ps", "peak_rss_gib":
+          resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20})
+    return results
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
               ("reference", phase_reference), ("main_path", phase_main_path),
               ("job", lambda: phase_job(results["main_path"])),
-              ("ps_step", phase_ps_step), ("ps_job", phase_ps_job)]
-    results = {}
+              ("ps_step", phase_ps_step), ("ps_job", phase_ps_job),
+              ("ctr_zoo", phase_ctr_zoo), ("lm_ps", phase_lm_ps)]
+    results, seconds = {}, {}
     for name, fn in phases:
         try:
             if name == "ps_step":
                 fa.reset_launch_counts()
+            start = time.perf_counter()
             results[name] = fn()
+            seconds[name] = time.perf_counter() - start
             if name == "ps_step":
                 # The PS path runs no flash-attention kernel.
                 ps_launches = dict(fa.launches)
@@ -1237,6 +1715,11 @@ def main():
         report[name]["launches"] = results["job"].get(name, 0)
         report[name]["train_phase_launches"] = (
             results["main_path"]["launches"].get(name, 0))
+        # The flagship on the parameter server, one job per wire.
+        report[name]["lm_ps_launches"] = {
+            wire: r["launches"].get(name, 0)
+            for wire, r in results["lm_ps"].items()}
+    emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

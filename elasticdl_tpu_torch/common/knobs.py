@@ -156,8 +156,12 @@ declare("ELASTICDL_TASK_LEASE_BATCH", "int", 1,
 # -- PS wire codec, prefetch overlap and shard recovery (worker/, ps/) --
 declare("ELASTICDL_WIRE_DTYPE", "str", "float32",
         "Default PS wire codec when the PSClient isn't given one "
-        "explicitly: float32 or bfloat16 (bf16 embedding legs); the int8 "
-        "codec is not ported yet.")
+        "explicitly: float32, bfloat16 (bf16 embedding legs), or int8 "
+        "(block-quantized dense grads with error feedback + bf16 "
+        "embedding legs).")
+declare("ELASTICDL_WIRE_BLOCK_SIZE", "int", 256,
+        "Block size for the int8 block-scaled gradient codec: one "
+        "float32 absmax/127 scale per this many consecutive elements.")
 declare("ELASTICDL_PS_MAX_PUSH_BYTES", "int", 64 * 1024 * 1024,
         "Packed gradient pushes larger than this split into chunked "
         "sub-requests, so one giant embedding slice can't stall the "

@@ -11,7 +11,11 @@ to a state_dict key by joining with '.' and renaming the leaf:
   bias        bias        [*out] -> [prod(out)]
   scale       weight      LayerNorm scale, unchanged
   embedding   weight      [num, features], unchanged
-  table       table       a local DistributedEmbedding table, unchanged
+  any other   the same    a parameter the module declares itself, by its
+                          flax name, unchanged: a local DistributedEmbedding
+                          `table`, CTREmbeddings' `wide` [V, 1] and `deep`
+                          [V, D], DCN's cross `w{i}`/`b{i}` [d], xDeepFM's
+                          CIN `w{k}` [h, F_k, F_0] (no transpose)
 
 A DenseGeneral kernel such as the LM's qkv [d, 3, H, Dh] flattens its
 output axes in order, which is the (3, H, Dh) order the model splits.
@@ -22,7 +26,7 @@ import torch
 from torch import nn
 
 _LEAF_TO_TORCH = {"kernel": "weight", "bias": "bias", "scale": "weight",
-                  "embedding": "weight", "table": "table"}
+                  "embedding": "weight"}
 
 
 def params_from_flax(named):
@@ -30,9 +34,9 @@ def params_from_flax(named):
     state = {}
     for name, value in named.items():
         *path, leaf = name.split("/")
-        if leaf not in _LEAF_TO_TORCH:
+        if leaf == "weight":
             raise ValueError(f"no torch counterpart for flax leaf {name!r}")
-        key = ".".join(path + [_LEAF_TO_TORCH[leaf]])
+        key = ".".join(path + [_LEAF_TO_TORCH.get(leaf, leaf)])
         state[key] = FlaxLeaf(name, None, leaf, None).from_flax(value)
     return state
 
@@ -80,7 +84,8 @@ def flax_leaves(module):
     The module tells which flax leaf each weight is: an nn.Linear's weight
     is a kernel (reshaped to [in, *features] where the module carries a
     `features` tuple, as a DenseGeneral does), an nn.Embedding's an
-    embedding, any other weight a LayerNorm scale."""
+    embedding, any other weight a LayerNorm scale. Any other parameter
+    keeps its name as the flax leaf's."""
     leaves = []
     for mod_name, mod in module.named_modules():
         prefix = mod_name.replace(".", "/")
@@ -93,23 +98,26 @@ def flax_leaves(module):
                     leaf = "embedding"
                 else:
                     leaf = "scale"
-            elif leaf_name in ("bias", "table"):
-                leaf = leaf_name
             else:
-                raise ValueError(
-                    f"no flax counterpart for {mod_name}.{leaf_name}"
-                )
+                leaf = leaf_name
             name = f"{prefix}/{leaf}" if prefix else leaf
             leaves.append(FlaxLeaf(name, param, leaf, features))
     return sorted(leaves, key=lambda x: tuple(x.name.split("/")))
 
 
+def leaves_to_flax(leaves):
+    """FlaxLeafs -> {wire name: float32 numpy array}. The arrays are
+    copies, as jax.device_get's are: on the CPU a view would follow the
+    parameters as they train."""
+    return {
+        x.name: np.ascontiguousarray(
+            x.to_flax(x.param.detach()).float().to("cpu", copy=True).numpy()
+        )
+        for x in leaves
+    }
+
+
 def params_to_flax(module):
     """The inverse of params_from_flax: module -> {flax wire name: float32
     numpy array}."""
-    return {
-        x.name: np.ascontiguousarray(
-            x.to_flax(x.param.detach()).float().cpu().numpy()
-        )
-        for x in flax_leaves(module)
-    }
+    return leaves_to_flax(flax_leaves(module))

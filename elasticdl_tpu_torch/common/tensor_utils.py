@@ -14,11 +14,12 @@ bfloat16 without ml_dtypes: numpy has no bfloat16 dtype here, so
   values exactly (every bfloat16 is a float32), not a bfloat16 array.
 
 The parameter server's pieces follow (:120-461 there): indexed slices, ids
-as raw int64 bytes, and the packed push (a slim span header plus one
-out-of-band payload joined from views of the gradient arrays). Under the
-bfloat16 wire a sparse span carries bfloat16 bits rounded from float32 as
-above, and decodes to float32. The int8 block-quantized codec (:163-233
-there) is not ported yet: asking for it raises NotImplementedError.
+as raw int64 bytes, the int8 block-quantized codec, and the packed push (a
+slim span header plus one out-of-band payload joined from views of the
+gradient arrays). Under the bfloat16 wire a sparse span carries bfloat16
+bits rounded from float32 as above, and decodes to float32; an int8 span
+carries int8 values and one float32 scale per block, and dequantizes to
+float32 where it is decoded.
 """
 
 import numpy as np
@@ -63,7 +64,21 @@ def pb_dtype_to_np(dtype_enum: int) -> np.dtype:
 
 def float32_to_bfloat16_bits(values) -> np.ndarray:
     """float32 values -> uint16 bfloat16 bit patterns, rounded to nearest
-    with ties to even (ml_dtypes' rounding); NaN -> quiet NaN, sign kept."""
+    with ties to even (ml_dtypes' rounding); NaN -> quiet NaN, sign kept.
+    Rounds in the host library (native/codec.cc)."""
+    # order="C" copies only a non-contiguous array and, unlike
+    # np.ascontiguousarray, keeps a 0-d array 0-d.
+    floats = np.asarray(values, dtype=np.float32, order="C")
+    out = np.empty(floats.shape, np.uint16)
+    if out.size:
+        native.lib().edl_f32_to_bf16(floats.ctypes.data, out.ctypes.data,
+                                     out.size)
+    return out
+
+
+def float32_to_bfloat16_bits_plain(values) -> np.ndarray:
+    """The numpy version of float32_to_bfloat16_bits, its plain reference
+    in the tests."""
     # np.array copies to a C-contiguous array and, unlike
     # np.ascontiguousarray, keeps a 0-d array 0-d.
     floats = np.array(values, dtype=np.float32)
@@ -224,12 +239,65 @@ def tensor_pb_to_bfloat16_bits(tensor_pb: pb.Tensor) -> np.ndarray:
         tuple(tensor_pb.dims))
 
 
-def _reject_int8(wire_dtype):
-    if wire_dtype == "int8" or wire_dtype == pb.DT_INT8:
-        raise NotImplementedError(
-            "the int8 block-quantized wire is not ported to "
-            "elasticdl_tpu_torch yet; use float32 or bfloat16"
+# ---------------------------------------------------------------------------
+# int8 block-scaled codec
+# ---------------------------------------------------------------------------
+
+DEFAULT_INT8_BLOCK = 256
+
+
+def quantize_int8_blocks(arr, block_size=DEFAULT_INT8_BLOCK):
+    """float array -> (int8 flat [n], float32 scales [ceil(n/block)]).
+
+    Per-block absmax scaling: scale = max(|x|)/127 over each block of
+    `block_size` consecutive elements (row-major), q = round(x/scale). An
+    all-zero block gets scale 0 and decodes to exact zeros. The round-trip
+    error of an element is at most scale/2; a caller that pushes gradients
+    keeps it out of the training trajectory with error feedback
+    (worker/ps_client.py)."""
+    if block_size <= 0:
+        raise ValueError(f"block_size must be positive, got {block_size}")
+    flat = np.ascontiguousarray(arr, dtype=np.float32).reshape(-1)
+    n = flat.size
+    if n == 0:
+        return np.empty(0, np.int8), np.empty(0, np.float32)
+    nblocks = -(-n // block_size)
+    nfull = nblocks * block_size
+    padded = flat
+    if nfull != n:
+        padded = np.zeros(nfull, np.float32)
+        padded[:n] = flat
+    blocks = padded.reshape(nblocks, block_size)
+    scales = np.abs(blocks).max(axis=1) / 127.0
+    inv = np.zeros_like(scales)
+    np.divide(1.0, scales, out=inv, where=scales > 0)
+    q = np.rint(blocks * inv[:, None]).astype(np.int8)
+    return q.reshape(-1)[:n], scales.astype(np.float32)
+
+
+def dequantize_int8_blocks(q, scales, block_size=DEFAULT_INT8_BLOCK):
+    """Inverse of quantize_int8_blocks -> float32 flat [n]."""
+    if block_size <= 0:
+        raise ValueError(f"block_size must be positive, got {block_size}")
+    q = np.asarray(q, dtype=np.int8)
+    scales = np.asarray(scales, dtype=np.float32)
+    n = q.size
+    if n == 0:
+        return np.empty(0, np.float32)
+    nblocks = -(-n // block_size)
+    if nblocks != scales.size:
+        raise ValueError(
+            f"{n} quantized elements at block {block_size} need "
+            f"{nblocks} scales, got {scales.size}"
         )
+    nfull = nblocks * block_size
+    padded = q
+    if nfull != n:
+        padded = np.zeros(nfull, np.int8)
+        padded[:n] = q
+    out = padded.reshape(nblocks, block_size).astype(np.float32)
+    out *= scales[:, None]
+    return out.reshape(-1)[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -300,13 +368,18 @@ class PackedPayload:
 
 
 def pack_tensor_span(name, arr, payload: PackedPayload,
-                     wire_dtype=None) -> pb.TensorSpan:
+                     wire_dtype=None, block_size=0) -> pb.TensorSpan:
     """Append one tensor to the payload; returns its TensorSpan header.
     `wire_dtype=pb.DT_BFLOAT16` rounds a float array to bfloat16 (to
-    nearest, ties to even); otherwise the array's own dtype ships
-    byte-exact."""
-    _reject_int8(wire_dtype)
+    nearest, ties to even); "int8" block-quantizes it (use
+    pack_quantized_span when the caller quantized itself, as error feedback
+    does); otherwise the array's own dtype ships byte-exact."""
     arr = np.asarray(arr)
+    if wire_dtype == "int8":
+        block_size = block_size or DEFAULT_INT8_BLOCK
+        q, scales = quantize_int8_blocks(arr, block_size)
+        return pack_quantized_span(name, arr.shape, q, scales, block_size,
+                                   payload)
     if wire_dtype == pb.DT_BFLOAT16:
         span = pb.TensorSpan(name=name, dims=list(arr.shape),
                              dtype=pb.DT_BFLOAT16)
@@ -317,6 +390,17 @@ def pack_tensor_span(name, arr, payload: PackedPayload,
     else:
         raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
     span.offset, span.nbytes = payload.add_array(arr)
+    return span
+
+
+def pack_quantized_span(name, shape, q, scales, block_size,
+                        payload: PackedPayload) -> pb.TensorSpan:
+    """An int8 block-quantized tensor (quantize_int8_blocks' q and scales)
+    into the payload."""
+    span = pb.TensorSpan(name=name, dims=list(shape), dtype=pb.DT_INT8,
+                         block_size=int(block_size))
+    span.offset, span.nbytes = payload.add_array(q)
+    span.scales_offset, span.scales_nbytes = payload.add_array(scales)
     return span
 
 
@@ -349,14 +433,19 @@ def _payload_view(buf, offset, nbytes, dtype, what):
 
 def unpack_tensor_span(span: pb.TensorSpan, payload_buf) -> np.ndarray:
     """TensorSpan -> ndarray: a read-only VIEW into payload_buf for most
-    dtypes (zero copy); bfloat16 spans widen to float32 here, their one
+    dtypes (zero copy); bfloat16 spans widen to float32 and int8
+    block-quantized spans dequantize to float32 here, their one
     materialization on the receiving side. Raises ValueError on any
     out-of-bounds range (truncated payload)."""
-    if span.scales_nbytes:
-        _reject_int8(pb.DT_INT8)
     buf = memoryview(payload_buf)
     what = f"span {span.name!r}"
-    if span.dtype == pb.DT_BFLOAT16:
+    if span.scales_nbytes:
+        q = _payload_view(buf, span.offset, span.nbytes, np.int8, what)
+        scales = _payload_view(buf, span.scales_offset, span.scales_nbytes,
+                               np.float32, f"{what} scales")
+        flat = dequantize_int8_blocks(
+            q, scales, span.block_size or DEFAULT_INT8_BLOCK)
+    elif span.dtype == pb.DT_BFLOAT16:
         flat = bfloat16_bits_to_float32(_payload_view(
             buf, span.offset, span.nbytes, np.uint16, what))
     else:

@@ -69,20 +69,41 @@ def synthetic_criteo_arrays(num_examples, seed=0):
     return dense, cats, labels
 
 
+def encode_columns(columns):
+    """[(name, array [n])] of 0-d numeric features -> n serialized Example
+    records, each the bytes encode_example gives for {name: column[i]} in
+    this order, built column by column: a scalar feature's encoding is a
+    fixed prefix (key, name, dtype, content length) and then its content,
+    the last field, so the record is a fixed pattern with the values'
+    bytes in place."""
+    n = len(columns[0][1])
+    pieces = []
+    for name, column in columns:
+        column = np.ascontiguousarray(column)
+        size = column.dtype.itemsize
+        sample = encode_example({name: column[0]})
+        if not sample.endswith(column[:1].tobytes()):
+            raise ValueError(f"feature {name!r} does not end its encoding")
+        prefix = np.frombuffer(sample[:-size], np.uint8)
+        pieces.append(np.broadcast_to(prefix, (n, prefix.size)))
+        pieces.append(column.view(np.uint8).reshape(n, size))
+    table = np.concatenate(pieces, axis=1)
+    return [row.tobytes() for row in table]
+
+
 def iter_criteo_records(num_examples, seed=0, chunk=4096):
-    """Yields serialized Example records with I1..I13, C1..C26, label."""
+    """Yields serialized Example records with label, I1..I13, C1..C26."""
     remaining, part = num_examples, 0
     while remaining > 0:
         n = min(chunk, remaining)
         dense, cats, labels = synthetic_criteo_arrays(
             n, seed=seed * 1_000_003 + part
         )
-        for i in range(n):
-            features = {"label": labels[i]}
-            for k, name in enumerate(fc.DENSE_FEATURES):
-                features[name] = dense[i, k]
-            for k, name in enumerate(fc.CATEGORICAL_FEATURES):
-                features[name] = cats[i, k]
-            yield encode_example(features)
+        columns = [("label", labels)]
+        columns += [(name, dense[:, k])
+                    for k, name in enumerate(fc.DENSE_FEATURES)]
+        columns += [(name, cats[:, k])
+                    for k, name in enumerate(fc.CATEGORICAL_FEATURES)]
+        yield from encode_columns(columns)
         remaining -= n
         part += 1

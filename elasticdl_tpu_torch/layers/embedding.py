@@ -11,12 +11,60 @@ with respect to the rows and pushes the per-id gradients.
 
 With `vocab_size` set (the local and AllReduce strategies, no PS) the layer
 holds an ordinary trainable table of `vocab_size` rows instead.
+
+The id capture below is how common/model_handler.py derives a model's ids
+feed: a forward run inside `capturing()` records the ids each PS table is
+called with and gives zeros in place of its rows.
 """
 
+import contextlib
+import contextvars
 import math
 
 import torch
 from torch import nn
+
+# The IdCapture of the forward that runs inside capturing(), if any. A
+# context variable: other threads and other forwards never see it.
+_CAPTURE = contextvars.ContextVar("edl_capture", default=None)
+
+
+class CaptureComplete(Exception):
+    """Raised inside a capture forward once every expected table was
+    called: the rest of the forward cannot change what was captured."""
+
+
+class IdCapture:
+    """{table: ids (numpy)} of one forward; `expected` (table names), when
+    given, ends the forward early once all of them were called."""
+
+    def __init__(self, expected=()):
+        self.ids = {}
+        self._expected = set(expected)
+
+    def record(self, table, ids, dim, combined=False):
+        """Records `ids` for `table` (a second call replaces the first);
+        returns the zeros standing in for the rows: [*ids.shape, dim], or
+        without the last id axis when the layer combines it."""
+        self.ids[table] = ids.detach().cpu().numpy()
+        if self._expected and self._expected <= set(self.ids):
+            raise CaptureComplete()
+        shape = ids.shape[:-1] if combined else ids.shape
+        return torch.zeros((*shape, dim), device=ids.device)
+
+
+@contextlib.contextmanager
+def capturing(capture):
+    """Runs the body with `capture` recording the PS tables' ids."""
+    token = _CAPTURE.set(capture)
+    try:
+        yield capture
+    finally:
+        _CAPTURE.reset(token)
+
+
+def active_capture():
+    return _CAPTURE.get()
 
 
 class DistributedEmbedding(nn.Module):
@@ -42,6 +90,10 @@ class DistributedEmbedding(nn.Module):
                 self.table.uniform_(0.0, 0.05, generator=generator)
 
     def forward(self, ids, rows=None):
+        capture = _CAPTURE.get()
+        if capture is not None and not self.vocab_size:
+            return capture.record(self.table_name, ids, self.dim,
+                                  self.combiner is not None)
         if self.vocab_size:
             embeddings = self.table[ids.long()]
         else:

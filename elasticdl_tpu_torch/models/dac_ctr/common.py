@@ -1,12 +1,14 @@
 """Shared pieces of the dac_ctr family (counterpart of
-elasticdl_tpu/models/dac_ctr/common.py): the DNN tower, the DeepFM head,
-the FM interaction, the CTR loss and metrics.
+elasticdl_tpu/models/dac_ctr/common.py): the device-resident embeddings,
+the DNN tower, the DeepFM head, the FM interaction, the CTR loss and
+metrics.
 
-Submodules carry flax's names (DNN_0 holding Dense_0, Dense_1, ...), so
-common/params.py maps wire names to them mechanically. flax's Dense
-defaults are kept: lecun-normal kernels (a normal truncated at two standard
-deviations) and zero biases. CTREmbeddings and the other heads (wide&deep,
-DCN, xDeepFM) are not ported yet.
+Submodules carry flax's names (CTREmbeddings_0 holding wide, deep and
+dense_linear; DNN_0 holding Dense_0, Dense_1, ...), so common/params.py
+maps wire names to them mechanically. flax's Dense defaults are kept:
+lecun-normal kernels (a normal truncated at two standard deviations) and
+zero biases. The JAX package's `shard_mesh` (tables row-sharded over a
+device mesh) belongs to parallel/, which is not ported.
 """
 
 import numpy as np
@@ -15,6 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.common.evaluation_utils import AUCMetric, MeanMetric
+from elasticdl_tpu_torch.models.dac_ctr import feature_config as fc
+from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
 
 # Standard deviation of a unit normal truncated to [-2, 2] (flax's
 # variance_scaling divides by it).
@@ -32,6 +36,47 @@ def init_dense_layers(module, generator):
             if mod.bias is not None:
                 with torch.no_grad():
                     mod.bias.zero_()
+
+
+class CTREmbeddings(nn.Module):
+    """wide [V, 1] and deep [V, D] tables over the shared offset id space,
+    plus the dense features' linear term.
+
+    Returns (linear_logits [B, F+1], field_embs [B, F, D], dense [B, 13]):
+    what every head (wide&deep, FM, CIN, cross) consumes. One gather per
+    table serves all 39 fields."""
+
+    def __init__(self, deep_dim=8, vocab=TOTAL_IDS):
+        super().__init__()
+        self.wide = nn.Parameter(torch.empty(vocab, 1))
+        self.deep = nn.Parameter(torch.empty(vocab, deep_dim))
+        self.dense_linear = nn.Linear(fc.NUM_DENSE, 1, bias=False)
+
+    def init_weights(self, generator):
+        """flax's initializers: wide zeros, deep normal(0.01), lecun-normal
+        dense_linear."""
+        with torch.no_grad():
+            self.wide.zero_()
+            self.deep.normal_(0.0, 0.01, generator=generator)
+        init_dense_layers(self, generator)
+
+    def forward(self, features):
+        ids = features["ids"].long()  # [B, F]
+        dense = features["dense"].float()  # [B, 13]
+        linear = F.embedding(ids, self.wide)[..., 0]  # [B, F]
+        field_embs = F.embedding(ids, self.deep)  # [B, F, D]
+        dense_logit = self.dense_linear(dense)  # [B, 1]
+        return torch.cat([linear, dense_logit], dim=1), field_embs, dense
+
+
+def dnn_input_width(deep_dim, num_fields=NUM_FIELDS):
+    """Width of [dense, flattened field embeddings], every tower's input."""
+    return fc.NUM_DENSE + num_fields * deep_dim
+
+
+def concat_dense_fields(dense, field_embs):
+    return torch.cat(
+        [dense, field_embs.reshape(field_embs.shape[0], -1)], dim=1)
 
 
 class DNN(nn.Module):
@@ -62,9 +107,7 @@ def deepfm_head(linear_logits, field_embs, dense, dnn, out):
     """The DeepFM output assembly: first-order logits + FM second-order
     term + `out`(`dnn`([dense, flattened field embeddings]))."""
     fm = fm_interaction(field_embs)
-    dnn_input = torch.cat(
-        [dense, field_embs.reshape(field_embs.shape[0], -1)], dim=1)
-    dnn_logit = out(dnn(dnn_input))
+    dnn_logit = out(dnn(concat_dense_fields(dense, field_embs)))
     return linear_logits.sum(dim=1) + fm + dnn_logit.reshape(-1)
 
 

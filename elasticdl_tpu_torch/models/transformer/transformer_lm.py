@@ -185,18 +185,32 @@ class Block(nn.Module):
         return x + h
 
 
+class Embed(nn.Embedding):
+    """flax Embed(dtype=...): the table cast to `dtype`, then the gather.
+    A module call per table, so that automatic PS placement
+    (common/model_handler.py) can move the table and hand in its rows."""
+
+    def __init__(self, num_embeddings, features, dtype):
+        super().__init__(num_embeddings, features)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids.long(), self.weight.to(self.compute_dtype))
+
+
 def embed_input(lm, tokens):
-    """Token + positional embedding in the activation dtype (the table is
-    cast before the gather, as flax Embed(dtype=...) does)."""
+    """Token + positional embedding in the activation dtype. The positions
+    are the ids arange(S), as the JAX LM looks them up. Under automatic PS
+    placement both tables return the PS's float32 rows instead, and the
+    residual stream is float32, as in the JAX package."""
     cfg = lm.config
-    dtype = _dtype(cfg)
     s = tokens.shape[1]
     if s > cfg.max_len:
         raise ValueError(
             f"sequence length {s} exceeds max_len {cfg.max_len}"
         )
-    x = F.embedding(tokens.long(), lm.tok_emb.weight.to(dtype))
-    pos = lm.pos_emb.weight[:s].to(dtype)
+    x = lm.tok_emb(tokens)
+    pos = lm.pos_emb(torch.arange(s, device=tokens.device))
     return x + pos[None]
 
 
@@ -209,8 +223,8 @@ class TransformerLM(nn.Module):
     def __init__(self, config: LMConfig = LMConfig()):
         super().__init__()
         cfg = self.config = config
-        self.tok_emb = nn.Embedding(cfg.vocab, cfg.d_model)
-        self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
+        self.tok_emb = Embed(cfg.vocab, cfg.d_model, _dtype(cfg))
+        self.pos_emb = Embed(cfg.max_len, cfg.d_model, _dtype(cfg))
         for i in range(cfg.n_layers):
             setattr(self, f"Block_{i}", Block(cfg))
         self.LayerNorm_0 = LayerNorm(cfg.d_model, _dtype(cfg))
@@ -277,8 +291,38 @@ def feed(records, mode, metadata):
     return features, labels
 
 
+# Rows of logits per chunk of token_ce: 64 rows at the flagship's vocab
+# (32768) are an 8 MiB scratch buffer, which stays in the host's cache.
+TOKEN_CE_CHUNK_ELEMS = 1 << 21
+
+
 def token_ce(outputs, labels):
-    """Per-token CE from logits (numpy; eval-metric building block)."""
+    """Per-token CE from logits [..., V] (numpy; eval-metric building
+    block) -> [..., 1] float32. One pass over the logits in chunks of rows,
+    each shifted by its maximum, exponentiated and summed in one scratch
+    buffer: no temporary of the logits' size."""
+    logits = np.asarray(outputs, np.float32)
+    labels = np.asarray(labels).astype(np.int64)
+    vocab = logits.shape[-1]
+    flat = logits.reshape(-1, vocab)
+    flat_labels = labels.reshape(-1)
+    out = np.empty(flat_labels.shape, np.float32)
+    chunk = max(1, TOKEN_CE_CHUNK_ELEMS // vocab)
+    scratch = np.empty((min(chunk, len(flat)), vocab), np.float32)
+    for start in range(0, len(flat), chunk):
+        rows = flat[start:start + chunk]
+        shifted = scratch[:len(rows)]
+        np.subtract(rows, rows.max(-1, keepdims=True), out=shifted)
+        picked = np.take_along_axis(
+            shifted, flat_labels[start:start + chunk, None], -1)[:, 0]
+        np.exp(shifted, out=shifted)
+        out[start:start + len(rows)] = np.log(shifted.sum(-1)) - picked
+    return out.reshape(labels.shape + (1,))
+
+
+def token_ce_plain(outputs, labels):
+    """The unchunked token_ce (the JAX package's formula), its plain
+    reference in the tests."""
     logits = np.asarray(outputs, np.float32)
     labels = np.asarray(labels).astype(np.int64)
     logits = logits - logits.max(-1, keepdims=True)

@@ -1,17 +1,22 @@
-"""The parameter server's host library: builds kernels.cc and idmap.cc with
-g++ at first use and loads them with ctypes (counterpart of
+"""The port's host library: builds kernels.cc, idmap.cc and codec.cc with g++
+at first use and loads them with ctypes (counterpart of
 elasticdl_tpu/native/__init__.py).
 
-The sources are copies of the JAX package's, compiled with the same flags,
-so both packages apply the same optimizer updates and create the same
-embedding rows bit for bit. The library goes to `build/torch_ext/` at the
+kernels.cc and idmap.cc are copies of the JAX package's, compiled with the
+same flags, so both packages apply the same optimizer updates and create the
+same embedding rows bit for bit. codec.cc is the port's own: the columnar
+Example decode (data/example.py) and the bfloat16 rounding of the wire
+(common/tensor_utils.py), which the JAX package gets from protobuf's and
+ml_dtypes' compiled code. The library goes to `build/torch_ext/` at the
 root of the checkout (listed in .gitignore), its file name carrying a hash
 of the sources and flags, as the CUDA kernels' do (ops/_build.py). These
-are host kernels: the parameter server's store lives in host memory.
+are host kernels: the parameter server's store lives in host memory, and
+records are decoded on the worker's host.
 
 A failed build or load raises. There is no numpy fallback on the main path:
-the numpy rules in ps/optimizer.py are the plain reference the tests hold
-the library against.
+the numpy rules in ps/optimizer.py, the Python codec of proto/messages.py
+and the numpy rounding of common/tensor_utils.py are the plain references
+the tests hold the library against.
 """
 
 import ctypes
@@ -24,7 +29,7 @@ import threading
 from elasticdl_tpu_torch.ops._build import BUILD_DIR
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("kernels.cc", "idmap.cc")
+SOURCES = ("kernels.cc", "idmap.cc", "codec.cc")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-march=native",
              "-shared"]
 
@@ -70,6 +75,7 @@ def _declare(lib):
                                  ctypes.c_uint64, ctypes.c_int],
         "edl_idmap_free": [ctypes.c_void_p],
         "edl_idmap_export_ids": [ctypes.c_void_p, i64, i64, i64ptr],
+        "edl_f32_to_bf16": [ctypes.c_void_p, ctypes.c_void_p, i64],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -85,6 +91,12 @@ def _declare(lib):
     lib.edl_idmap_rows_for_ids.restype = i64
     lib.edl_dedup_sum.argtypes = [i64ptr, f32ptr, i64, i64, i64ptr, f32ptr]
     lib.edl_dedup_sum.restype = i64
+    lib.edl_decode_examples.argtypes = [
+        ctypes.c_char_p, i64ptr, i64, i64, ctypes.c_char_p, i64ptr, i64ptr,
+        i64ptr, i64ptr, i64ptr, i64ptr, ctypes.POINTER(ctypes.c_void_p),
+        i64ptr, i64ptr,
+    ]
+    lib.edl_decode_examples.restype = i64
     return lib
 
 

@@ -48,6 +48,10 @@ def build_trainer(args, spec, ps_stubs=None, device=None):
             PSClient(ps_stubs, worker_id=args.worker_id,
                      wire_dtype=args.ps_wire_dtype),
             embedding_inputs=getattr(spec.module, "embedding_inputs", None),
+            embedding_threshold_bytes=getattr(
+                spec.module, "embedding_threshold_bytes", None),
+            embedding_device_capacity_bytes=getattr(
+                spec.module, "embedding_device_capacity_bytes", 0),
             seed=args.seed,
             model_steps=args.get_model_steps,
             device=device,

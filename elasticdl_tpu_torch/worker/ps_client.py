@@ -72,24 +72,27 @@ class PSClient:
     def __init__(self, stubs, worker_id=-1, wire_dtype=None):
         """stubs: one PSERVER_SERVICE stub per shard, index = ps_id.
 
-        wire_dtype: "float32" or "bfloat16" (None reads the
+        wire_dtype: "float32", "bfloat16" or "int8" (None reads the
         ELASTICDL_WIRE_DTYPE knob). bfloat16 halves the sparse legs: rows
         come down and row gradients go up as bfloat16 (rounded to nearest
-        even); dense parameters and gradients stay float32. The int8 wire
-        is not ported yet and raises NotImplementedError."""
+        even). int8 also block-quantizes the DENSE gradients (an absmax
+        scale per ELASTICDL_WIRE_BLOCK_SIZE elements), with error-feedback
+        residuals kept here per gradient name, so the quantization error
+        stays out of the training trajectory; its sparse legs are
+        bfloat16. Dense parameter pulls are float32 on every wire."""
         if wire_dtype is None or wire_dtype == "":
             wire_dtype = knobs.get_str("ELASTICDL_WIRE_DTYPE")
-        if wire_dtype == "int8":
-            raise NotImplementedError(
-                "the int8 wire (block-quantized dense gradients with error "
-                "feedback) is not ported to elasticdl_tpu_torch yet; use "
-                "float32 or bfloat16"
-            )
-        if wire_dtype not in ("float32", "bfloat16"):
+        if wire_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
+        self.wire_dtype = wire_dtype
         # Public: the trainer keeps rows and row gradients bfloat16 across
-        # the host<->device hop too.
-        self.bf16_wire = wire_dtype == "bfloat16"
+        # the host<->device hop too. int8 keeps the bfloat16 sparse legs.
+        self.bf16_wire = wire_dtype in ("bfloat16", "int8")
+        self.int8_dense = wire_dtype == "int8"
+        self._block_size = knobs.get_int("ELASTICDL_WIRE_BLOCK_SIZE")
+        # Error-feedback residuals, one per dense gradient name: what the
+        # last quantization rounded away, added to the next push's gradient.
+        self._ef_residual = {}
         # Packed-push chunking: sub-requests of one push share a push_id
         # (salted by pid so anonymous workers on one host can't collide in
         # the PS's reassembly map).
@@ -272,6 +275,37 @@ class PSClient:
         }
         return _PendingVectorPull(self, ids, futures, keep_wire_dtype)
 
+    def pull_embedding_table(self, name, page_bytes=64 << 20, dim=None):
+        """Every materialized (id, row) of a table, merged across shards
+        (the export's reverse swap), pulled in pages of about `page_bytes`;
+        pass `dim` so the first page is bounded too. Returns (ids [n],
+        values [n, dim]); (empty, None) if no rows exist. A shard that
+        fails raises: a partial table would corrupt the export."""
+        first_page = max(1, page_bytes // (int(dim) * 4)) if dim else 65536
+        all_ids, all_values = [], []
+        for ps_id, stub in enumerate(self._stubs):
+            start, requested = 0, first_page
+            while True:
+                try:
+                    res = stub.pull_embedding_table(
+                        pb.PullEmbeddingTableRequest(
+                            name=name, start_row=start, max_rows=requested))
+                except RpcError as e:
+                    self._mark_degraded(ps_id, e)
+                    raise
+                values, ids = tensor_utils.indexed_slices_pb_to_ndarrays(res)
+                if ids.size:
+                    all_ids.append(ids)
+                    all_values.append(values)
+                if ids.size < requested:  # a short page is the last
+                    break
+                start += ids.size
+                requested = max(1, page_bytes // max(
+                    values.dtype.itemsize * values.shape[1], 1))
+        if not all_ids:
+            return np.empty(0, np.int64), None
+        return np.concatenate(all_ids), np.concatenate(all_values)
+
     # ---------- gradient push ----------
 
     def push_gradients(self, dense_grads, sparse_grads, version,
@@ -334,13 +368,27 @@ class PSClient:
             raise last_err
         return accepted, max_version
 
+    def _quantize_with_feedback(self, name, grad, payload):
+        """The int8 span of `grad` plus the residual the last quantization
+        of `name` rounded away; the new round-off becomes the next
+        residual."""
+        residual = self._ef_residual.get(name)
+        if residual is not None:
+            grad = grad + residual
+        q, scales = tensor_utils.quantize_int8_blocks(grad, self._block_size)
+        dq = tensor_utils.dequantize_int8_blocks(q, scales, self._block_size)
+        self._ef_residual[name] = grad - dq.reshape(grad.shape)
+        return tensor_utils.pack_quantized_span(
+            name, grad.shape, q, scales, self._block_size, payload)
+
     def _build_packed_requests(self, dense_grads, sparse_grads, version,
                                learning_rate, batch_size):
         """{ps_id: [PackedPushRequest, ...]} for one gradient push.
 
-        Dense grads pack as float32 views. Sparse grads dedup once, then
-        bucket by shard with ONE gather for all shards: each shard's rows
-        are a contiguous block whose span is a view."""
+        Dense grads pack as float32 views, or under the int8 wire as
+        block-quantized spans with error feedback. Sparse grads dedup
+        once, then bucket by shard with ONE gather for all shards: each
+        shard's rows are a contiguous block whose span is a view."""
         worker_id_plus_one = (
             self._worker_id + 1 if self._worker_id >= 0 else 0
         )
@@ -364,9 +412,12 @@ class PSClient:
             for name in names:
                 arr = np.ascontiguousarray(dense_grads[name],
                                            dtype=np.float32)
-                header.dense.append(
-                    tensor_utils.pack_tensor_span(name, arr, payload)
-                )
+                if self.int8_dense:
+                    header.dense.append(self._quantize_with_feedback(
+                        name, arr, payload))
+                else:
+                    header.dense.append(
+                        tensor_utils.pack_tensor_span(name, arr, payload))
         # Tables that share one ids array (DeepFM's wide and deep) dedup to
         # identical id sets: the shard bucketing is computed once.
         bucket_memo = {}

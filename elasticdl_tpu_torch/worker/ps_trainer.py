@@ -29,10 +29,13 @@ model version. With model_steps > 1 the worker also advances its cached
 parameters through its own optimizer between pulls (the next pull
 overwrites that drift).
 
-The automatic placement of oversized nn.Embedding tables on the PS
-(common/model_handler.py in the JAX package) is not ported: a model whose
-ids feed would have to be derived raises NotImplementedError. A model
-without tables trains dense-only.
+Without `embedding_inputs`, placement is automatic (common/model_handler.py):
+every nn.Embedding over the size threshold moves to the PS, its rows reach
+it through the forward call's context, and the ids feed is derived from a
+capture forward at the first batch (also for DistributedEmbedding models).
+Dense names on the PS then carry the JAX wrapper's `inner/` scope, and the
+export pulls the moved tables back into the stock model's parameters. A
+model without tables trains dense-only.
 """
 
 import concurrent.futures
@@ -40,12 +43,16 @@ import time
 
 import numpy as np
 import torch
-from torch import nn
 
-from elasticdl_tpu_torch.common import tensor_utils
+from elasticdl_tpu_torch.common import model_handler, tensor_utils
 from elasticdl_tpu_torch.common.knobs import get_float, get_int
 from elasticdl_tpu_torch.common.log_utils import get_logger
-from elasticdl_tpu_torch.common.params import flax_leaves, params_to_flax
+from elasticdl_tpu_torch.common.params import (
+    FlaxLeaf,
+    flax_leaves,
+    leaves_to_flax,
+    params_to_flax,
+)
 from elasticdl_tpu_torch.common.rpc import RpcError
 from elasticdl_tpu_torch.common.timing import Timing
 from elasticdl_tpu_torch.layers.embedding import DistributedEmbedding
@@ -57,9 +64,6 @@ from elasticdl_tpu_torch.worker.trainer import TorchTrainer
 logger = get_logger("worker.ps_trainer")
 
 DEFAULT_MAX_PUSH_RETRIES = 3
-# The size over which the JAX package moves an nn.Embedding table to the PS
-# automatically (common/model_handler.py:DEFAULT_THRESHOLD_BYTES).
-AUTO_SWAP_THRESHOLD_BYTES = 2 * 1024 * 1024
 
 
 def _unique_inverse(flat):
@@ -77,6 +81,8 @@ class ParameterServerTrainer(TorchTrainer):
         optimizer_spec,
         ps_client,
         embedding_inputs=None,
+        embedding_threshold_bytes=None,
+        embedding_device_capacity_bytes=0,
         use_async=True,
         max_push_retries=DEFAULT_MAX_PUSH_RETRIES,
         seed=0,
@@ -119,8 +125,20 @@ class ParameterServerTrainer(TorchTrainer):
         # step).
         self._model_steps = max(1, int(model_steps or 1))
         self._since_pull = self._model_steps  # force a pull first
-        # callable(features) -> {table_name: ids ndarray}.
+        # callable(features) -> {table_name: ids ndarray}. Without it,
+        # placement is automatic and the feed is derived at init.
         self._embedding_inputs = embedding_inputs
+        self._embedding_threshold_bytes = (
+            embedding_threshold_bytes
+            or model_handler.DEFAULT_THRESHOLD_BYTES)
+        self._embedding_device_capacity_bytes = (
+            embedding_device_capacity_bytes)
+        # {table: vocab} of the nn.Embedding tables moved to the PS (sizes
+        # the export's reverse swap); empty when nothing moved.
+        self._embedding_vocab = {}
+        # Whether the model reads rows through a `rows` argument
+        # (DistributedEmbedding) besides the forward call's context.
+        self._rows_argument = False
         self._use_async = use_async
         self._max_push_retries = max_push_retries
         self._degraded_block_seconds = get_float(
@@ -133,45 +151,68 @@ class ParameterServerTrainer(TorchTrainer):
 
     # ---------- init ----------
 
-    def _find_tables(self):
+    def _place_tables(self):
+        """{table: dim} of the PS-resident tables: the model's
+        DistributedEmbedding tables and, without embedding_inputs, the
+        nn.Embedding tables model_handler moves to the PS."""
         tables = {}
         for mod in self._model.modules():
             if isinstance(mod, DistributedEmbedding) and not mod.vocab_size:
                 tables[mod.table_name] = mod.dim
+        self._rows_argument = bool(tables)
         if self._embedding_inputs is None:
-            if tables:
-                raise NotImplementedError(
-                    f"the model has PS-resident tables {sorted(tables)} but "
-                    "no embedding_inputs: deriving the ids feed "
-                    "(common/model_handler.py) is not ported yet"
-                )
-            big = [
-                name for name, mod in self._model.named_modules()
-                if isinstance(mod, nn.Embedding)
-                and mod.weight.numel() * mod.weight.element_size()
-                > AUTO_SWAP_THRESHOLD_BYTES
-            ]
-            if big:
-                raise NotImplementedError(
-                    f"nn.Embedding tables {big} exceed "
-                    f"{AUTO_SWAP_THRESHOLD_BYTES} bytes: moving them to the "
-                    "PS automatically (common/model_handler.py) is not "
-                    "ported yet; use DistributedEmbedding and "
-                    "embedding_inputs"
-                )
+            model_handler.wrap_model_for_ps(
+                self._model, self._embedding_threshold_bytes,
+                device_capacity_bytes=self._embedding_device_capacity_bytes)
+            moved = model_handler.discover_tables(self._model)
+            self._embedding_vocab = {t: vocab
+                                     for t, (_, vocab) in moved.items()}
+            tables.update({t: dim for t, (dim, _) in moved.items()})
         return tables
+
+    def _materialize(self):
+        # Tables move before the model gets storage: a moved table never
+        # has any.
+        self._embedding_dims = self._place_tables()
+        super()._materialize()
 
     def init_variables_if_needed(self, features):
         if self._leaves is not None:
             return
-        self._embedding_dims = self._find_tables()
         super().init_variables_if_needed(features)
         self._leaves = flax_leaves(self._model)
+        if self._embedding_vocab:
+            # The JAX wrapper's scope: the PS holds the same dense names.
+            self._leaves = [
+                FlaxLeaf(f"{model_handler.WRAPPER_SCOPE}/{x.name}", x.param,
+                         x.leaf, x.features) for x in self._leaves]
         self._param_names = [leaf.name for leaf in self._leaves]
         self._flax_shapes = [tuple(leaf.to_flax(leaf.param.detach()).shape)
                              for leaf in self._leaves]
+        if self._embedding_dims and self._embedding_inputs is None:
+            self._embedding_inputs = model_handler.derive_embedding_inputs(
+                self._capture_forward, features,
+                # A model with DistributedEmbedding tables runs the whole
+                # capture forward (a table called twice keeps its last ids).
+                () if self._rows_argument else tuple(self._embedding_dims))
+            if self._embedding_inputs is None:
+                raise ValueError(
+                    "model has PS-resident embedding tables "
+                    f"{sorted(self._embedding_dims)} but the ids feed could "
+                    "not be derived; provide embedding_inputs in the model "
+                    "spec")
         # First worker seeds the PS; later pushes are ignored there.
         self._push_local_model()
+
+    def _capture_forward(self, features):
+        """The forward a capture runs (model_handler.capture_embedding_ids):
+        in eval mode, on the device copy of `features`."""
+        training = self._model.training
+        self._model.eval()
+        try:
+            self._forward(self._to_device_batch(features), {})
+        finally:
+            self._model.train(training)
 
     def _embedding_infos(self):
         return [
@@ -187,7 +228,7 @@ class ParameterServerTrainer(TorchTrainer):
         if only_unseeded and self._ps.unseeded_shards:
             only_shards = set(self._ps.unseeded_shards)
         self._ps.push_model(
-            params_to_flax(self._model),
+            leaves_to_flax(self._leaves),
             self._embedding_infos(),
             version=self._version,
             only_shards=only_shards,
@@ -371,8 +412,11 @@ class ParameterServerTrainer(TorchTrainer):
             return self._model(features)
         # bfloat16 rows widen on the device (exact); their gradients come
         # back through the widening as bfloat16.
-        return self._model(
-            features, {t: r.float() for t, r in rows.items()})
+        rows = {t: r.float() for t, r in rows.items()}
+        with model_handler.ps_rows(rows):
+            if self._rows_argument:
+                return self._model(features, rows)
+            return self._model(features)
 
     def _ps_step(self, features, labels, rows):
         """fwd + bwd with respect to the dense parameters and the rows ->
@@ -544,11 +588,23 @@ class ParameterServerTrainer(TorchTrainer):
                 self._push_executor = None
 
     def export_variables(self):
-        """The final dense weights, pulled from the PS after the last push
-        (the tables stay in the PS)."""
+        """The final dense weights, pulled from the PS after the last push.
+        Tables moved to the PS automatically come back into the stock
+        model's parameters (model_handler.stuff_export_params); a
+        DistributedEmbedding's table stays in the PS."""
         if self._leaves is None:
             return None
         self._flush_pushes()
         self._sync_model()
-        return {"variables": params_to_flax(self._model), "opt_state": None,
-                "rng": None, "version": self._version}
+        variables = params_to_flax(self._model)
+        if self._embedding_vocab:
+            ps_tables = {}
+            for table in self._embedding_vocab:
+                ids, values = self._ps.pull_embedding_table(
+                    table, dim=self._embedding_dims[table])
+                if values is not None:
+                    ps_tables[table] = (ids, values)
+            variables = model_handler.stuff_export_params(
+                variables, ps_tables, default_vocab=self._embedding_vocab)
+        return {"variables": variables, "opt_state": None, "rng": None,
+                "version": self._version}

@@ -113,6 +113,10 @@ class TorchTrainer(Trainer):
     # ---------- step ----------
 
     def _to_device(self, batch):
+        """An array, or a dict of them (the CTR models' features), on the
+        trainer's device."""
+        if isinstance(batch, dict):
+            return {k: self._to_device(v) for k, v in batch.items()}
         return torch.as_tensor(np.asarray(batch)).to(
             self._device, non_blocking=True
         )

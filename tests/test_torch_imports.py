@@ -46,7 +46,10 @@ def test_port_imports_with_jax_blocked():
                  "ps.checkpoint", "ps.parameter_server", "worker.ps_client",
                  "worker.ps_trainer", "worker.row_cache", "layers.embedding",
                  "preprocessing.layers", "models.dac_ctr.deepfm_ps",
-                 "data.gen.criteo"):
+                 "data.gen.criteo", "common.model_handler",
+                 "models.dac_ctr.deepfm", "models.dac_ctr.wide_deep",
+                 "models.dac_ctr.dcn", "models.dac_ctr.xdeepfm",
+                 "data.example"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],

@@ -189,3 +189,31 @@ def test_ps_host_apply_matches_numpy_reference(cuda):
     np.testing.assert_allclose(param, ref, rtol=0, atol=1e-6)
     np.testing.assert_allclose(table.lookup(ids), ref_rows, rtol=0,
                                atol=1e-6)
+
+
+def test_host_codecs_match_their_plain_versions(cuda):
+    """The host library's columnar Example decode and bfloat16 rounding,
+    built on the card's machine, against the Python codec and the numpy
+    rounding."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common import tensor_utils
+    from elasticdl_tpu_torch.data.example import (
+        batch_examples,
+        stack_examples,
+    )
+    from elasticdl_tpu_torch.data.gen.criteo import iter_criteo_records
+
+    records = list(iter_criteo_records(300, seed=5, chunk=128))
+    got, want = batch_examples(records), stack_examples(records)
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype
+        assert got[name].tobytes() == want[name].tobytes(), name
+    rng = np.random.default_rng(0)
+    high = np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)
+    low = rng.integers(0, 1 << 16, size=(2, 1 << 16)).astype(np.uint32)
+    values = (high | low).reshape(-1).view(np.float32)
+    np.testing.assert_array_equal(
+        tensor_utils.float32_to_bfloat16_bits(values),
+        tensor_utils.float32_to_bfloat16_bits_plain(values))

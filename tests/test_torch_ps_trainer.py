@@ -3,7 +3,8 @@ row_cache.py, layers/embedding.py, models/dac_ctr, the master's in-process
 shards) against the JAX package's: DeepFM-PS's first step at imported
 weights, three steps through each package's own two shards, then the port's
 jobs through its Master (records exact, a shard relaunched mid-job), the
-pipelined path's invariants, the bfloat16 wire, and what still raises."""
+pipelined path's invariants, the bfloat16 and int8 wires, and automatic
+table placement."""
 
 import os
 
@@ -15,6 +16,7 @@ from torch import nn
 
 from elasticdl_tpu.common.model_utils import get_model_spec as jax_spec
 from elasticdl_tpu.common.pytree_utils import flatten_params
+from elasticdl_tpu.proto import elasticdl_tpu_pb2 as pb2
 from elasticdl_tpu.ps.parameter_server import (
     ParameterServer as JaxParameterServer,
 )
@@ -325,18 +327,108 @@ def test_bfloat16_wire_rounds_rows_and_row_gradients():
 
 
 def test_unported_options_and_missing_device_raise():
-    with pytest.raises(NotImplementedError, match="int8"):
-        PSClient([None], wire_dtype="int8")
+    """The int8 wire and a derived ids feed, which raised before they were
+    ported, now work; an unknown wire and a missing device still raise."""
+    client = PSClient([None], wire_dtype="int8")
+    assert client.int8_dense and client.bf16_wire
+    with pytest.raises(ValueError, match="wire_dtype"):
+        PSClient([None], wire_dtype="int4")
     if not torch.cuda.is_available():  # device=None means CUDA
         with pytest.raises(RuntimeError, match="CUDA"):
             ParameterServerTrainer(
                 deepfm_ps.custom_model(), deepfm_ps.loss,
                 deepfm_ps.optimizer(), PSClient([None]))
+    # DeepFM-PS without its embedding_inputs: the feed is derived from a
+    # capture forward, both tables off the ids feature.
+    shards = [ParameterServer(i, 2, optimizer_spec=deepfm_ps.optimizer())
+              for i in range(2)]
+    client = PSClient([s.stub() for s in shards])
     trainer = ParameterServerTrainer(
         deepfm_ps.custom_model(), deepfm_ps.loss, deepfm_ps.optimizer(),
-        PSClient([None]), device="cpu")
-    with pytest.raises(NotImplementedError, match="embedding_inputs"):
-        trainer.init_variables_if_needed(None)
+        client, pipeline_pushes=False, device="cpu")
+    features, labels = _batches(1)[0]
+    assert trainer.train_minibatch(features, labels)[0]
+    derived = trainer._embedding_inputs(features)
+    assert sorted(derived) == ["deep", "wide"]
+    for table, ids in deepfm_ps.embedding_inputs(features).items():
+        np.testing.assert_array_equal(derived[table], ids)
+    client.close()
+
+
+def _record_calls(client):
+    """Wraps the client: the list it returns gets every model push, row
+    pull and gradient push, with copies of their arrays."""
+    calls = []
+    push_model, pull = client.push_model, client.pull_embedding_vectors_async
+    push = client.push_gradients
+
+    def record_push_model(dense, infos=None, version=0, only_shards=None):
+        calls.append(("push_model", {k: np.array(v) for k, v in
+                                     dense.items()}, list(infos), version))
+        return push_model(dense, infos, version, only_shards)
+
+    def record_pull(name, ids, keep_wire_dtype=False):
+        calls.append(("pull", name, np.array(ids)))
+        return pull(name, ids, keep_wire_dtype)
+
+    def record_push(dense, sparse, version, **kw):
+        calls.append(("push", {k: np.array(v) for k, v in dense.items()},
+                      {t: (np.array(v), np.array(i))
+                       for t, (v, i) in sparse.items()}, version, kw))
+        return push(dense, sparse, version, **kw)
+
+    client.push_model = record_push_model
+    client.pull_embedding_vectors_async = record_pull
+    client.push_gradients = record_push
+    return calls
+
+
+def test_three_int8_steps_leave_the_same_ps_state_as_jax():
+    """Three steps of DeepFM-PS on the int8 wire (dense gradients in int8
+    blocks with error feedback, rows and row gradients in bfloat16); the
+    same calls through the JAX package's PSClient(wire_dtype="int8") into
+    its own shards leave the same PS state."""
+    trainer, client, shards = _trainer("int8", pipeline_pushes=False,
+                                       prefetch_overlap=False)
+    calls = _record_calls(client)
+    for features, labels in _batches(3):
+        assert trainer.train_minibatch(features, labels)[0]
+    client.close()
+    assert [c[0] for c in calls].count("push") == 3
+    j_spec = jax_spec(JAX_SPEC)
+    servers = [JaxParameterServer(i, 2,
+                                  optimizer_spec=j_spec.build_optimizer_spec())
+               for i in range(2)]
+    try:
+        j_client = JaxPSClient([s.addr for s in servers], worker_id=0,
+                               wire_dtype="int8")
+        for call in calls:
+            if call[0] == "push_model":
+                _, dense, infos, version = call
+                j_client.push_model(dense, [
+                    pb2.EmbeddingTableInfo.FromString(i.SerializeToString())
+                    for i in infos], version=version)
+            elif call[0] == "pull":
+                j_client.pull_embedding_vectors(call[1], call[2])
+            else:
+                _, dense, sparse, version, kw = call
+                assert j_client.push_gradients(dense, sparse, version,
+                                               **kw)[0]
+        j_client.close()
+        for shard, server in zip(shards, servers):
+            ours, theirs = shard.parameters, server.parameters
+            assert ours.version == theirs.version == 3
+            assert sorted(ours.dense) == sorted(theirs.dense)
+            for name, value in ours.dense.items():
+                _close(value, theirs.dense[name], what=name)
+            for table, tab in theirs.embedding_tables.items():
+                j_ids, j_rows = tab.export_rows()
+                ids, rows = ours.embedding_tables[table].export_rows()
+                np.testing.assert_array_equal(ids, j_ids)
+                _close(rows, j_rows, what=table)
+    finally:
+        for s in servers:
+            s.stop()
 
 
 class _DownStub:
@@ -427,17 +519,43 @@ def test_dense_only_model_with_local_steps_and_export():
 
 
 def test_oversized_nn_embedding_needs_the_unported_auto_swap():
+    """A stock nn.Embedding over the 2 MiB threshold moves to the PS
+    automatically (no embedding_inputs): its rows are pulled and its row
+    gradients pushed under its module path, and the export brings it
+    back; a table under the threshold stays a dense parameter."""
     class Big(nn.Module):
         def __init__(self):
             super().__init__()
-            self.Embed_0 = nn.Embedding(1 << 20, 1)
+            self.Embed_0 = nn.Embedding(1 << 20, 1)  # 4 MiB
+            self.Embed_1 = nn.Embedding(64, 2)  # 512 B
+            self.Dense_0 = nn.Linear(13 + 2, 1)
 
-    with torch.device("meta"):
-        model = Big()
-    trainer = ParameterServerTrainer(model, _mse, optimizers.sgd(0.1),
-                                     PSClient([None]), device="cpu")
-    with pytest.raises(NotImplementedError, match="model_handler"):
-        trainer.init_variables_if_needed(None)
+        def forward(self, features):
+            ids = features["ids"].long()
+            small = self.Embed_1(ids[:, 0] % 64)
+            dense = self.Dense_0(torch.cat([features["dense"], small], 1))
+            return self.Embed_0(ids).sum((1, 2)) + dense[:, 0]
+
+    shards = [ParameterServer(i, 2, optimizer_spec=optimizers.sgd(0.1))
+              for i in range(2)]
+    client = PSClient([s.stub() for s in shards], worker_id=0)
+    trainer = ParameterServerTrainer(Big(), _mse, optimizers.sgd(0.1),
+                                     client, pipeline_pushes=False,
+                                     device="cpu")
+    pushes = _capture_pushes(client)
+    features, _ = _batches(1)[0]
+    labels = np.ones(BATCH, np.float32)
+    assert trainer.train_minibatch(features, labels)[0]
+    assert trainer._embedding_dims == {"Embed_0": 1}
+    dense, sparse = pushes[0]
+    assert sorted(dense) == ["inner/Dense_0/bias", "inner/Dense_0/kernel",
+                             "inner/Embed_1/embedding"]
+    np.testing.assert_array_equal(sparse["Embed_0"][1],
+                                  features["ids"].reshape(-1))
+    exported = trainer.export_variables()["variables"]
+    assert exported["Embed_0/embedding"].shape == (1 << 20, 1)
+    assert "Embed_1/embedding" in exported
+    client.close()
 
 
 def test_sync_mode_stale_push_is_rejected_then_recomputed():
