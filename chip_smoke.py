@@ -88,7 +88,21 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    weights (1e-5 / 1e-4 of the largest value). Prints the tables moved,
    ms per step and its phase split, payload bytes per push, the device's
    busy share over one profiled step, and the process's peak RSS.
-The PS and CTR phases but lm_ps launch none of the flash-attention kernels;
+12. zoo: the image and tabular zoo. ResNet-50 (batch 128) and MobileNetV2
+   (batch 256) at 224x224, bf16 convs and f32 BatchNorm, on LocalTrainer:
+   3 warm-up and 10 timed steps each (ms per step, img/s, peak memory, the
+   step's model FLOPs over the bf16 data-sheet peak, losses falling), one
+   profiled step by kernel group. ResNet-50 as a job through the master
+   on 1024 training and 256 validation records of f32 images (tasks of
+   256, minibatches of 128, evaluation every 4 versions): records_done
+   exact, evaluation results, then a checkpoint round trip with its
+   batch_stats (eval outputs bitwise equal). Both models in f32 at batch
+   2 on the card against the CPU (see _zoo_card_vs_cpu for the bounds).
+   One short job through the master for each small zoo model (MNIST,
+   CIFAR-10, census wide & deep and DNN, heart, iris from CSV, DeepFM,
+   and DeepFM with both tables on 2 PS shards): records_done exact and
+   the loss falling.
+The PS, CTR and zoo phases launch none of the flash-attention kernels;
 their counts are reset before each and read after it. Then each phase's
 seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
 {...}}.
@@ -118,14 +132,18 @@ from elasticdl_tpu_torch.common.params import (
     flax_leaves,
     params_from_flax,
     params_to_flax,
+    state_to_flax,
 )
 from elasticdl_tpu_torch.common.save_utils import save_trainer_checkpoint
 from elasticdl_tpu_torch.data.example import encode_example
 from elasticdl_tpu_torch.data.gen.criteo import iter_criteo_records
 from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
 from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
+from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv
 from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.data.example import batch_examples
+from elasticdl_tpu_torch.models.census import dnn as census_dnn
+from elasticdl_tpu_torch.models.census import wide_deep as census_wide_deep
 from elasticdl_tpu_torch.models.dac_ctr import (
     dcn,
     deepfm,
@@ -135,6 +153,11 @@ from elasticdl_tpu_torch.models.dac_ctr import (
     xdeepfm,
 )
 from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
+from elasticdl_tpu_torch.models.deepfm import deepfm_functional
+from elasticdl_tpu_torch.models.heart import heart_model
+from elasticdl_tpu_torch.models.iris import iris_dnn
+from elasticdl_tpu_torch.models.mobilenetv2 import mobilenetv2
+from elasticdl_tpu_torch.models.resnet50 import resnet50
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -273,6 +296,56 @@ LM_PS_TASK = 8
 # as a share of their largest (float32 sums in another order).
 LM_PS_LOSS_RTOL = 1e-5
 LM_PS_GRAD_RTOL = 1e-4
+
+# The image zoo at full width: ResNet-50 (batch 128, as the JAX package's
+# throughput workload) and MobileNetV2 (batch 256), 224x224, bf16 convs;
+# 3 warm-up and 10 timed steps on 2 distinct batches of synthetic images
+# (ZOO_CLASSES templates plus noise, labels under the 1000-way head).
+PEAK_BF16_FLOPS = 989e12
+ZOO_IMAGE = 224
+ZOO_CLASSES = 10
+ZOO_WARMUP = 3
+ZOO_STEPS = 10
+ZOO_DIRECT = (("resnet50", resnet50, 128), ("mobilenetv2", mobilenetv2, 256))
+# ResNet-50 through the master: 1024 training and 256 validation records
+# of float32 images, tasks of 256, minibatches of 128, evaluation every 4
+# versions (8 steps; evaluations at 4 and 8).
+ZOO_JOB_TRAIN = 1024
+ZOO_JOB_VALID = 256
+ZOO_JOB_TASK = 256
+ZOO_JOB_BATCH = 128
+ZOO_JOB_EVAL_STEPS = 4
+# Card against CPU: float32 models at batch 2, as a share of the largest
+# value compared (the same arithmetic summed in another order).
+ZOO_CHECK_BATCH = 2
+ZOO_CHECK_RTOL = 1e-4
+# The CPU's second run, on images moved by this much relative, measures how
+# far its own gradients move under rounding-sized changes of the forward.
+ZOO_CHECK_PERTURBATION = 1e-6
+# The small zoo through the master on the card: name -> (model def, its
+# module (records), strategy); 128 records, 8 epochs of minibatches of 32.
+ZOO_SMALL = {
+    "mnist": ("elasticdl_tpu_torch.models.mnist.mnist_model", None,
+              "Local"),
+    "cifar10": ("elasticdl_tpu_torch.models.cifar10.cifar10_cnn", None,
+                "Local"),
+    "census_wide_deep": ("elasticdl_tpu_torch.models.census.wide_deep",
+                         census_wide_deep, "Local"),
+    "census_dnn": ("elasticdl_tpu_torch.models.census.dnn", census_dnn,
+                   "Local"),
+    "heart": ("elasticdl_tpu_torch.models.heart.heart_model", heart_model,
+              "Local"),
+    "iris": ("elasticdl_tpu_torch.models.iris.iris_dnn", None, "Local"),
+    "deepfm_functional": (
+        "elasticdl_tpu_torch.models.deepfm.deepfm_functional",
+        deepfm_functional, "Local"),
+    "deepfm_distributed": (
+        "elasticdl_tpu_torch.models.deepfm.deepfm_distributed",
+        deepfm_functional, "ParameterServerStrategy"),
+}
+ZOO_SMALL_RECORDS = 128
+ZOO_SMALL_EPOCHS = 8
+ZOO_SMALL_BATCH = 32
 
 
 def emit(obj):
@@ -681,7 +754,7 @@ def phase_main_path():
         raise AssertionError(
             f"main-path launches {launches}, expected {expected}"
         )
-    _profile_step(trainer, tokens[:BATCH])
+    _profile_step(trainer, tokens[:BATCH, :-1], tokens[:BATCH, 1:])
     return {"launches": launches, "step_ms": step_ms,
             "tokens_per_s": BATCH * SEQ / (step_ms / 1e3)}
 
@@ -698,34 +771,38 @@ def _kernel_group(name):
     return "other"
 
 
-def _profile_step(trainer, rows):
+def _profile_step(trainer, features, labels, classify=_kernel_group,
+                  phase="profile"):
     """One more train step (after the main path's counts were read) under
-    torch.profiler: device time by kernel group and the device's busy
-    share of the step's wall time."""
+    torch.profiler: device time by kernel group (`classify` names a
+    kernel's group) and the device's busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        trainer.train_minibatch(rows[:, :-1], rows[:, 1:])[2].item()
+        trainer.train_minibatch(features, labels)[2].item()
         wall_ms = 1e3 * (time.perf_counter() - start)
     groups, other = {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        group = _kernel_group(evt.key)
+        group = classify(evt.key)
         groups[group] = groups.get(group, 0.0) + evt.self_device_time_total
         if group == "other":
             other.append((evt.self_device_time_total / 1e3, evt.count,
                            evt.key[:90]))
     busy_ms = sum(groups.values()) / 1e3
-    emit({"phase": "profile", "step_wall_ms": wall_ms,
-          "device_busy_ms": busy_ms if busy_ms else "not measured",
-          "device_busy_share": busy_ms / wall_ms if busy_ms else None,
-          "device_ms_by_group": {
-              g: t / 1e3 for g, t in sorted(groups.items(),
-                                            key=lambda kv: -kv[1])},
-          "largest_other_ms_count_name": sorted(other, reverse=True)[:6]})
+    result = {
+        "phase": phase, "step_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if busy_ms else "not measured",
+        "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+        "device_ms_by_group": {
+            g: t / 1e3 for g, t in sorted(groups.items(),
+                                          key=lambda kv: -kv[1])},
+        "largest_other_ms_count_name": sorted(other, reverse=True)[:6]}
+    emit(result)
+    return result
 
 
 class _LossLog(logging.Handler):
@@ -918,26 +995,26 @@ def phase_job(direct):
                 raise AssertionError(f"job phase: {what}")
 
         emit({"phase": "job", **_checkpoint_round_trip(
-            worker.trainer, root, eval_rows)})
+            worker.trainer, root, eval_rows[:, :-1],
+            LocalTrainer(tlm.custom_model(tlm.flagship_config(SEQ)),
+                         tlm.loss, tlm.optimizer(), seed=1))})
     return launches
 
 
-def _checkpoint_round_trip(trainer, root, rows):
-    """save_trainer_checkpoint, then restore_on_init into a fresh trainer:
-    eval logits on one batch bitwise equal."""
+def _checkpoint_round_trip(trainer, root, features, fresh):
+    """save_trainer_checkpoint, then restore_on_init into `fresh`, a new
+    trainer of the same model: eval outputs on one batch bitwise equal."""
     path = os.path.join(root, "ckpt.npz")
     start = time.perf_counter()
     save_trainer_checkpoint(trainer, path)
     save_s = time.perf_counter() - start
-    fresh = LocalTrainer(tlm.custom_model(tlm.flagship_config(SEQ)),
-                         tlm.loss, tlm.optimizer(), seed=1)
     fresh.restore_on_init = path
     start = time.perf_counter()
     fresh.init_variables_if_needed(None)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - start
-    want = trainer.evaluate_minibatch(rows[:, :-1])
-    got = fresh.evaluate_minibatch(rows[:, :-1])
+    want = trainer.evaluate_minibatch(features)
+    got = fresh.evaluate_minibatch(features)
     result = {"checkpoint_bytes": os.path.getsize(path), "save_s": save_s,
               "restore_s": restore_s,
               "restored_version": fresh.get_model_version(),
@@ -1683,13 +1760,398 @@ def phase_lm_ps():
     return results
 
 
+# ---------- the image and tabular zoo ----------
+
+
+def _zoo_images(n, seed, shape=(ZOO_IMAGE, ZOO_IMAGE, 3)):
+    """n float32 NHWC images: one of ZOO_CLASSES fixed templates plus
+    noise, so a classifier's loss falls within a few steps; int64
+    labels."""
+    templates = np.random.default_rng(0).standard_normal(
+        (ZOO_CLASSES, *shape), dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, ZOO_CLASSES, n)
+    images = templates[labels]
+    images += 0.5 * rng.standard_normal(images.shape, dtype=np.float32)
+    return images, labels.astype(np.int64)
+
+
+def _zoo_kernel_group(name):
+    low = name.lower()
+    for group, keys in (
+            ("conv", ("conv", "cudnn", "xmma", "implicit", "fprop",
+                      "dgrad", "wgrad", "winograd", "nhwc", "cutlass",
+                      "sm90_")),
+            ("gemm", ("gemm", "nvjet")),
+            ("optimizer", ("multi_tensor",)),
+            ("reduce: BatchNorm statistics, spatial mean", ("reduce",)),
+            ("max_pool", ("pool",)),
+            ("elementwise: BatchNorm normalize, relu, casts, pads",
+             ("elementwise", "copy", "fill", "pad", "cat"))):
+        if any(key in low for key in keys):
+            return group
+    return "other"
+
+
+def _zoo_forward_flops(model, image):
+    """Model FLOPs of one image's forward from the conv and dense shapes
+    (2 per multiply-add), counted by forward hooks on an eval forward
+    (which updates no BatchNorm statistics)."""
+    total = [0]
+
+    def hook(module, inputs, out):
+        if isinstance(module, Conv):
+            total[0] += 2 * out.numel() * module.weight[0].numel()
+        elif isinstance(module, torch.nn.Linear):
+            total[0] += 2 * out.numel() * module.in_features
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv, torch.nn.Linear))]
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.as_tensor(image).cuda())
+    finally:
+        model.train(training)
+        for handle in handles:
+            handle.remove()
+    return total[0]
+
+
+def _zoo_direct(name, module, batch):
+    """LocalTrainer at full width, batch `batch` of 224x224 images:
+    ZOO_WARMUP then ZOO_STEPS timed steps, the step's model FLOPs against
+    the bf16 data-sheet peak, one profiled step."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = LocalTrainer(module.custom_model(), module.loss,
+                           module.optimizer())
+    batches = [_zoo_images(batch, seed) for seed in (20, 21)]
+    losses = [float(trainer.train_minibatch(*batches[i % 2])[2])
+              for i in range(ZOO_WARMUP)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    timed = [trainer.train_minibatch(*batches[i % 2])[2]
+             for i in range(ZOO_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    losses += [float(x) for x in timed]
+    step_ms = 1e3 * elapsed / ZOO_STEPS
+    flops = 3 * batch * _zoo_forward_flops(trainer._model,
+                                           batches[0][0][:1])
+    result = {
+        "phase": "zoo", "model": name, "batch": batch,
+        "image": ZOO_IMAGE, "dtype": "bfloat16 convs, float32 BatchNorm",
+        "params": sum(p.numel() for p in trainer._model.parameters()),
+        "steps": ZOO_STEPS, "ms_per_step": step_ms,
+        "img_per_s": batch * ZOO_STEPS / elapsed,
+        "losses": losses,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "step_flops": flops,
+        "flops_share_of_bf16_peak": flops / (step_ms / 1e3)
+        / PEAK_BF16_FLOPS,
+    }
+    emit(result)
+    if not (all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"zoo {name}: losses {losses}")
+    result["profile"] = _profile_step(trainer, *batches[0],
+                                      classify=_zoo_kernel_group,
+                                      phase=f"zoo_profile_{name}")
+    return trainer, result
+
+
+def _zoo_job(root):
+    """ResNet-50 trained as a job through the master on .edlr records of
+    float32 images, then a checkpoint round trip."""
+    start = time.perf_counter()
+    paths = {"train": os.path.join(root, "zoo_train.edlr"),
+             "valid": os.path.join(root, "zoo_valid.edlr")}
+    chunk = ZOO_JOB_BATCH
+    for name, n, seed in (("train", ZOO_JOB_TRAIN, 30),
+                          ("valid", ZOO_JOB_VALID, 60)):
+        with RecordFileWriter(paths[name]) as writer:
+            for k in range(n // chunk):
+                images, labels = _zoo_images(chunk, seed + k)
+                for image, label in zip(images, labels):
+                    writer.write(encode_example(
+                        {"image": image, "label": label}))
+    write_s = time.perf_counter() - start
+    common = [
+        "--model_def", "elasticdl_tpu_torch.models.resnet50.resnet50",
+        "--distribution_strategy", "Local",
+        "--training_data", paths["train"],
+        "--validation_data", paths["valid"],
+        "--records_per_task", str(ZOO_JOB_TASK), "--num_epochs", "1",
+        "--minibatch_size", str(ZOO_JOB_BATCH),
+        "--evaluation_steps", str(ZOO_JOB_EVAL_STEPS), "--seed", "0",
+    ]
+    master_args = edl_args.master_parser().parse_args(
+        common + ["--instance_backend", "none"])
+    edl_args.validate_args(master_args)
+    master = Master(master_args)
+    worker_args = edl_args.worker_parser().parse_args(common + [
+        "--worker_id", "0", "--master_addr", "in-process",
+        "--job_type", "training_with_evaluation", "--log_loss_steps", "1",
+    ])
+    edl_args.validate_args(worker_args)
+    worker = build_worker(worker_args, MasterClient(master.stub(), 0))
+    loss_log = _LossLog()
+    worker_logger = logging.getLogger("elasticdl_tpu_torch.worker.worker")
+    worker_logger.addHandler(loss_log)
+    start = time.perf_counter()
+    try:
+        worker.run()
+    finally:
+        worker_logger.removeHandler(loss_log)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    stats = master.task_d.stats()
+    evals = master.evaluation_service.completed_results
+    losses = [loss for _, loss, _ in loss_log.lines]
+    n_steps = ZOO_JOB_TRAIN // ZOO_JOB_BATCH
+    result = {"phase": "zoo_job", "model": "resnet50",
+              "records_write_s": write_s, "wall_s": wall_s,
+              "records_done": stats["records_done"], "steps": worker.steps,
+              "logged_losses": losses, "eval_results": evals}
+    emit(result)
+    checks = [
+        (master.task_d.finished() and not master.task_d.job_failed,
+         "the job did not finish cleanly"),
+        (stats["records_done"] == ZOO_JOB_TRAIN,
+         f"records_done {stats['records_done']}"),
+        (worker.steps == n_steps, f"{worker.steps} steps"),
+        (len(losses) == n_steps and all(math.isfinite(x) for x in losses),
+         f"logged losses {losses}"),
+        ([v for v, _ in evals] == list(range(
+            ZOO_JOB_EVAL_STEPS, n_steps + 1, ZOO_JOB_EVAL_STEPS))
+         and all(math.isfinite(m["accuracy"]) for _, m in evals),
+         f"evaluation results {evals}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"zoo_job: {what}")
+    features, _ = _zoo_images(ZOO_JOB_BATCH, 60)
+    fresh = LocalTrainer(resnet50.custom_model(), resnet50.loss,
+                         resnet50.optimizer(), seed=1)
+    round_trip = _checkpoint_round_trip(worker.trainer, root, features,
+                                        fresh)
+    emit({"phase": "zoo_job", **round_trip})
+    return dict(result, checkpoint=round_trip)
+
+
+def _zoo_card_vs_cpu(name, cls):
+    """The float32 model at batch 2 of 224x224 images, the same weights
+    and batch_stats on the card and on the CPU (BatchNorm scales, biases
+    and running statistics moved off their initial values), each result as
+    a share of its largest value:
+    - eval mode (BatchNorm reads its running statistics): the logits, and
+      every gradient of the loss;
+    - one training forward and backward: the logits, the loss, the updated
+      batch_stats and every gradient.
+
+    Logits, loss and batch_stats are held within ZOO_CHECK_RTOL. The
+    gradients are not continuous in the forward's rounding: where the card
+    and the CPU round a value near a ReLU's or a max-pool's kink to
+    opposite sides, the gradient takes the other branch, and in training
+    mode BatchNorm's backward, over few values per channel at batch 2,
+    cancels most of what reaches it. So the CPU runs once more on the
+    images perturbed by ZOO_CHECK_PERTURBATION relative (the size of the
+    two devices' rounding differences), and each mode's gradients on the
+    card are held within the larger of ZOO_CHECK_RTOL and twice the
+    largest gradient spread of those two CPU runs."""
+    gen = torch.Generator().manual_seed(0)
+    with torch.device("meta"):
+        cpu = cls(dtype="float32")
+        card = cls(dtype="float32")
+    cpu.to_empty(device="cpu")
+    cpu.init_weights(gen)
+    with torch.no_grad():
+        for mod in cpu.modules():
+            if isinstance(mod, BatchNorm):
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.normal_(0.0, 0.1, generator=gen)
+                mod.mean.normal_(0.0, 0.1, generator=gen)
+                mod.var.uniform_(0.5, 1.5, generator=gen)
+    initial = copy.deepcopy(cpu.state_dict())
+    card.to_empty(device="cuda")
+    card.load_state_dict(initial)
+    images, labels = _zoo_images(ZOO_CHECK_BATCH, 50)
+    noise = np.random.default_rng(51).standard_normal(images.shape)
+    perturbed = (images * (1 + ZOO_CHECK_PERTURBATION * noise)).astype(
+        np.float32)
+
+    def grads_of(model, x, training):
+        model.train(training)
+        model.zero_grad(set_to_none=True)
+        logits = model(x)
+        loss = resnet50.loss(labels, logits)
+        loss.backward()
+        return logits.detach().cpu().numpy(), loss.item(), {
+            leaf.name: leaf.to_flax(leaf.param.grad).cpu().numpy()
+            for leaf in flax_leaves(model)}
+
+    def run(model, device, inputs):
+        x = torch.as_tensor(inputs).to(device)
+        eval_logits, _, eval_grads = grads_of(model, x, False)
+        logits, loss, train_grads = grads_of(model, x, True)
+        values = {"eval_logits": eval_logits, "logits": logits,
+                  "loss": np.asarray(loss), **state_to_flax(model)}
+        grads = {"eval": eval_grads, "train": train_grads}
+        return values, grads
+
+    (values, grads), (cpu_values, cpu_grads) = (
+        run(card, "cuda", images), run(cpu, "cpu", images))
+    cpu.load_state_dict(initial)
+    _, moved_grads = run(cpu, "cpu", perturbed)
+    value_err = {k: _rel_err(values[k], cpu_values[k]) for k in cpu_values}
+    worst_values = sorted(value_err.items(), key=lambda kv: -kv[1])[:3]
+    result = {
+        "phase": "zoo_card_vs_cpu", "model": name,
+        "batch": ZOO_CHECK_BATCH, "cpu_threads": torch.get_num_threads(),
+        "loss_card": float(values["loss"]),
+        "loss_cpu": float(cpu_values["loss"]),
+        "eval_logits_err": value_err["eval_logits"],
+        "logits_err": value_err["logits"],
+        "batch_stats_max_err": max(v for k, v in value_err.items()
+                                   if k.startswith("batch_stats/")),
+        "worst_values": worst_values,
+        "tolerance": {"values": ZOO_CHECK_RTOL},
+    }
+    failed = worst_values[0][1] > ZOO_CHECK_RTOL
+    for mode in ("eval", "train"):
+        err = {k: _rel_err(grads[mode][k], cpu_grads[mode][k])
+               for k in cpu_grads[mode]}
+        spread = {k: _rel_err(moved_grads[mode][k], cpu_grads[mode][k])
+                  for k in cpu_grads[mode]}
+        bound = max(ZOO_CHECK_RTOL, 2 * max(spread.values()))
+        worst = sorted(err.items(), key=lambda kv: -kv[1])[:3]
+        result[f"{mode}_grads"] = {
+            "worst": [(k, v, spread[k]) for k, v in worst],
+            "within_1e-4": sum(v <= ZOO_CHECK_RTOL for v in err.values()),
+            "count": len(err), "cpu_perturbed_spread_max":
+                max(spread.values()), "tolerance": bound}
+        failed = failed or worst[0][1] > bound
+    emit(result)
+    if failed:
+        raise AssertionError(f"zoo {name} card against CPU: {result}")
+    return result
+
+
+def _zoo_small_records(name, root, n):
+    """Training data for a small zoo job: an .edlr file (a CSV file for
+    iris) of n records."""
+    if name == "iris":
+        return iris_dnn.make_csv(os.path.join(root, "iris.csv"), n=n)
+    if name in ("mnist", "cifar10"):
+        shape = (28, 28) if name == "mnist" else (32, 32, 3)
+        images, labels = _zoo_images(n, 70, shape)
+        records = [encode_example({"image": image, "label": label})
+                   for image, label in zip(images, labels)]
+    else:
+        records = ZOO_SMALL[name][1].make_records(n, seed=4)
+    path = os.path.join(root, f"{name}.edlr")
+    with RecordFileWriter(path) as writer:
+        for record in records:
+            writer.write(record)
+    return path
+
+
+def _zoo_small_job(name, root):
+    """A short job through the master on the card: ZOO_SMALL_RECORDS
+    records, ZOO_SMALL_EPOCHS epochs in minibatches of ZOO_SMALL_BATCH;
+    records_done exact and the loss falling."""
+    spec, _, strategy = ZOO_SMALL[name]
+    data = _zoo_small_records(name, root, ZOO_SMALL_RECORDS)
+    common = [
+        "--model_def", spec, "--distribution_strategy", strategy,
+        "--training_data", data,
+        "--records_per_task", str(2 * ZOO_SMALL_BATCH),
+        "--num_epochs", str(ZOO_SMALL_EPOCHS),
+        "--minibatch_size", str(ZOO_SMALL_BATCH), "--seed", "0",
+    ]
+    master_extra = ["--instance_backend", "none"]
+    if strategy == "ParameterServerStrategy":
+        master_extra += ["--num_ps", str(PS_SHARDS)]
+    master_args = edl_args.master_parser().parse_args(common + master_extra)
+    edl_args.validate_args(master_args)
+    master = Master(master_args)
+    worker_args = edl_args.worker_parser().parse_args(common + [
+        "--worker_id", "0", "--master_addr", "in-process",
+        "--job_type", "training_only",
+    ])
+    edl_args.validate_args(worker_args)
+    ps_stubs = (master.ps_stubs() if strategy == "ParameterServerStrategy"
+                else None)
+    worker = build_worker(worker_args, MasterClient(master.stub(), 0),
+                          ps_stubs=ps_stubs)
+    losses = []
+    step = worker.trainer.train_minibatch
+
+    def train_minibatch(features, labels):
+        result = step(features, labels)
+        losses.append(float(result[2]))
+        return result
+
+    worker.trainer.train_minibatch = train_minibatch
+    start = time.perf_counter()
+    worker.run()
+    if strategy == "ParameterServerStrategy":
+        worker.trainer.close()
+    wall_s = time.perf_counter() - start
+    records_done = master.task_d.stats()["records_done"]
+    want = ZOO_SMALL_RECORDS * ZOO_SMALL_EPOCHS
+    result = {"model": name, "strategy": strategy,
+              "records_done": records_done, "steps": worker.steps,
+              "wall_s": wall_s, "first_losses": losses[:4],
+              "last_losses": losses[-4:]}
+    if not (master.task_d.finished() and not master.task_d.job_failed
+            and records_done == want
+            and all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-4:]) < np.mean(losses[:4])):
+        raise AssertionError(f"zoo small job {name}: {result}")
+    return result
+
+
+def phase_zoo():
+    """The image and tabular zoo on the card: ResNet-50 and MobileNetV2 at
+    full width, direct and (ResNet-50) through the master with a
+    checkpoint round trip; both against the CPU in float32; a short job
+    of each small model through the master. None launches a
+    flash-attention kernel."""
+    fa.reset_launch_counts()
+    results = {}
+    for name, module, batch in ZOO_DIRECT:
+        trainer, results[name] = _zoo_direct(name, module, batch)
+        del trainer
+    with tempfile.TemporaryDirectory() as root:
+        results["resnet50_job"] = _zoo_job(root)
+    torch.cuda.empty_cache()
+    for name, cls in (("resnet50", resnet50.ResNet50),
+                      ("mobilenetv2", mobilenetv2.MobileNetV2)):
+        results[f"{name}_card_vs_cpu"] = _zoo_card_vs_cpu(name, cls)
+    small = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name in ZOO_SMALL:
+            small[name] = _zoo_small_job(name, root)
+    emit({"phase": "zoo_small", "jobs": small})
+    launches = dict(fa.launches)
+    emit({"phase": "zoo", "launches": launches})
+    if any(launches.values()):
+        raise AssertionError(f"zoo launches {launches}")
+    results["launches"] = launches
+    return results
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
               ("reference", phase_reference), ("main_path", phase_main_path),
               ("job", lambda: phase_job(results["main_path"])),
               ("ps_step", phase_ps_step), ("ps_job", phase_ps_job),
-              ("ctr_zoo", phase_ctr_zoo), ("lm_ps", phase_lm_ps)]
+              ("ctr_zoo", phase_ctr_zoo), ("lm_ps", phase_lm_ps),
+              ("zoo", phase_zoo)]
     results, seconds = {}, {}
     for name, fn in phases:
         try:
@@ -1719,6 +2181,9 @@ def main():
         report[name]["lm_ps_launches"] = {
             wire: r["launches"].get(name, 0)
             for wire, r in results["lm_ps"].items()}
+        # The image and tabular zoo launches none.
+        report[name]["zoo_launches"] = results["zoo"]["launches"].get(
+            name, 0)
     emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]

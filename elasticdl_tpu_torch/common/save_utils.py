@@ -5,6 +5,9 @@ The file is the JAX package's `.npz`, so a checkpoint restores in either
 package:
 - the weights under their flax wire names in the "params" collection
   ("params/Block_0/Dense_0/kernel", flax layouts);
+- the model's non-parameter state under its collection's name
+  ("batch_stats/BatchNorm_0/mean", ".../var"), as the JAX package writes
+  every collection of its variables tree;
 - `__version__`, the model version (int64);
 - `__opt__NNNNNN`, the optimizer state as optax's state leaves in jax's
   flatten order (ops/optimizers.optax_state_leaves), and `__opt_spec__`,
@@ -57,6 +60,7 @@ def save_trainer_checkpoint(trainer, path, include_training_state=True):
         _PARAMS_PREFIX + name: np.asarray(value)
         for name, value in exported["variables"].items()
     }
+    arrays.update(exported.get("state") or {})
     if include_training_state and exported.get("opt_state") is not None:
         for i, leaf in enumerate(exported["opt_state"]):
             arrays["%s%06d" % (_OPT_PREFIX, i)] = _host(leaf)
@@ -84,6 +88,12 @@ def restore_trainer_checkpoint(trainer, path):
             k[len(_PARAMS_PREFIX):]: data[k]
             for k in data.files
             if k.startswith(_PARAMS_PREFIX)
+        }
+        # Every other collection ("batch_stats/..."); meta keys start "__".
+        state = {
+            k: data[k]
+            for k in data.files
+            if not k.startswith((_PARAMS_PREFIX, "__"))
         }
         opt_leaves = [
             data[k]
@@ -128,7 +138,8 @@ def restore_trainer_checkpoint(trainer, path):
                 len(cur_leaves),
             )
     trainer.restore_variables({
-        "variables": named, "opt_state": opt_state, "rng": rng,
+        "variables": named, "state": state, "opt_state": opt_state,
+        "rng": rng,
         "version": version,
     })
     logger.info("Restored model checkpoint from %s (version %d)", path,

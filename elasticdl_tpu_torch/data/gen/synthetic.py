@@ -1,8 +1,28 @@
-"""Synthetic LM data (counterpart of
-elasticdl_tpu/data/gen/synthetic.py:synthetic_lm_tokens; same numpy draws,
-so both packages see identical sequences for a seed)."""
+"""Synthetic data (counterpart of elasticdl_tpu/data/gen/synthetic.py:
+synthetic_classification_arrays and synthetic_lm_tokens; same numpy draws,
+so both packages see identical data for a seed)."""
 
 import numpy as np
+
+
+def synthetic_classification_arrays(
+    num_examples,
+    image_shape=(28, 28),
+    num_classes=10,
+    noise=0.3,
+    seed=0,
+):
+    """Per-class random template + gaussian noise: separable enough that a
+    small model's loss visibly drops within a few steps."""
+    rng = np.random.default_rng(seed)
+    templates = rng.normal(size=(num_classes,) + image_shape).astype(
+        np.float32
+    )
+    labels = rng.integers(0, num_classes, num_examples)
+    images = templates[labels] + noise * rng.normal(
+        size=(num_examples,) + image_shape
+    ).astype(np.float32)
+    return images.astype(np.float32), labels.astype(np.int64)
 
 
 def synthetic_lm_tokens(

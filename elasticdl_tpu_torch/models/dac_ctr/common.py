@@ -5,9 +5,9 @@ metrics.
 
 Submodules carry flax's names (CTREmbeddings_0 holding wide, deep and
 dense_linear; DNN_0 holding Dense_0, Dense_1, ...), so common/params.py
-maps wire names to them mechanically. flax's Dense defaults are kept:
-lecun-normal kernels (a normal truncated at two standard deviations) and
-zero biases. The JAX package's `shard_mesh` (tables row-sharded over a
+maps wire names to them mechanically. flax's Dense defaults are kept
+(layers/conv.py `init_flax_defaults`): lecun-normal kernels and zero
+biases. The JAX package's `shard_mesh` (tables row-sharded over a
 device mesh) belongs to parallel/, which is not ported.
 """
 
@@ -17,26 +17,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.common.evaluation_utils import AUCMetric, MeanMetric
+from elasticdl_tpu_torch.layers.conv import init_flax_defaults
 from elasticdl_tpu_torch.models.dac_ctr import feature_config as fc
+from elasticdl_tpu_torch.models.common import sigmoid_cross_entropy
 from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
-
-# Standard deviation of a unit normal truncated to [-2, 2] (flax's
-# variance_scaling divides by it).
-_TRUNC_STD = 0.87962566103423978
-
-
-def init_dense_layers(module, generator):
-    """flax's Dense initializers on every nn.Linear under `module`, drawn
-    from `generator` (which lives on the parameters' device)."""
-    for mod in module.modules():
-        if isinstance(mod, nn.Linear):
-            std = mod.in_features**-0.5 / _TRUNC_STD
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=generator)
-            if mod.bias is not None:
-                with torch.no_grad():
-                    mod.bias.zero_()
-
 
 class CTREmbeddings(nn.Module):
     """wide [V, 1] and deep [V, D] tables over the shared offset id space,
@@ -58,7 +42,7 @@ class CTREmbeddings(nn.Module):
         with torch.no_grad():
             self.wide.zero_()
             self.deep.normal_(0.0, 0.01, generator=generator)
-        init_dense_layers(self, generator)
+        init_flax_defaults(self, generator)
 
     def forward(self, features):
         ids = features["ids"].long()  # [B, F]
@@ -111,11 +95,8 @@ def deepfm_head(linear_logits, field_embs, dense, dnn, out):
     return linear_logits.sum(dim=1) + fm + dnn_logit.reshape(-1)
 
 
-def ctr_loss(labels, logits):
-    """Mean sigmoid binary cross-entropy (optax's, in its stable form)."""
-    labels = torch.as_tensor(labels, device=logits.device)
-    return F.binary_cross_entropy_with_logits(
-        logits.reshape(-1), labels.reshape(-1).to(logits.dtype))
+# Mean sigmoid binary cross-entropy (optax's, in its stable form).
+ctr_loss = sigmoid_cross_entropy
 
 
 class _LogitAUC(AUCMetric):

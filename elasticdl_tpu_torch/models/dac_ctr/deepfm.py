@@ -10,6 +10,7 @@ belong to parallel/, which is not ported.
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.layers.conv import init_flax_defaults
 from elasticdl_tpu_torch.models.dac_ctr.common import (
     CTREmbeddings,
     DNN,
@@ -17,7 +18,6 @@ from elasticdl_tpu_torch.models.dac_ctr.common import (
     ctr_metrics,
     deepfm_head,
     dnn_input_width,
-    init_dense_layers,
 )
 from elasticdl_tpu_torch.models.dac_ctr.transform import (  # noqa: F401
     TOTAL_IDS,
@@ -34,7 +34,7 @@ class DeepFMCriteo(nn.Module):
         self.Dense_0 = nn.Linear(dnn_hidden_units[-1], 1, bias=False)
 
     def init_weights(self, generator):
-        init_dense_layers(self, generator)
+        init_flax_defaults(self, generator)
         self.CTREmbeddings_0.init_weights(generator)
 
     def forward(self, features):

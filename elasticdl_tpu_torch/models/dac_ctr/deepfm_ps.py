@@ -12,6 +12,7 @@ layers/embedding.py): {"wide": [B*F, 1], "deep": [B*F, D]} float32.
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.layers.conv import init_flax_defaults
 from elasticdl_tpu_torch.layers.embedding import DistributedEmbedding
 from elasticdl_tpu_torch.models.dac_ctr import feature_config as fc
 from elasticdl_tpu_torch.models.dac_ctr.common import (
@@ -19,7 +20,6 @@ from elasticdl_tpu_torch.models.dac_ctr.common import (
     ctr_loss,
     ctr_metrics,
     deepfm_head,
-    init_dense_layers,
 )
 from elasticdl_tpu_torch.models.dac_ctr.transform import (  # noqa: F401
     NUM_FIELDS,
@@ -40,7 +40,7 @@ class DeepFMCriteoPS(nn.Module):
         self.Dense_0 = nn.Linear(dnn_hidden_units[-1], 1, bias=False)
 
     def init_weights(self, generator):
-        init_dense_layers(self, generator)
+        init_flax_defaults(self, generator)
 
     def forward(self, features, rows):
         ids = features["ids"]  # [B, F]

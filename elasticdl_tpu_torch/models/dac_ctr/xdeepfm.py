@@ -7,6 +7,7 @@ as one einsum, and each layer's output summed over d joins the head.
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.layers.conv import init_flax_defaults
 from elasticdl_tpu_torch.models.dac_ctr.common import (
     CTREmbeddings,
     DNN,
@@ -14,7 +15,6 @@ from elasticdl_tpu_torch.models.dac_ctr.common import (
     ctr_loss,
     ctr_metrics,
     dnn_input_width,
-    init_dense_layers,
 )
 from elasticdl_tpu_torch.models.dac_ctr.transform import (  # noqa: F401
     NUM_FIELDS,
@@ -63,7 +63,7 @@ class XDeepFM(nn.Module):
             sum(cin_layer_sizes) + dnn_hidden_units[-1], 1, bias=False)
 
     def init_weights(self, generator):
-        init_dense_layers(self, generator)
+        init_flax_defaults(self, generator)
         self.CTREmbeddings_0.init_weights(generator)
         self.CIN_0.init_weights(generator)
 

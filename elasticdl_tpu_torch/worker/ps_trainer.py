@@ -171,6 +171,13 @@ class ParameterServerTrainer(TorchTrainer):
         return tables
 
     def _materialize(self):
+        if any(True for _ in self._model.buffers()):
+            # The JAX PS trainer carries batch_stats through its step
+            # (elasticdl_tpu/worker/ps_trainer.py:505-517); the port's
+            # does not yet.
+            raise NotImplementedError(
+                "models with non-parameter state (BatchNorm batch_stats) "
+                "are not ported to ParameterServerStrategy yet")
         # Tables move before the model gets storage: a moved table never
         # has any.
         self._embedding_dims = self._place_tables()
@@ -185,7 +192,7 @@ class ParameterServerTrainer(TorchTrainer):
             # The JAX wrapper's scope: the PS holds the same dense names.
             self._leaves = [
                 FlaxLeaf(f"{model_handler.WRAPPER_SCOPE}/{x.name}", x.param,
-                         x.leaf, x.features) for x in self._leaves]
+                         x.leaf, x.features, x.conv) for x in self._leaves]
         self._param_names = [leaf.name for leaf in self._leaves]
         self._flax_shapes = [tuple(leaf.to_flax(leaf.param.detach()).shape)
                              for leaf in self._leaves]

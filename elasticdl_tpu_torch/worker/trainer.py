@@ -6,8 +6,12 @@ method (`_step`), on the trainer's device. The JAX package's compile cache,
 tracked_jit and StepCostModel are XLA machinery and have no counterpart.
 
 Exported state has the JAX trainer's form, so common/save_utils.py writes
-the JAX package's checkpoint: flax-named weights, and the optimizer state as
-optax's state leaves (ops/optimizers.optax_state_leaves).
+the JAX package's checkpoint: flax-named weights, the model's non-parameter
+state as flax's `batch_stats` collection (the BatchNorm running statistics:
+torch buffers, which the optimizer never sees; the training forward updates
+them and module.eval() freezes them, as flax's mutable collection and
+use_running_average do), and the optimizer state as optax's state leaves
+(ops/optimizers.optax_state_leaves).
 """
 
 from abc import ABC, abstractmethod
@@ -19,8 +23,9 @@ from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.params import (
     flax_leaves,
-    params_from_flax,
+    load_flax,
     params_to_flax,
+    state_to_flax,
 )
 from elasticdl_tpu_torch.common.save_utils import restore_trainer_checkpoint
 from elasticdl_tpu_torch.ops.optimizers import (
@@ -83,7 +88,8 @@ class TorchTrainer(Trainer):
 
     def _materialize(self):
         """Moves the model to the device (allocating and initializing it from
-        the seed if it has no storage yet) and builds the optimizer."""
+        the seed if it has no storage yet: init_weights sets the buffers too,
+        which to_empty leaves uninitialized) and builds the optimizer."""
         if any(p.is_meta for p in self._model.parameters()):
             self._model.to_empty(device=self._device)
             self._model.init_weights(self._generator)
@@ -103,12 +109,14 @@ class TorchTrainer(Trainer):
             path, self.restore_on_init = self.restore_on_init, None
             restore_trainer_checkpoint(self, path)
 
-    def load_flax_params(self, named):
+    def load_flax_params(self, named, state=None):
         """Loads flax-named weights ({wire name: array}, as the JAX package's
-        pytree_utils.flatten_params names them) through the weight bridge."""
+        pytree_utils.flatten_params names them) through the weight bridge,
+        and the `batch_stats` state ({"batch_stats/...": array}) where
+        given."""
         if self._optimizer is None:
             self._materialize()
-        self._model.load_state_dict(params_from_flax(named))
+        load_flax(self._model, named, state)
 
     # ---------- step ----------
 
@@ -152,14 +160,20 @@ class TorchTrainer(Trainer):
         """{"variables": {flax wire name: numpy array}, "opt_state": optax's
         state leaves (tensors left on the device: callers that persist them
         copy per leaf), "rng": the generator's state, "version"}; the
-        weights and state are None before the first batch."""
-        return {
-            "variables": (None if self._optimizer is None
-                          else params_to_flax(self._model)),
+        weights and state are None before the first batch. A model with
+        non-parameter state (buffers) adds "state": {"batch_stats/<path>/
+        mean" or "var": numpy array}."""
+        ready = self._optimizer is not None
+        exported = {
+            "variables": params_to_flax(self._model) if ready else None,
             "opt_state": self.optimizer_state_leaves(),
             "rng": self._generator.get_state().numpy(),
             "version": self._version,
         }
+        state = state_to_flax(self._model) if ready else None
+        if state:
+            exported["state"] = state
+        return exported
 
     def optimizer_state_leaves(self):
         """The optimizer's state as optax's state leaves, without copying
@@ -172,7 +186,7 @@ class TorchTrainer(Trainer):
     def restore_variables(self, exported):
         if self._optimizer is None:
             self._materialize()
-        self._model.load_state_dict(params_from_flax(exported["variables"]))
+        load_flax(self._model, exported["variables"], exported.get("state"))
         self._optimizer = self._optimizer_spec.to_torch(
             self._model.parameters()
         )
