@@ -23,8 +23,7 @@ to a state_dict key by joining with '.' and renaming the leaf:
 A DenseGeneral kernel such as the LM's qkv [d, 3, H, Dh] flattens its
 output axes in order, which is the (3, H, Dh) order the model splits. It is
 4-D like a conv kernel: the module, not the array's rank, decides the
-layout, so a conv kernel loads through the module (`params_from_flax(named,
-module)`, `load_flax`).
+layout (`params_from_flax(named, module)`, `load_flax`).
 
 Non-parameter state is flax's `batch_stats` collection: every buffer of a
 module (BatchNorm's `mean` and `var`) is the leaf of the same name under
@@ -44,21 +43,18 @@ _LEAF_TO_TORCH = {"kernel": "weight", "bias": "bias", "scale": "weight",
 STATE_COLLECTION = "batch_stats"
 
 
-def params_from_flax(named, module=None):
-    """{flax wire name: array} -> state_dict of float32 CPU tensors. The
-    layout of each leaf comes from `module` where given; without it every
-    kernel is taken for a Dense's (the LM and the CTR models have no
-    other)."""
-    layouts = ({x.name: x for x in flax_leaves(module)}
-               if module is not None else {})
+def params_from_flax(named, module):
+    """{flax wire name: array} -> state_dict of float32 CPU tensors for
+    `module`, each leaf in the layout of the module's parameter of that
+    name."""
+    layouts = {x.name: x for x in flax_leaves(module)}
     state = {}
     for name, value in named.items():
         *path, leaf = name.split("/")
-        if leaf == "weight":
+        if leaf == "weight" or name not in layouts:
             raise ValueError(f"no torch counterpart for flax leaf {name!r}")
         key = ".".join(path + [_LEAF_TO_TORCH.get(leaf, leaf)])
-        layout = layouts.get(name) or FlaxLeaf(name, None, leaf, None)
-        state[key] = layout.from_flax(value)
+        state[key] = layouts[name].from_flax(value)
     return state
 
 

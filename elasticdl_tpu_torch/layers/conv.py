@@ -1,7 +1,7 @@
 """What flax.linen gives the JAX package's image models, in PyTorch: `Conv`,
-`BatchNorm`, `max_pool`, and flax's default initializers
-(`init_flax_defaults`). The port's own module: the JAX package has no file
-of its own for these.
+`BatchNorm` and `max_pool` (flax's default initializers are in
+layers/init.py). The port's own module: the JAX package has no file of its
+own for these.
 
 Tensors are NCHW here (on the card the models hand them over in
 channels_last memory, which is NHWC in memory, so cuDNN takes its NHWC
@@ -31,11 +31,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-# Standard deviation of a unit normal truncated to [-2, 2]: flax's
-# truncated-normal variance_scaling divides the stddev by it.
-_TRUNC_STD = 0.87962566103423978
-
 
 def same_pads(size, kernel, stride):
     """XLA's SAME padding of one spatial axis: (low, high)."""
@@ -115,9 +110,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.empty(features))
         self.register_buffer("var", torch.empty(features))
 
-    def init_weights(self, generator=None):
-        """flax's initializers: scale ones (zeros with zero_scale), bias
-        zeros, running mean 0 and variance 1."""
+    def init_flax(self):
+        """flax's initializers (layers/init.py calls this): scale ones
+        (zeros with zero_scale), bias zeros, running mean 0 and variance
+        1."""
         with torch.no_grad():
             self.weight.fill_(0.0 if self.zero_scale else 1.0)
             self.bias.zero_()
@@ -126,12 +122,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            # The statistics read one float32 copy of x; the normalization
-            # below promotes x itself. On bfloat16 input the two paths'
-            # gradients thus meet in bfloat16, as in flax (whose
-            # _compute_stats casts and whose _normalize promotes).
+            # The statistics read one copy of x promoted to at least
+            # float32; the normalization below promotes x itself. On
+            # bfloat16 input the two paths' gradients thus meet in bfloat16,
+            # as in flax (whose _compute_stats casts and whose _normalize
+            # promotes).
             dims = (0, 2, 3)
-            xs = x.float()
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xs.mean(dims)
             var = torch.clamp_min(torch.square(xs).mean(dims)
                                   - torch.square(mean), 0.0)
@@ -144,45 +141,3 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
-
-
-def lecun_normal_(weight, fan_in, generator):
-    """flax's default kernel initializer (variance_scaling(1, fan_in,
-    truncated_normal): a normal truncated to two of its standard
-    deviations), in place. Drawn by rejection: each value outside the
-    bounds is drawn again until none is, which gives the truncated
-    distribution at a fraction of nn.init.trunc_normal_'s cost on large
-    kernels."""
-    std = fan_in**-0.5 / _TRUNC_STD
-    with torch.no_grad():
-        flat = weight.view(-1)
-        flat.normal_(0.0, std, generator=generator)
-        redraw = (flat.abs() > 2 * std).nonzero().squeeze(1)
-        while redraw.numel():
-            values = torch.empty(redraw.numel(), device=flat.device,
-                                 dtype=flat.dtype).normal_(
-                0.0, std, generator=generator)
-            flat[redraw] = values
-            redraw = redraw[values.abs() > 2 * std]
-
-
-def init_flax_defaults(module, generator):
-    """flax's default initializers on every Conv, nn.Linear, nn.Embedding
-    and BatchNorm under `module`, drawn from `generator` (which lives on the
-    parameters' device): lecun-normal kernels, zero biases, embeddings
-    normal with stddev 1/sqrt(features) (flax's default_embed_init), and
-    BatchNorm's own (BatchNorm.init_weights). The draws differ from flax's:
-    parity with the JAX package needs imported weights."""
-    for mod in module.modules():
-        if isinstance(mod, (Conv, nn.Linear)):
-            fan_in = mod.weight[0].numel()
-            lecun_normal_(mod.weight, fan_in, generator)
-            if mod.bias is not None:
-                with torch.no_grad():
-                    mod.bias.zero_()
-        elif isinstance(mod, nn.Embedding):
-            with torch.no_grad():
-                mod.weight.normal_(0.0, mod.embedding_dim**-0.5,
-                                   generator=generator)
-        elif isinstance(mod, BatchNorm):
-            mod.init_weights()

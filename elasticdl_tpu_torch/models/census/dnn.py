@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from elasticdl_tpu_torch.layers.conv import init_flax_defaults
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.census.wide_deep import (  # noqa: F401
     NUM_GROUPS,
     TOTAL_IDS,

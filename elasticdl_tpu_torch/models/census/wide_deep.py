@@ -13,7 +13,7 @@ from torch import nn
 
 from elasticdl_tpu_torch.common.model_utils import Modes
 from elasticdl_tpu_torch.data.example import batch_examples, encode_example
-from elasticdl_tpu_torch.layers.conv import init_flax_defaults
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.common import (
     add_dense_layers,
     dense_tower,

@@ -32,9 +32,10 @@ def dense_tower(model, x, n):
 
 def softmax_cross_entropy(labels, logits):
     """Mean softmax cross-entropy with integer labels (optax's
-    softmax_cross_entropy_with_integer_labels), in float32."""
+    softmax_cross_entropy_with_integer_labels), in float32 or wider."""
     labels = torch.as_tensor(labels, device=logits.device)
-    return F.cross_entropy(logits.float(), labels.reshape(-1).long())
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    return F.cross_entropy(logits, labels.reshape(-1).long())
 
 
 def sigmoid_cross_entropy(labels, logits):

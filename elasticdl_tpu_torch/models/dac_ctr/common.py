@@ -6,7 +6,7 @@ metrics.
 Submodules carry flax's names (CTREmbeddings_0 holding wide, deep and
 dense_linear; DNN_0 holding Dense_0, Dense_1, ...), so common/params.py
 maps wire names to them mechanically. flax's Dense defaults are kept
-(layers/conv.py `init_flax_defaults`): lecun-normal kernels and zero
+(layers/init.py `init_flax_defaults`): lecun-normal kernels and zero
 biases. The JAX package's `shard_mesh` (tables row-sharded over a
 device mesh) belongs to parallel/, which is not ported.
 """
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.common.evaluation_utils import AUCMetric, MeanMetric
-from elasticdl_tpu_torch.layers.conv import init_flax_defaults
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.dac_ctr import feature_config as fc
 from elasticdl_tpu_torch.models.common import sigmoid_cross_entropy
 from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS

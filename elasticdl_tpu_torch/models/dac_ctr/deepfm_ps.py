@@ -12,7 +12,7 @@ layers/embedding.py): {"wide": [B*F, 1], "deep": [B*F, D]} float32.
 import torch
 from torch import nn
 
-from elasticdl_tpu_torch.layers.conv import init_flax_defaults
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.layers.embedding import DistributedEmbedding
 from elasticdl_tpu_torch.models.dac_ctr import feature_config as fc
 from elasticdl_tpu_torch.models.dac_ctr.common import (

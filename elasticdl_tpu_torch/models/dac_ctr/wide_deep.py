@@ -7,7 +7,7 @@ part a DNN over [dense, field embeddings]; the logit is their sum.
 import torch
 from torch import nn
 
-from elasticdl_tpu_torch.layers.conv import init_flax_defaults
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.dac_ctr.common import (
     CTREmbeddings,
     DNN,

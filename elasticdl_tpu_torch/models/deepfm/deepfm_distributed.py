@@ -8,7 +8,7 @@ feeds the PS trainer's pulls."""
 import torch
 from torch import nn
 
-from elasticdl_tpu_torch.layers.conv import init_flax_defaults
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.layers.embedding import DistributedEmbedding
 from elasticdl_tpu_torch.models.common import add_dense_layers, dense_tower
 from elasticdl_tpu_torch.models.dac_ctr.common import fm_interaction

@@ -8,7 +8,7 @@ from torch import nn
 
 from elasticdl_tpu_torch.common.evaluation_utils import accuracy_metric
 from elasticdl_tpu_torch.common.model_utils import Modes
-from elasticdl_tpu_torch.layers.conv import init_flax_defaults
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.common import (
     add_dense_layers,
     dense_tower,

@@ -14,12 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.common.evaluation_utils import accuracy_metric
-from elasticdl_tpu_torch.layers.conv import (
-    BatchNorm,
-    Conv,
-    init_flax_defaults,
-    max_pool,
-)
+from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv, max_pool
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.common import (
     image_feed,
     softmax_cross_entropy,

@@ -3,9 +3,10 @@ mobilenetv2.py) at ImageNet shapes: the V2 paper's block table, channel
 counts through _round_channels, inverted residual blocks (1x1 expansion
 where the expansion is not 1, depthwise 3x3 (groups = hidden channels),
 linear 1x1 projection; the residual only at stride 1 with matching
-channels), relu6, the 1280-channel head, a spatial mean and a float32
-Dense head. Convs in the activation dtype (bfloat16 by default), BatchNorm
-in float32 (momentum 0.9, eps 1e-5) cast back; momentum SGD 0.05/0.9.
+channels), relu6, the 1280-channel head, a spatial mean and a Dense head
+in its parameters' dtype (float32, as in resnet50.py). Convs in the
+activation dtype (bfloat16 by default), BatchNorm in float32 (momentum 0.9,
+eps 1e-5) cast back; momentum SGD 0.05/0.9.
 
 The stem and the strided depthwise convs pad SAME as XLA does ((0, 1) on an
 even input at stride 2; layers/conv.py). Features arrive NHWC and stay NHWC
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.common.evaluation_utils import accuracy_metric
-from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv, init_flax_defaults
+from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.common import softmax_cross_entropy
 from elasticdl_tpu_torch.models.resnet50.resnet50 import feed  # noqa: F401
 from elasticdl_tpu_torch.ops import optimizers
@@ -110,7 +112,7 @@ class MobileNetV2(nn.Module):
             x = getattr(self, f"InvertedResidual_{i}")(x)
         x = F.relu6(self.BatchNorm_1(self.Conv_1(x)).to(self.dtype))
         x = x.mean(dim=(2, 3))
-        return self.Dense_0(x.float())
+        return self.Dense_0(x.to(self.Dense_0.weight.dtype))
 
 
 def custom_model():

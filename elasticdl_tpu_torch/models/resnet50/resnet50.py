@@ -5,7 +5,9 @@ BatchNorm in float32 (momentum 0.9, eps 1e-5) cast back to the activation
 dtype, a zero-initialized scale on each block's last BatchNorm, a
 `proj`/`proj_bn` shortcut where the shape changes, the 7x7/2 stem with
 explicit (3, 3) padding, a SAME 3x3/2 max-pool (XLA's (0, 1) split), a
-spatial mean and a float32 Dense head; momentum SGD 0.1/0.9.
+spatial mean and a Dense head in its parameters' dtype (float32; a model
+moved to float64 with dtype="float64" computes in float64 throughout, which
+is how a float64 reference runs it); momentum SGD 0.1/0.9.
 
 Features arrive NHWC from the feed; the model permutes them once to NCHW,
 which keeps them NHWC in memory (channels_last), so on the card cuDNN runs
@@ -21,12 +23,8 @@ from torch import nn
 from elasticdl_tpu_torch.common.evaluation_utils import accuracy_metric
 from elasticdl_tpu_torch.common.model_utils import Modes
 from elasticdl_tpu_torch.data.example import batch_examples
-from elasticdl_tpu_torch.layers.conv import (
-    BatchNorm,
-    Conv,
-    init_flax_defaults,
-    max_pool,
-)
+from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv, max_pool
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.common import softmax_cross_entropy
 from elasticdl_tpu_torch.ops import optimizers
 
@@ -100,7 +98,7 @@ class ResNet50(nn.Module):
         for i in range(self.num_blocks):
             x = getattr(self, f"BottleneckBlock_{i}")(x)
         x = x.mean(dim=(2, 3))
-        return self.Dense_0(x.float())
+        return self.Dense_0(x.to(self.Dense_0.weight.dtype))
 
 
 def custom_model():

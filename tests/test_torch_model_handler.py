@@ -293,7 +293,7 @@ def test_auto_placement_step_and_export_match_jax():
     assert exported["item_emb/embedding"].shape == (jax_auto.VOCAB,
                                                     jax_auto.EMB_DIM)
     stock = AutoEmbeddingModel()
-    stock.load_state_dict(params_from_flax(exported))
+    stock.load_state_dict(params_from_flax(exported, stock))
     with torch.no_grad():
         got = stock({k: torch.as_tensor(v) for k, v in features.items()})
     np.testing.assert_array_equal(got.numpy(), want)

@@ -53,7 +53,7 @@ def _pair(activation_dtype):
     tm = tlm.custom_model(
         tlm.LMConfig(**TINY, activation_dtype=activation_dtype)
     ).to_empty(device="cpu")
-    tm.load_state_dict(params_from_flax(named))
+    tm.load_state_dict(params_from_flax(named, tm))
     return jm, params, named, tm
 
 
@@ -121,7 +121,7 @@ def test_remat_matches_no_remat_and_jax():
         model = tlm.custom_model(
             tlm.LMConfig(**dict(cfg, remat=remat))
         ).to_empty(device="cpu")
-        model.load_state_dict(params_from_flax(named))
+        model.load_state_dict(params_from_flax(named, model))
         calls = []
         model.Block_0.register_forward_pre_hook(lambda *_: calls.append(1))
         loss = tlm.loss(torch.tensor(y), model(torch.tensor(x)))
@@ -164,7 +164,7 @@ def test_flagship_names_and_shapes_match_jax():
     for name, shape in want.items():
         # The key through the bridge (a stand-in array), the shape by its
         # layout rule.
-        (key,) = params_from_flax({name: np.zeros(1, np.float32)})
+        (key,) = params_from_flax({name: np.zeros(1, np.float32)}, model)
         leaf = name.rsplit("/", 1)[1]
         if leaf == "kernel":
             shape = (int(np.prod(shape[1:])), shape[0])

@@ -8,7 +8,8 @@ pickle converters' files.
 Tolerances, as a share of the largest value compared: float32 forward and
 gradients 1e-4 (the same arithmetic summed in another order), running
 statistics 1e-5; bfloat16 blocks 2e-2 (outputs rounded to bfloat16, an
-8-bit mantissa, on both sides)."""
+8-bit mantissa, on both sides), their gradients 0.12 of the block's largest
+gradient (sums of rounded terms that cancel)."""
 
 import functools
 import pickle
@@ -39,12 +40,8 @@ from elasticdl_tpu_torch.common.params import (
 from elasticdl_tpu_torch.data.example import decode_example
 from elasticdl_tpu_torch.data.gen import cifar10_pickle, mnist_idx
 from elasticdl_tpu_torch.data.recordfile import RecordFile
-from elasticdl_tpu_torch.layers.conv import (
-    BatchNorm,
-    Conv,
-    init_flax_defaults,
-    max_pool,
-)
+from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv, max_pool
+from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.cifar10 import cifar10_cnn
 from elasticdl_tpu_torch.models.mnist import mnist_model
 from elasticdl_tpu_torch.models.mobilenetv2 import mobilenetv2
@@ -64,6 +61,7 @@ torch.set_num_threads(1)
 RTOL = 1e-4
 STATS_RTOL = 1e-5
 BF16_RTOL = 2e-2
+BF16_GRAD_RTOL = 0.12
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 
@@ -242,6 +240,44 @@ def test_batchnorm_two_training_steps_then_eval_match_flax(momentum,
 # ---------- blocks ----------
 
 
+def _block_step(family, in_channels, stride, expansion, dtype, seed=0):
+    """A ResNet-50 bottleneck or a MobileNetV2 inverted residual with the
+    same randomized weights in flax and in the port, one training-mode
+    forward and backward of sum(out * cot) each: (flax's, the port's)
+    (output, {leaf: gradient, "input": input gradient}, new batch_stats),
+    NHWC and flax-named. `seed` 0 gives the tests' inputs."""
+    x = np.random.default_rng(5 + 100 * seed).normal(
+        size=(2, 8, 8, in_channels)).astype(np.float32)
+    if family == "bottleneck":
+        flax_block = jresnet.BottleneckBlock(filters=4, strides=stride,
+                                             dtype=dtype)
+        port_block = resnet50.BottleneckBlock(in_channels, 4, stride, dtype)
+    else:
+        out_channels = in_channels if stride == 1 else 2 * in_channels
+        flax_block = jmobilenet.InvertedResidual(
+            out_channels=out_channels, stride=stride, expansion=expansion,
+            dtype=dtype)
+        port_block = mobilenetv2.InvertedResidual(
+            in_channels, out_channels, stride, expansion, dtype)
+    named, state = _randomized(port_block, 6 + seed)
+    params, stats = _nest(named), _nest(state)
+    cot = np.random.default_rng(7 + seed).normal(
+        size=_nhwc(port_block.eval()(_nchw(x))).shape).astype(np.float32)
+    out, grads, dx, new = _flax_train(flax_block, training=True)(
+        params, stats, x, cot)
+    got, tgrads, tdx, tnew = _port_train(port_block, x, cot)
+    return ((out, dict(grads, input=dx), new),
+            (got, dict(tgrads, input=tdx), tnew))
+
+
+def _grad_gap(got, want):
+    """The largest difference of any gradient as a share of the largest
+    gradient of `want`."""
+    largest = max(float(np.abs(g).max()) for g in want.values())
+    return max(float(np.abs(got[k] - want[k]).max())
+               for k in want) / largest
+
+
 @pytest.mark.parametrize("family,in_channels,stride,expansion,dtype", [
     # (family, in channels, stride, expansion, dtype)
     ("bottleneck", 16, 1, None, "float32"),
@@ -256,47 +292,26 @@ def test_block_training_step_matches_flax(family, in_channels, stride,
                                           expansion, dtype):
     """Training-mode forward, every gradient and the new batch_stats of a
     ResNet-50 bottleneck and a MobileNetV2 inverted residual in float32;
-    in bfloat16 the forward and the batch_stats, within 2e-2.
+    in bfloat16 the forward and the batch_stats within 2e-2, the gradients
+    (the input's among them) within BF16_GRAD_RTOL of the block's largest
+    gradient.
 
-    bfloat16 gradients are not held to a bound: each sums bfloat16-rounded
-    terms that cancel, and flax's own bfloat16 gradients of these blocks lie
-    up to 14% of their largest value from its float32 ones, so where the two
-    packages round one term differently the sums part by as much."""
-    x = np.random.default_rng(5).normal(
-        size=(2, 8, 8, in_channels)).astype(np.float32)
-    if family == "bottleneck":
-        flax_block = jresnet.BottleneckBlock(filters=4, strides=stride,
-                                             dtype=dtype)
-        port_block = resnet50.BottleneckBlock(in_channels, 4, stride, dtype)
-    else:
-        out_channels = in_channels if stride == 1 else 2 * in_channels
-        flax_block = jmobilenet.InvertedResidual(
-            out_channels=out_channels, stride=stride, expansion=expansion,
-            dtype=dtype)
-        port_block = mobilenetv2.InvertedResidual(
-            in_channels, out_channels, stride, expansion, dtype)
-    named, state = _randomized(port_block, 6)
-    params, stats = _nest(named), _nest(state)
-    if dtype == "bfloat16":
-        out, new = _jit(functools.partial(
-            flax_block.apply, training=True, mutable=["batch_stats"]),
-            {"params": params, "batch_stats": stats}, x)
-        port_block.train()
-        with torch.no_grad():
-            got = _nhwc(port_block(_nchw(x)))
-        _close(got, out, "output", BF16_RTOL)
-        tnew = state_to_flax(port_block)
-        for name, value in flatten_params(new["batch_stats"])[0].items():
-            _close(tnew["batch_stats/" + name], value, name, BF16_RTOL)
-        return
-    cot = np.random.default_rng(7).normal(
-        size=_nhwc(port_block.eval()(_nchw(x))).shape).astype(np.float32)
-    out, grads, dx, new = _flax_train(flax_block, training=True)(
-        params, stats, x, cot)
-    got, tgrads, tdx, tnew = _port_train(port_block, x, cot)
+    bfloat16 gradients sum bfloat16-rounded terms that cancel: on these
+    inputs the port's lie 2.0e-2 (bottleneck) and 9.5e-2 (inverted
+    residual) of the largest from flax's, and flax's own bfloat16 gradients
+    1.9e-2 and 9.5e-2 from its float32 ones (`JAX_PLATFORMS=cpu
+    PYTHONPATH=. python tests/test_torch_zoo_state.py` prints both over
+    six inputs)."""
+    (out, grads, new), (got, tgrads, tnew) = _block_step(
+        family, in_channels, stride, expansion, dtype)
     assert sorted(tgrads) == sorted(grads) and sorted(tnew) == sorted(new)
+    if dtype == "bfloat16":
+        _close(got, out, "output", BF16_RTOL)
+        for name in new:
+            _close(tnew[name], new[name], name, BF16_RTOL)
+        assert _grad_gap(tgrads, grads) <= BF16_GRAD_RTOL
+        return
     _close(got, out, "output")
-    _close(tdx, dx, "input gradient")
     for name in grads:
         _close(tgrads[name], grads[name], name)
     for name in new:
@@ -323,10 +338,10 @@ def test_bridge_decides_the_layout_from_the_module():
     lm.init_weights(torch.Generator().manual_seed(0))
     named = params_to_flax(lm)
     assert named["Block_0/MultiHeadAttention_0/qkv/kernel"].ndim == 4
-    with_module = params_from_flax(named, lm)
-    for key, value in params_from_flax(named).items():
-        np.testing.assert_array_equal(with_module[key].numpy(),
-                                      value.numpy())
+    back = params_from_flax(named, lm)
+    assert sorted(back) == sorted(lm.state_dict())
+    for key, value in lm.state_dict().items():
+        np.testing.assert_array_equal(back[key].numpy(), value.numpy())
 
 
 @pytest.mark.parametrize("name,jmodule,module", [
@@ -487,3 +502,26 @@ def test_cifar10_pickle_converter_writes_the_jax_package_file(tmp_path):
     assert _decoded(tmp_path / "jax.edlr") == records
     assert records == [{"image": images[i].tolist(), "label": int(labels[i])}
                        for i in range(12)]
+
+
+def main():
+    """The bfloat16 blocks' gradient gaps over six inputs (seed 0 is the
+    tests'): the port's from flax's, and flax's own bfloat16 from its
+    float32, each as a share of the largest gradient (flax's bfloat16)."""
+    for family, in_channels, expansion in (("bottleneck", 8, None),
+                                           ("inverted", 8, 6)):
+        for seed in range(6):
+            (_, flax16, _), (_, port16, _) = _block_step(
+                family, in_channels, 2, expansion, "bfloat16", seed)
+            (_, flax32, _), _ = _block_step(
+                family, in_channels, 2, expansion, "float32", seed)
+            largest = max(float(np.abs(g).max()) for g in flax16.values())
+            flax_gap = max(float(np.abs(flax16[k] - flax32[k]).max())
+                           for k in flax16) / largest
+            print(f"{family} seed {seed}: port vs flax "
+                  f"{_grad_gap(port16, flax16):.3e}, flax bfloat16 vs "
+                  f"float32 {flax_gap:.3e}")
+
+
+if __name__ == "__main__":
+    main()
