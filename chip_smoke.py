@@ -38,7 +38,24 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    and evaluation results are checked. Then a checkpoint round trip:
    save_trainer_checkpoint, restore into a fresh trainer through
    restore_on_init, eval logits bitwise equal.
-8. ps_step, the parameter-server path direct: DeepFMCriteoPS at full width
+8. moe_lm: the Switch-MoE LM (moe_lm.flagship_config: the flagship's
+   widths, 4 experts in every second block, capacity factor 1.25,
+   373,481,496 parameters). First a small float32 MoE LM on the card
+   against the CPU: the routing of each MoE layer (expert and keep, from
+   each side's own layer input) must be equal, else the differing tokens
+   and their top-2 margins are printed and the phase fails; then logits,
+   loss with its aux term and every gradient within 1e-4 of the largest.
+   Then the flagship-width model on LocalTrainer (batch 4 x S 4096,
+   Markov tokens, Adam): 2 warm-up and 5 timed steps (ms per step,
+   tokens/s, peak memory), one evaluation, exact launch counts of all four
+   kernels, one profiled step by kernel group with the MoE routing
+   (router, cumsum, gather and scatter, forward and backward) and the
+   expert products in groups of their own, and the busy share. Then the
+   same model as a job through the master (32 + 4 records, tasks of 16, 8
+   steps, one evaluation): records_done exact, exact launch counts,
+   falling logged losses, then a checkpoint round trip with bitwise-equal
+   eval logits.
+9. ps_step, the parameter-server path direct: DeepFMCriteoPS at full width
    (39 fields over 5,546,673 shared ids, deep_dim 8, DNN (16, 4)) at batch
    16384 with its tables in 2 in-process PS shards (Adam), on four seeded
    id batches uniform over the id space. First one batch at the same
@@ -55,7 +72,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    the int8 inline run's loss on each timed step must be within 1e-3 of
    the float32 inline run's (the pipelined gap is printed: a push races
    the next step's pull, so pipelined runs do not repeat exactly).
-9. ps_job, the parameter-server path through every layer: 262144 training
+10. ps_job, the parameter-server path through every layer: 262144 training
    and 4096 validation synthetic Criteo records in .edlr files, Master with
    ParameterServerStrategy and 2 shards, tasks and minibatches of 16384,
    evaluation every 8 versions, one worker from build_worker on the
@@ -68,14 +85,17 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    outputs. Prints wall time, host share, host time by call (the feed's
    and the decode's ms per record among them) and checkpoint bytes, save
    and restore seconds.
-10. ctr_zoo: DeepFM, wide & deep, DCN and xDeepFM with their tables on
+11. ctr_zoo: DeepFM, wide & deep, DCN and xDeepFM with their tables on
    the card at full width (5,546,673 ids, D 8, DNN (16, 4), CIN (16, 16),
-   3 cross layers) on LocalTrainer, batch 16384 of Criteo records fed
-   through the decode: 4 warm-up and 8 timed steps each (ms per step,
-   examples/s), then one batch at the same weights on the card and on the
+   3 cross layers), and deepctr's WDL (26 categoricals hashed on the
+   card into 10000 buckets each, dim-4 deep and dim-1 wide embedding
+   columns, DNN (128, 64)), on LocalTrainer, batch 16384 of Criteo records
+   fed through the decode: 4 warm-up and 8 timed steps each (ms per step,
+   examples/s), one profiled step (device time by kernel group, busy
+   share), then one batch at the same weights on the card and on the
    CPU: loss within 1e-5 relative, every gradient within 1e-5 of its
    largest value.
-11. lm_ps: the flagship LM (full width and depth, batch 4 x S 4096) as a
+12. lm_ps: the flagship LM (full width and depth, batch 4 x S 4096) as a
    job through Master with ParameterServerStrategy and 2 shards, its model
    spec without embedding_inputs: tok_emb and pos_emb move to the PS and
    the ids feed is derived. One job on the float32 wire and one on the
@@ -88,7 +108,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    weights (1e-5 / 1e-4 of the largest value). Prints the tables moved,
    ms per step and its phase split, payload bytes per push, the device's
    busy share over one profiled step, and the process's peak RSS.
-12. zoo: the image and tabular zoo. ResNet-50 (batch 128) and MobileNetV2
+13. zoo: the image and tabular zoo. ResNet-50 (batch 128) and MobileNetV2
    (batch 256) at 224x224, bf16 convs and f32 BatchNorm, on LocalTrainer:
    3 warm-up and 10 timed steps each (ms per step, img/s, peak memory, the
    step's model FLOPs over the bf16 data-sheet peak, losses falling), one
@@ -99,9 +119,9 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    batch_stats (eval outputs bitwise equal). Both models in f32 at batch
    2 on the card against the CPU (see _zoo_card_vs_cpu for the bounds).
    One short job through the master for each small zoo model (MNIST,
-   CIFAR-10, census wide & deep and DNN, heart, iris from CSV, DeepFM,
-   and DeepFM with both tables on 2 PS shards): records_done exact and
-   the loss falling.
+   CIFAR-10, census wide & deep, DNN and feature-column wide & deep,
+   heart, iris from CSV, DeepFM, and DeepFM with both tables on 2 PS
+   shards): records_done exact and the loss falling.
 The PS, CTR and zoo phases launch none of the flash-attention kernels;
 their counts are reset before each and read after it. Then each phase's
 seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
@@ -111,6 +131,7 @@ seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
 import concurrent.futures
 import contextlib
 import copy
+import gc
 import json
 import logging
 import math
@@ -141,11 +162,13 @@ from elasticdl_tpu_torch.data.example import encode_example
 from elasticdl_tpu_torch.data.gen.criteo import iter_criteo_records
 from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
 from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
+from elasticdl_tpu_torch.layers import moe as moe_layer
 from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv
 from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.data.example import batch_examples
 from elasticdl_tpu_torch.models.census import dnn as census_dnn
 from elasticdl_tpu_torch.models.census import wide_deep as census_wide_deep
+from elasticdl_tpu_torch.models.census_fc import wide_deep_fc as census_fc
 from elasticdl_tpu_torch.models.dac_ctr import (
     dcn,
     deepfm,
@@ -155,11 +178,13 @@ from elasticdl_tpu_torch.models.dac_ctr import (
     xdeepfm,
 )
 from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
+from elasticdl_tpu_torch.models.deepctr import wdl
 from elasticdl_tpu_torch.models.deepfm import deepfm_functional
 from elasticdl_tpu_torch.models.heart import heart_model
 from elasticdl_tpu_torch.models.iris import iris_dnn
 from elasticdl_tpu_torch.models.mobilenetv2 import mobilenetv2
 from elasticdl_tpu_torch.models.resnet50 import resnet50
+from elasticdl_tpu_torch.models.transformer import moe_lm
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -237,6 +262,45 @@ def custom_model():
     return _lm.custom_model(_lm.flagship_config({seq}))
 """
 
+# The Switch-MoE LM at the flagship's widths with 4 experts in every second
+# block (moe_lm.flagship_config: 373,481,496 parameters, capacity 5120 per
+# expert at batch 4 x S 4096), Adam 3e-4 on Markov tokens: 2 warm-up and 5
+# timed steps on LocalTrainer, one evaluation, one profiled step. Then a
+# job through the master: 32 training and 4 validation records, tasks of
+# 16, minibatches of 4 (8 steps), evaluation at version 8, the loss logged
+# every 2 steps; then a checkpoint round trip.
+MOE_PARAMS = 373_481_496
+MOE_WARMUP = 2
+MOE_STEPS = 5
+MOE_JOB_TRAIN = 32
+MOE_JOB_VALID = 4
+MOE_JOB_TASK = 16
+MOE_JOB_EVAL_STEPS = 8
+MOE_JOB_LOG_STEPS = 2
+MOE_MODEL_DEF = """\
+from elasticdl_tpu_torch.models.transformer import moe_lm as _m
+from elasticdl_tpu_torch.models.transformer.moe_lm import (  # noqa
+    eval_metrics_fn, feed, loss, optimizer,
+)
+
+
+def custom_model():
+    return _m.custom_model(_m.flagship_config({seq}))
+"""
+# Card against CPU: a float32 MoE LM with head size 128 (Block_0, then
+# MoEBlock_0), batch 2 at a ragged S of 300 (600 tokens, capacity 187 per
+# expert); each value as a share of the largest value compared (a gradient:
+# of its parameter's largest), once the routing is equal on both sides.
+MOE_CHECK_CONFIG = dict(vocab=512, d_model=256, n_heads=2, n_layers=2,
+                        max_len=512, activation_dtype="float32")
+MOE_CHECK_SEQ = 300
+MOE_CHECK_RTOL = 1e-4
+MOE_RANGES = (moe_layer.ROUTING_RANGE, moe_layer.EXPERTS_RANGE)
+# torch's RecordScope::BACKWARD_FUNCTION: an autograd node's own event;
+# the engine's event around it carries the node's number too.
+_BACKWARD_SCOPE = 1
+_BACKWARD_ENGINE = "autograd::engine::"
+
 # The parameter-server phases: DeepFM-PS as the JAX package's PS bench runs
 # it (bench/workloads.py: batch 16384, 2 shards, 4 distinct id batches, 4
 # warm-up steps so the timed steps meet warm rows), and a job through the
@@ -278,7 +342,7 @@ PS_RESEED_AFTER = 8
 # records fed through the decode, 2 distinct batches, 4 warm-up and 8 timed
 # steps on LocalTrainer.
 CTR_HEADS = (("deepfm", deepfm), ("wide_deep", wide_deep), ("dcn", dcn),
-             ("xdeepfm", xdeepfm))
+             ("xdeepfm", xdeepfm), ("wdl", wdl))
 CTR_BATCH = 16384
 CTR_WARMUP = 4
 CTR_STEPS = 8
@@ -336,6 +400,8 @@ ZOO_SMALL = {
                          census_wide_deep, "Local"),
     "census_dnn": ("elasticdl_tpu_torch.models.census.dnn", census_dnn,
                    "Local"),
+    "census_fc": ("elasticdl_tpu_torch.models.census_fc.wide_deep_fc",
+                  census_fc, "Local"),
     "heart": ("elasticdl_tpu_torch.models.heart.heart_model", heart_model,
               "Local"),
     "iris": ("elasticdl_tpu_torch.models.iris.iris_dnn", None, "Local"),
@@ -774,18 +840,9 @@ def _kernel_group(name):
     return "other"
 
 
-def _profile_step(trainer, features, labels, classify=_kernel_group,
-                  phase="profile"):
-    """One more train step (after the main path's counts were read) under
-    torch.profiler: device time by kernel group (`classify` names a
-    kernel's group) and the device's busy share of the step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        trainer.train_minibatch(features, labels)[2].item()
-        wall_ms = 1e3 * (time.perf_counter() - start)
+def _name_groups(prof, classify):
+    """Device us by kernel group (`classify` names a kernel's group), the
+    busy us (their sum), and the largest kernels of group "other"."""
     groups, other = {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -794,8 +851,27 @@ def _profile_step(trainer, features, labels, classify=_kernel_group,
         groups[group] = groups.get(group, 0.0) + evt.self_device_time_total
         if group == "other":
             other.append((evt.self_device_time_total / 1e3, evt.count,
-                           evt.key[:90]))
-    busy_ms = sum(groups.values()) / 1e3
+                          evt.key[:90]))
+    return groups, sum(groups.values()), {
+        "largest_other_ms_count_name": sorted(other, reverse=True)[:6]}
+
+
+def _profile_step(trainer, features, labels, classify=_kernel_group,
+                  phase="profile", device_groups=None):
+    """One more train step (after the main path's counts were read) under
+    torch.profiler: device time by kernel group and the device's busy
+    share of the step's wall time. `device_groups(prof)` -> (us by group,
+    busy us, extra fields) replaces the grouping by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        trainer.train_minibatch(features, labels)[2].item()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    groups, busy_us, extra = (device_groups(prof) if device_groups
+                              else _name_groups(prof, classify))
+    busy_ms = busy_us / 1e3
     result = {
         "phase": phase, "step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if busy_ms else "not measured",
@@ -803,7 +879,7 @@ def _profile_step(trainer, features, labels, classify=_kernel_group,
         "device_ms_by_group": {
             g: t / 1e3 for g, t in sorted(groups.items(),
                                           key=lambda kv: -kv[1])},
-        "largest_other_ms_count_name": sorted(other, reverse=True)[:6]}
+        **extra}
     emit(result)
     return result
 
@@ -897,20 +973,25 @@ def _timed_batches(tds, acc):
     tds.read_batches = read_batches
 
 
-def _write_job_inputs(root, cfg):
-    tokens = synthetic_lm_tokens(JOB_TRAIN_RECORDS + JOB_VALID_RECORDS, SEQ,
-                                 vocab=cfg.vocab, branching=4, seed=0)
+def _write_job_inputs(root, cfg, n_train=JOB_TRAIN_RECORDS,
+                      n_valid=JOB_VALID_RECORDS, model_def=MODEL_DEF,
+                      seed=0):
+    """Markov-token training and validation records and a model-def file
+    for an LM job; returns their paths and the first BATCH validation
+    rows."""
+    tokens = synthetic_lm_tokens(n_train + n_valid, SEQ, vocab=cfg.vocab,
+                                 branching=4, seed=seed)
     paths = {}
-    for name, rows in (("train", tokens[:JOB_TRAIN_RECORDS]),
-                       ("valid", tokens[JOB_TRAIN_RECORDS:])):
+    for name, rows in (("train", tokens[:n_train]),
+                       ("valid", tokens[n_train:])):
         paths[name] = os.path.join(root, f"{name}.edlr")
         with RecordFileWriter(paths[name]) as writer:
             for row in rows:
                 writer.write(encode_example({"tokens": row}))
-    paths["model_def"] = os.path.join(root, "flagship_lm.py")
+    paths["model_def"] = os.path.join(root, "lm_def.py")
     with open(paths["model_def"], "w") as f:
-        f.write(MODEL_DEF.format(seq=SEQ))
-    return paths, tokens[JOB_TRAIN_RECORDS:JOB_TRAIN_RECORDS + BATCH]
+        f.write(model_def.format(seq=SEQ))
+    return paths, tokens[n_train:n_train + BATCH]
 
 
 def phase_job(direct):
@@ -1047,6 +1128,311 @@ def _checkpoint_round_trip(trainer, root, features, fresh):
     if not (result["logits_bitwise_equal"]
             and result["restored_version"] == result["version"]):
         raise AssertionError(f"checkpoint round trip: {result}")
+    return result
+
+
+# ---------- the Switch-MoE LM ----------
+
+
+def _ancestors(evt):
+    while evt is not None:
+        yield evt
+        evt = evt.cpu_parent
+
+
+def _range_claims(events):
+    """{autograd node sequence number: the MoE range (or None) of the
+    forward op that created the node}. Every op records the sequence
+    number the next node will take, so the last op (by start time) to
+    record a number is the one that created its node."""
+    claims = {}
+    for evt in events:
+        if evt.device_type != torch.autograd.DeviceType.CPU \
+                or evt.sequence_nr < 0:
+            continue
+        chain = list(_ancestors(evt))
+        if any(a.scope == _BACKWARD_SCOPE
+               or a.name.startswith(_BACKWARD_ENGINE) for a in chain):
+            continue
+        group = next((a.name for a in chain if a.name in MOE_RANGES), None)
+        start = evt.time_range.start
+        if start >= claims.get(evt.sequence_nr, (-1.0, None))[0]:
+            claims[evt.sequence_nr] = (start, group)
+    return {seq: group for seq, (_, group) in claims.items()}
+
+
+def _op_range(evt, claims):
+    """The MoE range an op runs for: its own range in the forward; in the
+    backward, the range of the forward op that created its node."""
+    for a in _ancestors(evt):
+        if a.name in MOE_RANGES:
+            return a.name
+        if a.scope == _BACKWARD_SCOPE:
+            return claims.get(a.sequence_nr)
+    return None
+
+
+def _moe_device_groups(prof):
+    """Device us by group: kernels launched by an op of the MoE routing or
+    expert products (forward or backward) in those groups, every other
+    kernel by its name (_kernel_group; the flash kernels, launched from
+    ctypes under no op, among them). The ranges' own spans are left out.
+    Each kernel name's time is the device's: where its launches were
+    attributed to ops for more time than that (a kernel linked to two
+    ops), the shares are scaled down to it. Also the largest kernels of
+    each MoE group, and the device's busy us: the union of its spans."""
+    events = prof.events()
+    claims = _range_claims(events)
+    total, by_op, spans = {}, {}, []
+    for evt in events:
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.name not in MOE_RANGES:
+                total[evt.name] = (total.get(evt.name, 0.0)
+                                   + evt.self_device_time_total)
+                spans.append((evt.time_range.start, evt.time_range.end))
+            continue
+        if not evt.kernels:
+            continue
+        group = _op_range(evt, claims)
+        for kernel in evt.kernels:
+            shares = by_op.setdefault(kernel.name, {})
+            g = group or _kernel_group(kernel.name)
+            shares[g] = shares.get(g, 0.0) + kernel.duration
+    groups, largest, overlinked = {}, {}, 0.0
+    for name, us in total.items():
+        shares = by_op.get(name, {})
+        linked = sum(shares.values())
+        overlinked += max(0.0, linked - us)
+        scale = min(1.0, us / linked) if linked else 0.0
+        parts = {g: t * scale for g, t in shares.items()}
+        if us > linked:
+            g = _kernel_group(name)
+            parts[g] = parts.get(g, 0.0) + us - linked
+        for g, t in parts.items():
+            groups[g] = groups.get(g, 0.0) + t
+            if g in MOE_RANGES:
+                largest.setdefault(g, []).append((t / 1e3, name[:90]))
+    # Busy: the union of the device spans (kernels and copies may overlap).
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return groups, busy, {
+        "largest_ms_name_by_moe_group": {
+            g: sorted(v, reverse=True)[:6] for g, v in largest.items()},
+        "overlinked_ms": overlinked / 1e3}
+
+
+def _moe_card_vs_cpu():
+    """A small float32 MoE LM through the kernels on the card against the
+    same weights on the CPU: first the routing of every MoE layer (expert
+    choice and keep), from each side's own layer input; then the logits,
+    the loss with its aux term, and every gradient."""
+    cfg = moe_lm.MoELMConfig(**MOE_CHECK_CONFIG)
+    cpu = moe_lm.custom_model(cfg).to_empty(device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = moe_lm.custom_model(cfg).to_empty(device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = synthetic_lm_tokens(2, MOE_CHECK_SEQ, vocab=cfg.vocab, seed=2)
+    x, y = torch.from_numpy(tokens[:, :-1]), torch.from_numpy(tokens[:, 1:])
+
+    def run(model, device):
+        inputs = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: inputs.append((mod, args[0].detach())))
+            for m in model.modules() if isinstance(m, moe_layer.SwitchMoE)]
+        out = model(x.to(device))
+        loss = moe_lm.loss(y.to(device), out)
+        loss.backward()
+        for hook in hooks:
+            hook.remove()
+        with torch.no_grad():
+            routes = [moe_layer.route(mod, inp) for mod, inp in inputs]
+        return (out["logits"].detach().cpu(), out["aux_loss"].item(),
+                loss.item(), routes)
+
+    fa.reset_launch_counts()
+    logits_card, aux_card, loss_card, routes_card = run(card, "cuda")
+    launched = dict(fa.launches)
+    logits_cpu, aux_cpu, loss_cpu, routes_cpu = run(cpu, "cpu")
+    routing = []
+    for i, (rc, rp) in enumerate(zip(routes_card, routes_cpu)):
+        differ = (rc.expert.cpu() != rp.expert) | (rc.keep.cpu() != rp.keep)
+        top2 = rp.probs.topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1])
+        routing.append({"layer": i, "tokens": int(rp.expert.numel()),
+                        "kept": int(rp.keep.sum()),
+                        "tokens_differ": int(differ.sum()),
+                        "min_top2_margin": float(margins.min()),
+                        "differing_top2_margins":
+                            margins[differ].tolist()[:16]})
+    emit({"phase": "moe_lm", "card_vs_cpu_routing": routing})
+    if any(r["tokens_differ"] for r in routing):
+        raise AssertionError(f"MoE routing differs card vs CPU: {routing}")
+    grads_card = params_to_flax(_grads_as_params(card))
+    grads_cpu = params_to_flax(_grads_as_params(cpu))
+    errors = {"logits": max_err(logits_card, logits_cpu)[1],
+              "loss": abs(loss_card - loss_cpu) / abs(loss_cpu),
+              "aux_loss": abs(aux_card - aux_cpu) / abs(aux_cpu)}
+    errors.update({n: _rel_err(grads_card[n], grads_cpu[n])
+                   for n in grads_cpu})
+    result = {"phase": "moe_lm", "card_vs_cpu": {
+        "loss_card": loss_card, "loss_cpu": loss_cpu,
+        "tolerance": MOE_CHECK_RTOL, "launches": launched,
+        "max_rel_err": errors}}
+    emit(result)
+    bad = {k: v for k, v in errors.items() if not v <= MOE_CHECK_RTOL}
+    if bad:
+        raise AssertionError(f"the MoE LM on the card disagrees: {bad}")
+    want = {n: cfg.n_layers for n in ("flash_fwd_lse", "flash_dq",
+                                      "flash_dkv")}
+    if launched != want:
+        raise AssertionError(f"card_vs_cpu launches {launched}")
+    return result["card_vs_cpu"]
+
+
+def _moe_direct(cfg):
+    """LocalTrainer on the flagship-width MoE LM: warm-up and timed steps,
+    one evaluation, then a profiled step."""
+    trainer = LocalTrainer(moe_lm.custom_model(cfg), moe_lm.loss,
+                           moe_lm.optimizer())
+    tokens = synthetic_lm_tokens(4 * BATCH, SEQ, vocab=cfg.vocab,
+                                 branching=4, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses = []
+    for i in range(MOE_WARMUP + MOE_STEPS):
+        if i == MOE_WARMUP:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        rows = slice((i % 4) * BATCH, (i % 4 + 1) * BATCH)
+        losses.append(trainer.train_minibatch(tokens[rows, :-1],
+                                              tokens[rows, 1:])[2])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - start) / MOE_STEPS
+    losses = [float(x) for x in losses]
+    train_launches = dict(fa.launches)
+    start = time.perf_counter()
+    logits = trainer.evaluate_minibatch(tokens[:BATCH, :-1])
+    eval_s = time.perf_counter() - start
+    launches = dict(fa.launches)
+    metric = moe_lm.eval_metrics_fn()["token_ce"]
+    metric.update(logits, tokens[:BATCH, 1:])
+    n_params = sum(p.numel() for p in trainer._model.parameters())
+    result = {"phase": "moe_lm", "params": n_params, "batch": BATCH,
+              "seq": SEQ, "num_experts": cfg.num_experts,
+              "moe_every": cfg.moe_every,
+              "capacity_per_expert": int(cfg.capacity_factor * BATCH * SEQ
+                                         / cfg.num_experts),
+              "losses": losses, "step_ms": step_ms,
+              "tokens_per_s": BATCH * SEQ / (step_ms / 1e3),
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "eval_ms": 1e3 * eval_s, "eval_token_ce": metric.result(),
+              "train_launches": train_launches, "launches": launches}
+    emit(result)
+    n = MOE_WARMUP + MOE_STEPS
+    expected = {"flash_fwd_lse": cfg.n_layers * n,
+                "flash_dq": cfg.n_layers * n,
+                "flash_dkv": cfg.n_layers * n, "flash_fwd": cfg.n_layers}
+    checks = [
+        (n_params == MOE_PARAMS, f"{n_params} parameters"),
+        (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+         f"losses {losses}"),
+        (logits.shape == (BATCH, SEQ, cfg.vocab)
+         and np.isfinite(logits).all(), "eval logits"),
+        (launches == expected,
+         f"launches {launches}, expected {expected}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"moe_lm direct: {what}")
+    result["profile"] = _profile_step(
+        trainer, tokens[:BATCH, :-1], tokens[:BATCH, 1:],
+        phase="moe_lm_profile", device_groups=_moe_device_groups)
+    return result
+
+
+def _moe_job(cfg):
+    """The same model as a job through the master, then a checkpoint round
+    trip."""
+    with tempfile.TemporaryDirectory() as root:
+        paths, eval_rows = _write_job_inputs(
+            root, cfg, MOE_JOB_TRAIN, MOE_JOB_VALID, MOE_MODEL_DEF, seed=1)
+        common = [
+            "--model_def", paths["model_def"],
+            "--distribution_strategy", "Local",
+            "--training_data", paths["train"],
+            "--validation_data", paths["valid"],
+            "--records_per_task", str(MOE_JOB_TASK),
+            "--num_epochs", "1", "--minibatch_size", str(BATCH),
+            "--evaluation_steps", str(MOE_JOB_EVAL_STEPS), "--seed", "0",
+        ]
+        master, _, worker = _job(common, [
+            "--job_type", "training_with_evaluation",
+            "--log_loss_steps", str(MOE_JOB_LOG_STEPS)])
+        inside = {}
+        _timed(worker.trainer, "evaluate_minibatch", inside)
+        fa.reset_launch_counts()
+        start = time.perf_counter()
+        with _logged_losses() as lines:
+            worker.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        launches = dict(fa.launches)
+        stats = master.task_d.stats()
+        evals = master.evaluation_service.completed_results
+        losses = [loss for _, loss, _ in lines]
+        eval_batches = inside.get("evaluate_minibatch_calls", 0)
+        result = {"phase": "moe_lm_job", "wall_s": wall_s,
+                  "records_done": stats["records_done"],
+                  "steps": worker.steps, "logged_losses": losses,
+                  "eval_results": evals, "eval_minibatches": eval_batches,
+                  "launches": launches}
+        emit(result)
+        n_train = MOE_JOB_TRAIN // BATCH
+        evaluated_at = list(range(MOE_JOB_EVAL_STEPS, n_train + 1,
+                                  MOE_JOB_EVAL_STEPS))
+        expected = {"flash_fwd_lse": cfg.n_layers * n_train,
+                    "flash_dq": cfg.n_layers * n_train,
+                    "flash_dkv": cfg.n_layers * n_train,
+                    "flash_fwd": cfg.n_layers * eval_batches}
+        checks = [
+            (master.task_d.finished() and not master.task_d.job_failed,
+             "the job did not finish cleanly"),
+            (stats["records_done"] == MOE_JOB_TRAIN,
+             f"records_done {stats['records_done']}"),
+            (worker.steps == n_train, f"{worker.steps} steps"),
+            (eval_batches == len(evaluated_at) * MOE_JOB_VALID // BATCH,
+             f"{eval_batches} eval minibatches"),
+            (launches == expected,
+             f"job launches {launches}, expected {expected}"),
+            (len(losses) == n_train // MOE_JOB_LOG_STEPS
+             and all(math.isfinite(x) for x in losses)
+             and losses[-1] < losses[0], f"logged losses {losses}"),
+            ([v for v, _ in evals] == evaluated_at
+             and all(math.isfinite(m["token_ce"]) for _, m in evals),
+             f"evaluation results {evals}"),
+        ]
+        for ok, what in checks:
+            if not ok:
+                raise AssertionError(f"moe_lm job: {what}")
+        result["checkpoint"] = _checkpoint_round_trip(
+            worker.trainer, root, eval_rows[:, :-1],
+            LocalTrainer(moe_lm.custom_model(cfg), moe_lm.loss,
+                         moe_lm.optimizer(), seed=1))
+        emit({"phase": "moe_lm_job", "checkpoint": result["checkpoint"]})
+    return result
+
+
+def phase_moe_lm():
+    """The Switch-MoE LM: card against CPU at a small float32 config, then
+    the flagship-width model direct and through the master."""
+    result = {"card_vs_cpu": _moe_card_vs_cpu()}
+    cfg = moe_lm.flagship_config(SEQ)
+    result["direct"] = _moe_direct(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["job"] = _moe_job(cfg)
     return result
 
 
@@ -1437,15 +1823,19 @@ def _ps_checkpoint_round_trip(master, trainer, root):
 
 
 def _ctr_batches():
-    """Two batches of CTR_BATCH Criteo records, fed (decoded and
-    transformed) on the host; and the feed's ms per record."""
-    batches, feed_s = [], 0.0
-    for seed in (10, 11):
-        records = list(iter_criteo_records(CTR_BATCH, seed=seed))
+    """Two batches of CTR_BATCH Criteo records, each fed (decoded and
+    transformed on the host) by the dac_ctr feed and by WDL's, which keeps
+    the raw ids for the model to hash; and each feed's ms per record."""
+    records = [list(iter_criteo_records(CTR_BATCH, seed=seed))
+               for seed in (10, 11)]
+    batches, feed_ms = {}, {}
+    for name, feed in (("dac_ctr", criteo_transform.feed),
+                       ("wdl", wdl.feed)):
         start = time.perf_counter()
-        batches.append(criteo_transform.feed(records, "training", None))
-        feed_s += time.perf_counter() - start
-    return batches, 1e3 * feed_s / (len(batches) * CTR_BATCH)
+        batches[name] = [feed(r, "training", None) for r in records]
+        feed_ms[name] = 1e3 * (time.perf_counter() - start) / (
+            len(records) * CTR_BATCH)
+    return batches, feed_ms
 
 
 def _ctr_card_vs_cpu(module, batch):
@@ -1486,14 +1876,18 @@ def _ctr_run(name, module, batches):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     losses = [float(x) for x in losses]
+    profile = _profile_step(trainer, *batches[0], phase=f"ctr_zoo_{name}")
     result = {
         "phase": "ctr_zoo", "model": name, "batch": CTR_BATCH,
-        "vocab": TOTAL_IDS,
+        # Rows per table: the shared id space, or WDL's hash buckets.
+        "vocab": (wdl.NUM_SPARSE * wdl.HASH_BUCKETS if module is wdl
+                  else TOTAL_IDS),
         "params": sum(p.numel() for p in trainer._model.parameters()),
         "steps": CTR_STEPS, "ms_per_step": 1e3 * elapsed / CTR_STEPS,
         "examples_per_s": CTR_STEPS * CTR_BATCH / elapsed,
         "timed_losses": losses,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "device_busy_share": profile["device_busy_share"],
         "card_vs_cpu": _ctr_card_vs_cpu(module, batches[0]),
     }
     emit(result)
@@ -1506,15 +1900,17 @@ def _ctr_run(name, module, batches):
 
 def phase_ctr_zoo():
     """DeepFM, wide & deep, DCN and xDeepFM with device-resident tables at
-    full width on LocalTrainer: ms per step, and card against CPU on one
-    batch. None launches a flash-attention kernel."""
+    full width, and deepctr's WDL (26 hashed feature columns), on
+    LocalTrainer: ms per step, and card against CPU on one batch. None
+    launches a flash-attention kernel."""
     batches, feed_ms = _ctr_batches()
-    emit({"phase": "ctr_zoo", "feed_ms_per_record": feed_ms,
-          "batch": CTR_BATCH})
+    emit({"phase": "ctr_zoo", "feed_ms_per_record": feed_ms["dac_ctr"],
+          "wdl_feed_ms_per_record": feed_ms["wdl"], "batch": CTR_BATCH})
     fa.reset_launch_counts()
     results = {}
     for name, module in CTR_HEADS:
-        results[name] = _ctr_run(name, module, batches)
+        results[name] = _ctr_run(
+            name, module, batches["wdl" if name == "wdl" else "dac_ctr"])
         torch.cuda.empty_cache()
     launches = dict(fa.launches)
     emit({"phase": "ctr_zoo", "launches": launches})
@@ -2224,11 +2620,17 @@ def main():
               ("kernels", lambda: phase_kernels(results["build"])),
               ("reference", phase_reference), ("main_path", phase_main_path),
               ("job", lambda: phase_job(results["main_path"])),
+              ("moe_lm", phase_moe_lm),
               ("ps_step", phase_ps_step), ("ps_job", phase_ps_job),
               ("ctr_zoo", phase_ctr_zoo), ("lm_ps", phase_lm_ps),
               ("zoo", phase_zoo)]
     results, seconds = {}, {}
     for name, fn in phases:
+        # A finished phase's trainers sit in reference cycles until the
+        # collector runs; free them, so that each phase's peak memory is
+        # its own.
+        gc.collect()
+        torch.cuda.empty_cache()
         try:
             if name == "ps_step":
                 fa.reset_launch_counts()
@@ -2256,6 +2658,11 @@ def main():
         report[name]["lm_ps_launches"] = {
             wire: r["launches"].get(name, 0)
             for wire, r in results["lm_ps"].items()}
+        # The Switch-MoE LM at the flagship's widths: direct (warm-up and
+        # timed steps, one evaluation) and as a job through the master.
+        report[name]["moe_lm_launches"] = {
+            run: results["moe_lm"][run]["launches"].get(name, 0)
+            for run in ("direct", "job")}
         # The image and tabular zoo launches none.
         report[name]["zoo_launches"] = results["zoo"]["launches"].get(
             name, 0)

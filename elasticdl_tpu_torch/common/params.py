@@ -16,9 +16,18 @@ to a state_dict key by joining with '.' and renaming the leaf:
   embedding   weight      [num, features], unchanged
   any other   the same    a parameter the module declares itself, by its
                           flax name, unchanged: a local DistributedEmbedding
-                          `table`, CTREmbeddings' `wide` [V, 1] and `deep`
-                          [V, D], DCN's cross `w{i}`/`b{i}` [d], xDeepFM's
-                          CIN `w{k}` [h, F_k, F_0] (no transpose)
+                          or SparseEmbedding `table`, CTREmbeddings' `wide`
+                          [V, 1] and `deep` [V, D], DCN's cross `w{i}`/`b{i}`
+                          [d], xDeepFM's CIN `w{k}` [h, F_k, F_0], SwitchMoE's
+                          `w_in` [E, D, H] and `w_out` [E, H, D] (no
+                          transpose)
+
+The MoE LM's expert layer is MoEBlock_k/SwitchMoE_0: its `router` is an
+nn.Linear, so router/kernel [D, E] is a Dense kernel (transposed), and
+w_in/w_out are raw params. flax numbers Block_i and MoEBlock_i apart, so
+the port's module names carry that count (models/transformer/moe_lm.py).
+A feature-column table is `<scope>/emb_<key>/embedding` (an nn.Embedding
+in a DenseFeatures named `wide` or `deep`).
 
 A DenseGeneral kernel such as the LM's qkv [d, 3, H, Dh] flattens its
 output axes in order, which is the (3, H, Dh) order the model splits. It is

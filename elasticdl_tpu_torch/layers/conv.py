@@ -110,7 +110,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.empty(features))
         self.register_buffer("var", torch.empty(features))
 
-    def init_flax(self):
+    def init_flax(self, generator=None):
         """flax's initializers (layers/init.py calls this): scale ones
         (zeros with zero_scale), bias zeros, running mean 0 and variance
         1."""

@@ -36,11 +36,14 @@ def init_flax_defaults(module, generator):
     nn.Embedding under `module`, drawn from `generator` (which lives on the
     parameters' device): lecun-normal kernels, zero biases, embeddings
     normal with stddev 1/sqrt(features) (flax's default_embed_init); a
-    module with initializers of its own (layers/conv.py's BatchNorm)
-    applies them through its `init_flax()`. The draws differ from flax's:
-    parity with the JAX package needs imported weights."""
+    module with initializers of its own (layers/conv.py's BatchNorm,
+    layers/moe.py's experts, an embedding column's table) applies them
+    through its `init_flax(generator)` instead. The draws differ from
+    flax's: parity with the JAX package needs imported weights."""
     for mod in module.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if hasattr(mod, "init_flax"):
+            mod.init_flax(generator)
+        elif isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             lecun_normal_(mod.weight, fan_in, generator)
             if mod.bias is not None:
@@ -50,5 +53,3 @@ def init_flax_defaults(module, generator):
             with torch.no_grad():
                 mod.weight.normal_(0.0, mod.embedding_dim**-0.5,
                                    generator=generator)
-        elif hasattr(mod, "init_flax"):
-            mod.init_flax()

@@ -74,16 +74,20 @@ class LMConfig:
     remat_policy: Optional[str] = None
 
     def __post_init__(self):
-        if self.remat_policy is not None and not self.remat:
-            raise ValueError(
-                "remat_policy is set but remat=False — the policy would be "
-                "silently ignored; enable remat or drop the policy"
-            )
-        if self.remat_policy not in REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported to "
-                f"elasticdl_tpu_torch; it has {REMAT_POLICIES}"
-            )
+        validate_remat_policy(self.remat, self.remat_policy)
+
+
+def validate_remat_policy(remat, remat_policy):
+    if remat_policy is not None and not remat:
+        raise ValueError(
+            "remat_policy is set but remat=False — the policy would be "
+            "silently ignored; enable remat or drop the policy"
+        )
+    if remat_policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy {remat_policy!r} is not ported to "
+            f"elasticdl_tpu_torch; it has {REMAT_POLICIES}"
+        )
 
 
 def flagship_config(max_len: int = 4096) -> LMConfig:
@@ -238,26 +242,34 @@ class TransformerLM(nn.Module):
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return head_output(self, x)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        """flax's default initializers, drawn from `generator` (which must
-        live on the parameters' device)."""
+        init_lm_weights(self, generator)
 
-        def trunc_normal(w, fan_in):
-            std = fan_in**-0.5 / _TRUNC_STD
-            nn.init.trunc_normal_(
-                w, std=std, a=-2 * std, b=2 * std, generator=generator
-            )
 
-        for mod in self.modules():
-            if isinstance(mod, nn.Embedding):
-                trunc_normal(mod.weight, mod.embedding_dim)
-            elif isinstance(mod, nn.Linear):
-                trunc_normal(mod.weight, mod.in_features)
-                mod.bias.zero_()
-            elif isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+@torch.no_grad()
+def init_lm_weights(model, generator):
+    """flax's default initializers on an LM, drawn from `generator` (which
+    must live on the parameters' device); a module with initializers of its
+    own (layers/moe.py's SwitchMoE experts) applies them through its
+    `init_flax(generator)`."""
+
+    def trunc_normal(w, fan_in):
+        std = fan_in**-0.5 / _TRUNC_STD
+        nn.init.trunc_normal_(
+            w, std=std, a=-2 * std, b=2 * std, generator=generator
+        )
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Embedding):
+            trunc_normal(mod.weight, mod.embedding_dim)
+        elif isinstance(mod, nn.Linear):
+            trunc_normal(mod.weight, mod.in_features)
+            mod.bias.zero_()
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif hasattr(mod, "init_flax"):
+            mod.init_flax(generator)
 
 
 # ---------- model spec contract ----------

@@ -49,7 +49,11 @@ def test_port_imports_with_jax_blocked():
                  "data.gen.criteo", "common.model_handler",
                  "models.dac_ctr.deepfm", "models.dac_ctr.wide_deep",
                  "models.dac_ctr.dcn", "models.dac_ctr.xdeepfm",
-                 "data.example"):
+                 "data.example", "layers.moe", "models.transformer.moe_lm",
+                 "preprocessing.analyzer_utils",
+                 "preprocessing.feature_column",
+                 "models.census_fc.wide_deep_fc", "models.deepctr.wdl",
+                 "data.gen.criteo_tsv"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],
