@@ -35,9 +35,22 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    evaluates every 8 model versions, every request and response crossing
    the wire format. Launch counts are reset just before worker.run() and
    read just after, and must be exact; records_done, steps, logged losses
-   and evaluation results are checked. Then a checkpoint round trip:
-   save_trainer_checkpoint, restore into a fresh trainer through
-   restore_on_init, eval logits bitwise equal.
+   and evaluation results are checked. The job runs journaled and
+   observed: ELASTICDL_MASTER_JOURNAL_DIR, an obs dir with the master's
+   one exporter advertised (role "master", on 127.0.0.1; the worker shares
+   the process and its registry), --metrics_dir, ELASTICDL_POLICY=1. After
+   minibatch 2 of 4 of training task 2 the master is dropped as a crash
+   leaves it (threads gone, journal closed without compaction) and a
+   successor is built over the same journal and prepared; the worker's
+   stub reaches whichever master holds the place. The successor must
+   replay to incarnation 2, log master_recovered and lease_reissued,
+   accept the straddling report once; metrics.jsonl must hold every
+   evaluation, the aggregator's records count equal the job's, and no
+   policy decision apply and no alert fire. Prints the journal's ops, WAL
+   bytes, ms per fsynced append, replay, compaction and snapshot sizes,
+   and ms from dropping the master to the successor's first dispatch.
+   Then a checkpoint round trip: save_trainer_checkpoint, restore into a
+   fresh trainer through restore_on_init, eval logits bitwise equal.
 8. moe_lm: the Switch-MoE LM (moe_lm.flagship_config: the flagship's
    widths, 4 experts in every second block, capacity factor 1.25,
    373,481,496 parameters). First a small float32 MoE LM on the card
@@ -116,7 +129,14 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    on 1024 training and 256 validation records of f32 images (tasks of
    256, minibatches of 128, evaluation every 4 versions): records_done
    exact, evaluation results, then a checkpoint round trip with its
-   batch_stats (eval outputs bitwise equal). Both models in f32 at batch
+   batch_stats (eval outputs bitwise equal). ResNet-50 on
+   ParameterServerTrainer, 2 in-process shards, f32 wire, batch 128, its
+   BatchNorm statistics on the worker: the first batch (cudnn
+   deterministic) against a direct LocalTrainer step at the same weights
+   (loss 1e-5, dense gradients 1e-4 of the largest, batch_stats 1e-5),
+   then 2 warm-up and 4 timed steps (ms per step, phase split, bytes
+   pushed, one profiled step's busy share), every push accepted, the
+   batch_stats moved. Both models in f32 at batch
    2 on the card against the CPU (see _zoo_card_vs_cpu for the bounds).
    One short job through the master for each small zoo model (MNIST,
    CIFAR-10, census wide & deep, DNN and feature-column wide & deep,
@@ -142,6 +162,7 @@ import sys
 import tempfile
 import time
 import traceback
+import urllib.request
 import warnings
 
 import numpy as np
@@ -150,7 +171,7 @@ import torch.nn.functional as F
 
 from elasticdl_tpu_torch import native
 from elasticdl_tpu_torch.common import args as edl_args
-from elasticdl_tpu_torch.common import tensor_utils
+from elasticdl_tpu_torch.common import rpc, tensor_utils
 from elasticdl_tpu_torch.common.params import (
     flax_leaves,
     params_from_flax,
@@ -164,6 +185,7 @@ from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
 from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
 from elasticdl_tpu_torch.layers import moe as moe_layer
 from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv
+from elasticdl_tpu_torch.master import journal as master_journal
 from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.data.example import batch_examples
 from elasticdl_tpu_torch.models.census import dnn as census_dnn
@@ -189,6 +211,7 @@ from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.ops import mma_peak
+from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.ps import checkpoint as ps_checkpoint
 from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
 from elasticdl_tpu_torch.worker.main import build_worker
@@ -381,6 +404,18 @@ ZOO_JOB_VALID = 256
 ZOO_JOB_TASK = 256
 ZOO_JOB_BATCH = 128
 ZOO_JOB_EVAL_STEPS = 4
+# ResNet-50 on ParameterServerTrainer: 2 in-process shards, the f32 wire,
+# batch 128, 2 warm-up and 4 timed steps; its first batch against a direct
+# LocalTrainer step at the same weights (loss relative, dense gradients as
+# a share of the push's largest, batch_stats as a share of each tensor's
+# largest).
+ZOO_PS_BATCH = 128
+ZOO_PS_SHARDS = 2
+ZOO_PS_WARMUP = 2
+ZOO_PS_STEPS = 4
+ZOO_PS_LOSS_RTOL = 1e-5
+ZOO_PS_GRAD_RTOL = 1e-4
+ZOO_PS_STATS_RTOL = 1e-5
 # Card against CPU: float32 models at batch 2, each value as a share of the
 # largest value compared, a parameter gradient as a share of the model's
 # largest gradient (the same arithmetic summed in another order).
@@ -912,19 +947,21 @@ def _logged_losses():
         logger.removeHandler(loss_log)
 
 
-def _job(common, worker_extra, num_ps=0):
+def _job(common, worker_extra, num_ps=0, place=None):
     """A job in this process: its Master (the `common` arguments, no
     instance backend; with num_ps, ParameterServerStrategy's in-process
     shards behind it) and worker 0 (`common` and `worker_extra`, on the
-    shards' stubs where there are shards). Returns (master, the worker's
-    MasterClient, worker)."""
-    master_extra = ["--instance_backend", "none"]
-    if num_ps:
-        master_extra += ["--num_ps", str(num_ps)]
-    master_args = edl_args.master_parser().parse_args(common + master_extra)
-    edl_args.validate_args(master_args)
-    master = Master(master_args)
-    client = MasterClient(master.stub(), 0)
+    shards' stubs where there are shards). With `place` (a _MasterPlace)
+    the master is prepared and put there, and the worker reaches it
+    through the place. Returns (master, the worker's MasterClient,
+    worker)."""
+    master = Master(_master_args(common, num_ps))
+    if place is None:
+        stub = master.stub()
+    else:
+        place.master = master.prepare()
+        stub = rpc.InProcessStub(place, rpc.MASTER_SERVICE)
+    client = MasterClient(stub, 0)
     worker_args = edl_args.worker_parser().parse_args(
         common + ["--worker_id", "0", "--master_addr", "in-process"]
         + worker_extra)
@@ -932,6 +969,92 @@ def _job(common, worker_extra, num_ps=0):
     worker = build_worker(worker_args, client,
                           ps_stubs=master.ps_stubs() if num_ps else None)
     return master, client, worker
+
+
+def _master_args(common, num_ps=0):
+    extra = ["--instance_backend", "none"]
+    if num_ps:
+        extra += ["--num_ps", str(num_ps)]
+    args = edl_args.master_parser().parse_args(common + extra)
+    edl_args.validate_args(args)
+    return args
+
+
+class _MasterPlace:
+    """The servicer at the master's place, in one process: hands each call
+    to whichever Master holds the place now, as a relaunched master comes
+    back on the same address, and notes when the first task after a
+    relaunch went out."""
+
+    def __init__(self):
+        self.master = None
+        self.relaunched_at = None  # perf_counter when the master dropped
+        self.first_dispatch_s = None  # ... to the successor's first task
+
+    def __getattr__(self, method):
+        handler = getattr(self.master.servicer, method)
+        if method != "get_task" or self.relaunched_at is None:
+            return handler
+
+        def get_task(request, context):
+            task = handler(request, context)
+            if task.task_id >= 0 and self.first_dispatch_s is None:
+                self.first_dispatch_s = (time.perf_counter()
+                                         - self.relaunched_at)
+            return task
+
+        return get_task
+
+
+def _crash(master):
+    """What a SIGKILL leaves of a master: its threads and its
+    observability plane gone, its journal closed without a final
+    compaction, nothing else flushed."""
+    for part in (master._heartbeat, master.policy, master.aggregator):
+        if part is not None:
+            part.close()
+    master.journal.close()
+    if master._owns_obs:
+        master.obs.close()
+
+
+@contextlib.contextmanager
+def _journal_timings():
+    """Host seconds and calls of every MasterJournal append (each one
+    fsynced), load (snapshot read and replay) and compaction while the
+    block runs."""
+    acc = {}
+    cls = master_journal.MasterJournal
+    saved = {name: getattr(cls, name) for name in ("record", "load",
+                                                   "compact")}
+    for name, inner in saved.items():
+        def call(self, *args, inner=inner, name=name, **kwargs):
+            start = time.perf_counter()
+            try:
+                return inner(self, *args, **kwargs)
+            finally:
+                acc[name] = acc.get(name, 0.0) + time.perf_counter() - start
+                acc[name + "_calls"] = acc.get(name + "_calls", 0) + 1
+        setattr(cls, name, call)
+    try:
+        yield acc
+    finally:
+        for name, inner in saved.items():
+            setattr(cls, name, inner)
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _timed(obj, name, acc, key=None):
@@ -994,13 +1117,82 @@ def _write_job_inputs(root, cfg, n_train=JOB_TRAIN_RECORDS,
     return paths, tokens[n_train:n_train + BATCH]
 
 
+JOB_NAME = "flagship-job"
+# The master is dropped after this model version: minibatch 2 of 4 of
+# training task 2.
+JOB_RELAUNCH_VERSION = 6
+
+
+def _job_relaunch(place, common, wrap):
+    """Drops the master at the place as a crash leaves it and puts a
+    successor, built over the same journal and prepared, in its place.
+    Returns what the drop left and the successor's set-up times."""
+    first = place.master
+    journal_dir = first.journal.directory
+    held = [(tid, wid, task.start, task.end)
+            for tid, wid, task in first.task_d.inflight_leases()]
+    left = {
+        "incarnation": first.master_incarnation,
+        "records_done": first.task_d.stats()["records_done"],
+        "held_leases": held,
+        "policy_actions": first.policy.actions_total(),
+        "alerts_fired": first.aggregator.alerts_fired(),
+    }
+    # The clock starts once the stand-in for the SIGKILL has run: closing
+    # the exporter waits out its serve loop's 0.5 s poll, which a killed
+    # process never pays.
+    start = time.perf_counter()
+    _crash(first)
+    place.relaunched_at = time.perf_counter()
+    left["crash_ms"] = 1e3 * (place.relaunched_at - start)
+    left["wal_bytes"] = os.path.getsize(
+        os.path.join(journal_dir, master_journal.WAL_NAME))
+    start = time.perf_counter()
+    successor = Master(_master_args(common))
+    built = time.perf_counter()
+    successor.prepare()
+    ready = time.perf_counter()
+    wrap(successor)
+    place.master = successor
+    # A report for the held task under another lease's token (the
+    # worker's previous lease) is acknowledged and discarded: the
+    # restored lease keeps the task and its accounting.
+    tid = held[0][0] if held else -1
+    token = successor.task_d.lease_token(tid)
+    response = place.report_task_result(
+        pb.ReportTaskResultRequest(task_id=tid, lease_token=token - 1), None)
+    left["stale_report"] = {
+        "response_empty": response == pb.Empty(),
+        "lease_kept": successor.task_d.lease_token(tid) == token > 0,
+        "records_done": successor.task_d.stats()["records_done"],
+    }
+    left.update(
+        successor_build_ms=1e3 * (built - start),
+        successor_prepare_ms=1e3 * (ready - built),
+        drop_to_ready_ms=1e3 * (ready - place.relaunched_at),
+        snapshot_bytes=os.path.getsize(
+            os.path.join(journal_dir, master_journal.SNAPSHOT_NAME)))
+    return left
+
+
+def _events_of(obs_dir):
+    with open(os.path.join(obs_dir, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
 def phase_job(direct):
     """The flagship LM trained as an elastic job through the control plane
-    in this process, then a checkpoint round trip."""
+    in this process, journaled and observed, with the master relaunched
+    from its journal mid-task; then a checkpoint round trip."""
     cfg = tlm.flagship_config(SEQ)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, _environ(
+            ELASTICDL_MASTER_JOURNAL_DIR=os.path.join(root, "journal"),
+            ELASTICDL_POLICY="1",
+            ELASTICDL_HEARTBEAT_DIR=os.path.join(root, "heartbeats")), \
+            _journal_timings() as jt:
         start = time.perf_counter()
         paths, eval_rows = _write_job_inputs(root, cfg)
+        metrics_dir = os.path.join(root, "metrics")
         common = [
             "--model_def", paths["model_def"],
             "--distribution_strategy", "Local",
@@ -1009,26 +1201,46 @@ def phase_job(direct):
             "--records_per_task", str(JOB_RECORDS_PER_TASK),
             "--num_epochs", "1", "--minibatch_size", str(BATCH),
             "--evaluation_steps", str(JOB_EVAL_STEPS), "--seed", "0",
+            "--job_name", JOB_NAME, "--metrics_dir", metrics_dir,
         ]
+        # The master sets up this process's one observability plane over
+        # its metrics dir: its exporter advertised as role "master", read
+        # in process by its aggregator; the worker shares the process and
+        # its registry.
+        place = _MasterPlace()
         master, client, worker = _job(common, [
             "--job_type", "training_with_evaluation",
-            "--log_loss_steps", str(JOB_LOG_STEPS)])
+            "--log_loss_steps", str(JOB_LOG_STEPS)], place=place)
         setup_s = time.perf_counter() - start
         # Where the host's time goes: the evaluation report as the worker
         # sends it (encode, the stub's round trip, the master's handler),
         # the handler alone (decode and metric), the metric alone; the
         # task pulls and reports.
         host = {}
-        _timed(master.servicer, "report_evaluation_metrics", host,
-               "servicer_report_evaluation_metrics")
-        _timed(master.evaluation_service, "report_evaluation_metrics", host,
-               "metric_update")
+
+        def wrap(m):
+            _timed(m.servicer, "report_evaluation_metrics", host,
+                   "servicer_report_evaluation_metrics")
+            _timed(m.evaluation_service, "report_evaluation_metrics", host,
+                   "metric_update")
+
+        wrap(master)
         for name in ("report_evaluation_metrics", "get_task",
                      "report_task_result", "report_version"):
             _timed(client, name, host, "client_" + name)
         inside = {}
         _timed(worker.trainer, "train_minibatch", inside)
         _timed(worker.trainer, "evaluate_minibatch", inside)
+        step = worker.trainer.train_minibatch
+        relaunch = {}
+
+        def train_minibatch(features, labels):
+            result = step(features, labels)
+            if result[1] == JOB_RELAUNCH_VERSION:
+                relaunch.update(_job_relaunch(place, common, wrap))
+            return result
+
+        worker.trainer.train_minibatch = train_minibatch
 
         fa.reset_launch_counts()
         start = time.perf_counter()
@@ -1041,20 +1253,51 @@ def phase_job(direct):
         wall_s = time.perf_counter() - start
         launches = dict(fa.launches)
 
-        stats = master.task_d.stats()
-        evals = master.evaluation_service.completed_results
+        successor = place.master
+        # The straddling report (the lease held at the drop, reported to
+        # the successor) was accepted once; a retried copy is discarded.
+        held_id = relaunch["held_leases"][0][0] if relaunch else -1
+        retry = pb.ReportTaskResultRequest(
+            task_id=held_id,
+            lease_token=int(master.task_d.lease_token(held_id))
+            if relaunch else 0)
+        retried = successor.servicer.report_task_result(retry, None)
+        status = client.get_job_status()
+        stats = successor.task_d.stats()
+        evals = successor.evaluation_service.completed_results
+        successor.aggregator.poll_once()
+        summary = successor.aggregator.summary()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{successor.obs.metrics_port}/api/summary",
+                timeout=30) as res:
+            served = json.loads(res.read().decode())
+        with open(os.path.join(metrics_dir, "endpoints",
+                               "master.json")) as f:
+            advertised = json.load(f)
+        policy_actions = successor.policy.actions_total()
+        alerts_fired = successor.aggregator.alerts_fired()
+        wal_bytes = os.path.getsize(os.path.join(
+            root, "journal", master_journal.WAL_NAME))
+        successor.stop()
+        events = _events_of(metrics_dir)
+        with open(os.path.join(metrics_dir, "metrics.jsonl")) as f:
+            metric_lines = [json.loads(line) for line in f]
         losses = [loss for _, loss, _ in lines]
         # Steady step time: between two log lines with no evaluation in
         # between (evaluation runs after the step whose version is a
-        # multiple of JOB_EVAL_STEPS), tasks' boundaries included.
+        # multiple of JOB_EVAL_STEPS) and no master relaunch, tasks'
+        # boundaries included.
         windows = [(b[2] - a[2]) / (b[0] - a[0])
                    for a, b in zip(lines, lines[1:])
                    if not any(v % JOB_EVAL_STEPS == 0
+                              or v == JOB_RELAUNCH_VERSION
                               for v in range(a[0], b[0]))]
         step_ms = 1e3 * sum(windows) / len(windows) if windows else None
         model_s = inside.get("train_minibatch", 0.0) + inside.get(
             "evaluate_minibatch", 0.0)
         eval_batches = inside.get("evaluate_minibatch_calls", 0)
+        appends = jt.get("record_calls", 0)
+        kinds = [e["kind"] for e in events]
         result = {
             "phase": "job", "setup_s": setup_s, "wall_s": wall_s,
             "records_done": stats["records_done"], "steps": worker.steps,
@@ -1066,6 +1309,8 @@ def phase_job(direct):
             if step_ms else None,
             "train_phase_step_ms": direct["step_ms"],
             "train_phase_tokens_per_s": direct["tokens_per_s"],
+            "job_over_direct_step": step_ms / direct["step_ms"]
+            if step_ms else None,
             "train_minibatch_s": inside.get("train_minibatch"),
             "evaluate_minibatch_s": inside.get("evaluate_minibatch"),
             "host_share": 1.0 - model_s / wall_s,
@@ -1073,16 +1318,47 @@ def phase_job(direct):
             "launches": launches,
         }
         emit(result)
+        journal_result = {
+            "phase": "job_journal",
+            "journal_ops": appends,
+            "ms_per_fsynced_append": 1e3 * jt.get("record", 0.0) / appends
+            if appends else None,
+            "replay_ms": 1e3 * jt.get("load", 0.0) / max(
+                jt.get("load_calls", 0), 1),
+            "replays": jt.get("load_calls", 0),
+            "compaction_ms": 1e3 * jt.get("compact", 0.0) / max(
+                jt.get("compact_calls", 0), 1),
+            "compactions": jt.get("compact_calls", 0),
+            "wal_bytes_at_drop": relaunch.get("wal_bytes"),
+            "wal_bytes_at_end": wal_bytes,
+            "snapshot_bytes": relaunch.get("snapshot_bytes"),
+            "relaunch": {k: v for k, v in relaunch.items()
+                         if k not in ("wal_bytes", "snapshot_bytes")},
+            "drop_to_first_dispatch_ms": 1e3 * place.first_dispatch_s
+            if place.first_dispatch_s is not None else None,
+            "incarnation": status.master_incarnation,
+            "events": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "metrics_jsonl": [(x["group"], x["step"]) for x in metric_lines],
+            "aggregator_records_done": summary.get("records_done"),
+            "aggregator_roles": summary.get("roles_scraped"),
+            "advertised_roles": [advertised["role"]],
+            "api_summary_policy": served.get("policy", {}).get(
+                "actions_total"),
+            "policy_actions": policy_actions,
+            "alerts_fired": alerts_fired,
+        }
+        emit(journal_result)
         n_train = JOB_TRAIN_RECORDS // BATCH
         expected = {"flash_fwd_lse": cfg.n_layers * n_train,
                     "flash_dq": cfg.n_layers * n_train,
                     "flash_dkv": cfg.n_layers * n_train,
                     "flash_fwd": cfg.n_layers * eval_batches}
+        eval_versions = [JOB_EVAL_STEPS, 2 * JOB_EVAL_STEPS]
         checks = [
-            (master.task_d.finished() and not master.task_d.job_failed,
+            (successor.task_d.finished() and not successor.task_d.job_failed,
              "the job did not finish cleanly"),
-            (stats["records_done"] == JOB_TRAIN_RECORDS,
-             f"records_done {stats['records_done']}"),
+            (stats["records_done"] == status.records_done
+             == JOB_TRAIN_RECORDS, f"records_done {stats['records_done']}"),
             (worker.steps == n_train, f"{worker.steps} steps"),
             (eval_batches == 2 * JOB_VALID_RECORDS // BATCH,
              f"{eval_batches} eval minibatches"),
@@ -1091,9 +1367,34 @@ def phase_job(direct):
             (len(losses) == n_train // JOB_LOG_STEPS
              and all(math.isfinite(x) for x in losses)
              and losses[-1] < losses[0], f"logged losses {losses}"),
-            ([v for v, _ in evals] == [JOB_EVAL_STEPS, 2 * JOB_EVAL_STEPS]
+            ([v for v, _ in evals] == eval_versions
              and all(math.isfinite(m["token_ce"]) for _, m in evals),
              f"evaluation results {evals}"),
+            (successor is not master and relaunch.get("incarnation") == 1
+             and status.master_incarnation == 2
+             and successor.master_incarnation == 2,
+             f"incarnation {status.master_incarnation}"),
+            (len(relaunch.get("held_leases", ())) == 1
+             and relaunch["records_done"] == JOB_RECORDS_PER_TASK,
+             f"at the drop: {relaunch}"),
+            (kinds.count("master_recovered") == 1
+             and kinds.count("lease_reissued") == 1
+             and kinds.count("task_stale_lease") == 1,
+             f"event kinds {journal_result['events']}"),
+            (relaunch.get("stale_report") == {
+                "response_empty": True, "lease_kept": True,
+                "records_done": JOB_RECORDS_PER_TASK},
+             f"the stale-token report: {relaunch.get('stale_report')}"),
+            (retried == pb.Empty(), f"the retried report: {retried}"),
+            ([s for g, s in journal_result["metrics_jsonl"] if g == "eval"]
+             == eval_versions, f"metrics.jsonl {journal_result}"),
+            (summary.get("records_done") == JOB_TRAIN_RECORDS,
+             f"aggregator records_done {summary.get('records_done')}"),
+            (policy_actions == 0 and relaunch.get("policy_actions") == 0
+             and "policy_decision" not in kinds,
+             f"policy actions {policy_actions}"),
+            (alerts_fired == 0 and relaunch.get("alerts_fired") == 0
+             and "alert" not in kinds, f"alerts fired {alerts_fired}"),
         ]
         for ok, what in checks:
             if not ok:
@@ -2317,6 +2618,118 @@ def _zoo_job(root):
     return dict(result, checkpoint=round_trip)
 
 
+def _zoo_ps():
+    """ResNet-50 at 224x224 on ParameterServerTrainer with 2 in-process
+    shards (f32 wire, momentum on the PS), its BatchNorm statistics kept
+    and updated on the worker: the first batch against a direct
+    LocalTrainer step from the same weights and buffers, both with cudnn's
+    deterministic algorithms; then warm-up and timed steps."""
+    torch.cuda.empty_cache()
+    shards = [ParameterServer(i, ZOO_PS_SHARDS,
+                              optimizer_spec=resnet50.optimizer())
+              for i in range(ZOO_PS_SHARDS)]
+    client = PSClient([s.stub() for s in shards], worker_id=0,
+                      wire_dtype="float32")
+    trainer = ParameterServerTrainer(resnet50.custom_model(), resnet50.loss,
+                                     resnet50.optimizer(), client)
+    pushes = _record_pushes(client)
+    push_bytes = _count_push_bytes(client)
+    batches = [_zoo_images(ZOO_PS_BATCH, seed) for seed in (30, 31)]
+    trainer.init_variables_if_needed(batches[0][0])
+    named = {k: np.array(v) for k, v in
+             params_to_flax(trainer._model).items()}
+    stats0 = state_to_flax(trainer._model)
+
+    # The first batch, deterministic on both sides.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss = float(trainer.train_minibatch(*batches[0])[2])
+        trainer._flush_pushes()
+        stats1 = state_to_flax(trainer._model)
+        local = LocalTrainer(resnet50.custom_model(), resnet50.loss,
+                             resnet50.optimizer())
+        local.load_flax_params(named, stats0)
+        local_loss = float(local.train_minibatch(*batches[0])[2])
+        local_grads = {leaf.name: leaf.to_flax(leaf.param.grad).cpu()
+                       .numpy() for leaf in flax_leaves(local._model)}
+        local_stats = state_to_flax(local._model)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del local
+    torch.cuda.empty_cache()
+    dense = pushes[0][0]
+    scale = max(float(np.abs(g).max()) for g in local_grads.values())
+    grad_err = max(float(np.abs(np.asarray(dense[name], np.float64)
+                                - local_grads[name]).max())
+                   for name in local_grads) / scale
+    worst_tensor = max(_rel_err(dense[name], local_grads[name])
+                       for name in local_grads)
+    stats_err = max(_rel_err(stats1[k], local_stats[k]) for k in stats1)
+    loss_err = abs(loss - local_loss) / abs(local_loss)
+    moved = max(float(np.abs(stats1[k] - stats0[k]).max()) for k in stats1)
+
+    for i in range(ZOO_PS_WARMUP - 1):
+        trainer.train_minibatch(*batches[(i + 1) % 2])
+    trainer._flush_pushes()
+    torch.cuda.synchronize()
+    trainer.timing.reset()
+    bytes0, pushes0 = push_bytes["bytes"], push_bytes["pushes"]
+    start = time.perf_counter()
+    losses = [trainer.train_minibatch(*batches[i % 2])[2]
+              for i in range(ZOO_PS_STEPS)]
+    trainer._flush_pushes()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    losses = [float(x) for x in losses]
+    profiled = _ps_profile_step(trainer, batches[0])
+    stats_end = state_to_flax(trainer._model)
+    versions = [s.parameters.version for s in shards]
+    steps = ZOO_PS_WARMUP + ZOO_PS_STEPS + 1
+    result = {
+        "phase": "zoo_ps", "model": "resnet50", "batch": ZOO_PS_BATCH,
+        "image": ZOO_IMAGE, "shards": ZOO_PS_SHARDS, "wire": "float32",
+        "dense_params": sum(p.numel() for p in trainer._model.parameters()),
+        "batch_stats_tensors": len(stats_end),
+        "first_batch": {"loss": loss, "local_loss": local_loss,
+                        "loss_rel_err": loss_err,
+                        "grad_err_of_largest": grad_err,
+                        "worst_tensor_rel_err": worst_tensor,
+                        "batch_stats_rel_err": stats_err,
+                        "batch_stats_max_move": moved},
+        "steps": ZOO_PS_STEPS, "ms_per_step": 1e3 * elapsed / ZOO_PS_STEPS,
+        "img_per_s": ZOO_PS_BATCH * ZOO_PS_STEPS / elapsed,
+        "phase_ms_per_step": {
+            k: 1e3 * v["total_s"] / ZOO_PS_STEPS
+            for k, v in sorted(trainer.timing.summary().items())},
+        "push_payload_bytes_per_step": (push_bytes["bytes"] - bytes0)
+        / max(push_bytes["pushes"] - pushes0, 1),
+        "timed_losses": losses,
+        "profiled_step": profiled,
+        "pushes": len(pushes),
+        "all_accepted": all(accepted for _, _, accepted in pushes),
+        "ps_versions": versions,
+    }
+    emit(result)
+    trainer.close()
+    client.close()
+    checks = [
+        (loss_err <= ZOO_PS_LOSS_RTOL, f"first loss {loss} vs {local_loss}"),
+        (grad_err <= ZOO_PS_GRAD_RTOL, f"first gradients {grad_err}"),
+        (stats_err <= ZOO_PS_STATS_RTOL, f"first batch_stats {stats_err}"),
+        (moved > 0 and any(not np.array_equal(stats_end[k], stats1[k])
+                           for k in stats1), "batch_stats did not move"),
+        (result["all_accepted"] and len(pushes) == steps
+         and versions == [steps] * ZOO_PS_SHARDS,
+         f"{len(pushes)} pushes, versions {versions}"),
+        (all(math.isfinite(x) for x in losses), f"losses {losses}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"zoo_ps: {what}")
+    return result
+
+
 def _zoo_check_models(cls):
     """The float32 model on the CPU and on the card, and a float64 copy on
     the CPU, with the same weights: flax's initializers, then every
@@ -2599,6 +3012,7 @@ def phase_zoo():
     with tempfile.TemporaryDirectory() as root:
         results["resnet50_job"] = _zoo_job(root)
     torch.cuda.empty_cache()
+    results["resnet50_ps"] = _zoo_ps()
     for name, cls in (("resnet50", resnet50.ResNet50),
                       ("mobilenetv2", mobilenetv2.MobileNetV2)):
         results[f"{name}_card_vs_cpu"] = _zoo_card_vs_cpu(name, cls)

@@ -12,6 +12,7 @@ Stdlib-only, imports nothing from the package.
 
 import logging
 import os
+import tempfile
 
 _logger = logging.getLogger("elasticdl_tpu_torch.common.knobs")
 
@@ -188,3 +189,126 @@ declare("ELASTICDL_PREFETCH_CACHE_STALENESS", "int", 8,
 declare("ELASTICDL_PS_DEGRADED_BLOCK_SECONDS", "float", 20.0,
         "Budget for _sync_model's re-seed/backoff loop on a degraded PS "
         "shard before failing the minibatch up the retry ladder.")
+
+# -- observability setup, telemetry plane and flight recorder (observability/) --
+declare("ELASTICDL_ROLE", "str", "",
+        "This process's role stamp (master, ps-0, worker-3, ...); chaos "
+        "rules target processes by it.")
+declare("ELASTICDL_JOB_NAME", "str", "",
+        "Job name stamped into JSON log records and event logs; set by "
+        "the master for every spawned instance.")
+declare("ELASTICDL_OBS_DIR", "str", "",
+        "Directory for traces, the event log, and endpoint "
+        "advertisements; the master seeds it into every child process.")
+declare("ELASTICDL_METRICS_PORT", "int", 0,
+        "Port for the /metrics exporter; 0 binds an ephemeral port, "
+        "negative disables the endpoint.")
+declare("ELASTICDL_METRICS_HOST", "str", "",
+        "Bind address for the /metrics exporter (default 0.0.0.0); also "
+        "the advertised scrape host when it names a real interface.")
+declare("ELASTICDL_AGGREGATOR_INTERVAL", "float", 2.0,
+        "Master telemetry aggregator scrape period in seconds.")
+declare("ELASTICDL_ENDPOINT_STALE_SCRAPES", "int", 5,
+        "Consecutive scrape failures after which the master's "
+        "aggregator stops scraping an advertised endpoint (counted in "
+        "edl_job_endpoints_stale; a rewritten advertisement resets it).")
+declare("ELASTICDL_ALERT_STRAGGLER_SKEW", "float", 2.0,
+        "Straggler alert threshold: worker EWMA step latency over fleet "
+        "median.")
+declare("ELASTICDL_ALERT_PS_SKEW", "float", 3.0,
+        "PS load alert threshold: hottest shard byte rate over the mean "
+        "byte rate.")
+declare("ELASTICDL_ALERT_STALL_SECONDS", "float", 60.0,
+        "Stall alert: records_done frozen this long with tasks in "
+        "flight.")
+declare("ELASTICDL_ALERT_ABANDONED", "float", 1.0,
+        "Abandoned-task count threshold for the abandonment alert.")
+declare("ELASTICDL_ALERT_STARVE_SHARE", "float", 0.25,
+        "Input-starvation alert threshold: fraction of a worker's wall "
+        "time spent with the step blocked on an empty feed queue "
+        "(datapath `starve` stage rate).")
+declare("ELASTICDL_FLIGHTREC", "str", "auto",
+        "Crash-dump flight recorder: 0/false/off disables; anything "
+        "else arms it wherever observability.setup() runs (and in "
+        "bench runs).")
+declare("ELASTICDL_FLIGHTREC_CAPACITY", "int", 256,
+        "Ring capacity: how many recent spans the flight recorder "
+        "keeps in memory per process.")
+declare("ELASTICDL_FLIGHTREC_DIR", "str", "",
+        "Directory for flightrec-<role>.json dumps; empty falls back "
+        "to ELASTICDL_OBS_DIR, then the working directory.")
+
+# -- master heartbeat (common/heartbeat.py) --
+declare("ELASTICDL_HEARTBEAT_DIR", "str",
+        os.path.join(tempfile.gettempdir(), "elasticdl_heartbeats"),
+        "Directory where each master writes its <job>-<pid>.json "
+        "heartbeat (pid, pgid, ts); tools/reap_orphans.py kills process "
+        "groups whose heartbeat went stale. Empty disables the heartbeat. "
+        "The default lies in the temporary directory (TMPDIR), which is "
+        "the JAX package's /tmp where TMPDIR is unset.")
+declare("ELASTICDL_HEARTBEAT_SECONDS", "float", 10.0,
+        "Master heartbeat touch period in seconds; 0 disables.")
+
+# -- policy engine (master/policy.py) --
+declare("ELASTICDL_POLICY", "str", "",
+        "1/true enables the master's self-healing policy engine (the "
+        "control loop that blacklists stragglers, launches speculative "
+        "backup tasks, and scales on drain ETA). Unset/0 leaves the "
+        "loop off — detection-only, exactly the pre-policy behavior.")
+declare("ELASTICDL_POLICY_INTERVAL", "float", 2.0,
+        "Policy evaluation period in seconds (each tick reads the "
+        "aggregator summary and evaluates every rule once).")
+declare("ELASTICDL_POLICY_DRY_RUN", "str", "",
+        "1/true makes the policy engine evaluate rules and emit "
+        "policy_decision events with outcome=dry_run without actuating "
+        "anything — the rehearsal mode for tuning thresholds.")
+declare("ELASTICDL_POLICY_HYSTERESIS", "int", 3,
+        "Consecutive policy ticks a rule's condition must hold before "
+        "it fires (one clean tick resets the counter); the flap guard.")
+declare("ELASTICDL_POLICY_COOLDOWN_SECONDS", "float", 30.0,
+        "Per-(action, subject) cooldown: after an action applies, the "
+        "same action on the same subject is suppressed this long.")
+declare("ELASTICDL_POLICY_RATE_LIMIT", "int", 6,
+        "Global cap on applied policy actions per 60 s sliding window; "
+        "further decisions in the window land as outcome=rate_limited.")
+declare("ELASTICDL_POLICY_STRAGGLER_SCORE", "float", 3.0,
+        "Straggler-mitigation trigger: a worker whose aggregator "
+        "straggler_score (EWMA step latency over fleet median) stays "
+        "at or above this for the hysteresis window is blacklisted "
+        "and relaunched.")
+declare("ELASTICDL_POLICY_BLACKLIST_SECONDS", "float", 60.0,
+        "TTL of a dispatcher blacklist entry created by the straggler "
+        "rule; expiry re-admits the worker even if its relaunch never "
+        "completed (self-healing default).")
+declare("ELASTICDL_POLICY_MAX_BACKUPS", "int", 2,
+        "Upper bound on speculative backup task copies in flight at "
+        "once; 0 disables the backup-task rule.")
+declare("ELASTICDL_POLICY_BACKUP_FACTOR", "float", 3.0,
+        "Backup-task trigger: an in-flight training task whose elapsed "
+        "time exceeds this multiple of the recent mean task duration "
+        "gets a speculative second copy on a healthy worker.")
+declare("ELASTICDL_POLICY_SCALE_STEP", "int", 1,
+        "How many workers one drain-ETA scaling decision adds or "
+        "retires (the k in ±k).")
+declare("ELASTICDL_POLICY_MAX_WORKERS", "int", 0,
+        "Ceiling for policy-driven scale-up; 0 defaults to twice the "
+        "job's initial worker count.")
+declare("ELASTICDL_JOB_DEADLINE_SECONDS", "float", 0.0,
+        "Soft job deadline for the drain-ETA scaling rule: when the "
+        "aggregator's task-drain ETA overshoots the time remaining, "
+        "the policy engine asks the instance manager for more workers "
+        "(and retires them when far ahead). 0 disables the rule.")
+
+# -- master write-ahead journal (master/journal.py) --
+declare("ELASTICDL_MASTER_JOURNAL_DIR", "str", "",
+        "Directory for the master write-ahead journal + snapshots. Empty "
+        "disables journaling (state is process-local, as before the "
+        "survivable control plane).")
+declare("ELASTICDL_JOURNAL_SNAPSHOT_EVERY", "int", 512,
+        "Compact the master journal into a fresh snapshot after this many "
+        "appended ops (bounds replay time and WAL growth).")
+
+# -- chaos (chaos/injection.py) --
+declare("ELASTICDL_CHAOS", "str", "",
+        "JSON fault schedule injected into the rpc plane; set by drills, "
+        "absent in production.")

@@ -16,6 +16,7 @@ import sys
 import threading
 import time
 
+from elasticdl_tpu_torch.chaos import injection
 from elasticdl_tpu_torch.observability import datapath
 
 _END = object()
@@ -104,7 +105,11 @@ class PrefetchReader:
             try:
                 while True:
                     if dp.enabled:
+                        # The chaos hook sits INSIDE the timed window so
+                        # an injected slow reader shows up as `read`
+                        # seconds, exactly like a genuinely slow one.
                         start = time.time()
+                        injection.inject_local("datapath.read")
                         record = next(it, _END)
                         dp.add("read", time.time() - start)
                     else:

@@ -1,29 +1,50 @@
-"""The master's job assembly (counterpart of elasticdl_tpu/master/master.py:
-75-149, 241-247, 374-405): from master args, the model spec, the dataset
-shards, the task dispatcher, the evaluation service and the servicer; under
+"""The master's job assembly and lifecycle (counterpart of
+elasticdl_tpu/master/master.py:75-230, 374-510, 659-704): from master args,
+the observability plane (observability.setup as role "master"), the model
+spec, the dataset shards, the task dispatcher, the metrics service
+(`--metrics_dir`), the evaluation service and the servicer; under
 ParameterServerStrategy also `--num_ps` parameter-server shards, built in
 this process with the arguments the JAX master hands its PS processes, and
 the resume from a PS checkpoint (`--checkpoint_dir_for_init`: records the
 checkpoint already trained on are not dispatched again).
 
+The survivable control plane: with ELASTICDL_MASTER_JOURNAL_DIR set, the
+master replays the journal's snapshot and write-ahead log
+(master/journal.py) before it serves, restores the dispatcher's state and
+in-flight leases, bumps its incarnation and mirrors every mutation from
+then on. A master built over the journal of a dead one is its successor.
+
+The constructor brings the master to serving, as the JAX master's
+__init__ and prepare() do before it binds its port: the heartbeat, the
+telemetry aggregator (with an obs dir), the world-hint board, the policy
+engine (ELASTICDL_POLICY), the job context of the servicer, the snapshot on
+start, and after a replay the liveness grace of the leases' owners with the
+`master_recovered` and `lease_reissued` events. `prepare()` starts the
+threads (heartbeat, aggregator poll, policy loop); `stop()` takes it all
+down again, the observability plane the master set up included.
+
 A worker in the same process reaches the master through `stub()` and the
 shards through `ps_stubs()`, in-process stubs that cross the wire format on
 every call. `relaunch_ps(i)` replaces shard i with a fresh one behind the
 same stubs, as a relaunched PS pod comes back on the same address. Serving
-over gRPC, the poll loop and its watchdogs, the instance managers, the
-journal, the policy engine, the metrics service and observability setup
-come with the transport; the arguments that ask for them raise
-NotImplementedError.
+over gRPC, the poll loop and its watchdogs and the instance managers come
+with the transport; the arguments that ask for them raise
+NotImplementedError. Unlike the JAX master, this one leaves the process
+environment alone: it spawns no processes that would read
+ELASTICDL_OBS_DIR or ELASTICDL_JOB_NAME from it.
 """
 
 import sys
 
-from elasticdl_tpu_torch.common import rpc
+from elasticdl_tpu_torch import observability
+from elasticdl_tpu_torch.common import knobs, rpc
 from elasticdl_tpu_torch.common.constants import DistributionStrategy
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import get_model_spec
 from elasticdl_tpu_torch.data.reader import create_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.journal import open_master_journal
+from elasticdl_tpu_torch.master.metrics_service import MetricsService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.ps import checkpoint as ps_checkpoint
@@ -48,16 +69,16 @@ def _reject_unported(args):
             "instance managers are not ported to elasticdl_tpu_torch yet; "
             "use --instance_backend none and build workers in process"
         )
-    if args.metrics_dir:
-        raise NotImplementedError(
-            "the metrics service (--metrics_dir) is not ported yet"
-        )
 
 
 class Master:
     def __init__(self, args):
         _reject_unported(args)
         self.args = args
+        # The observability plane comes up FIRST so task creation and
+        # every later lifecycle transition land in the event log and the
+        # registry.
+        self.obs, self._owns_obs = _master_plane(args)
         if args.model_zoo:
             sys.path.insert(0, args.model_zoo)
         self.spec = get_model_spec(args.model_def)
@@ -92,6 +113,8 @@ class Master:
         if args.checkpoint_dir_for_init and training_shards:
             self._resume_from_ps_checkpoint(args)
 
+        self.metrics_service = (
+            MetricsService(args.metrics_dir) if args.metrics_dir else None)
         self.evaluation_service = None
         if evaluation_shards:
             self.evaluation_service = EvaluationService(
@@ -100,15 +123,30 @@ class Master:
                 if self.spec.eval_metrics_fn
                 else dict,
                 eval_steps=args.evaluation_steps,
+                on_results=(
+                    self.metrics_service.on_evaluation_results
+                    if self.metrics_service
+                    else None
+                ),
             )
         if args.output and training_shards:
             # Arm the final export task (a train-end callback task).
             self.task_d.enable_train_end_task()
+        self._open_journal()
         self.servicer = MasterServicer(
             self.task_d,
             self.evaluation_service,
             worker_liveness_timeout=args.worker_liveness_timeout_seconds,
         )
+        self._build_job_context()
+        if self.journal is not None:
+            # Snapshot-on-start, once every state provider is attached:
+            # fold the replayed (or fresh) state, the initial tasks
+            # included, into snapshot.json and truncate the WAL, so replay
+            # time is bounded by post-start activity only.
+            self.journal.compact()
+        if self._recovered_state is not None:
+            self._reissue_leases()
 
         self.ps_servers = []
         if args.distribution_strategy == DistributionStrategy.PARAMETER_SERVER:
@@ -116,6 +154,178 @@ class Master:
                 raise ValueError(
                     "ParameterServerStrategy requires --num_ps >= 1")
             self.ps_servers = [self._build_ps(i) for i in range(args.num_ps)]
+
+    def _open_journal(self):
+        """Replay snapshot+WAL (ELASTICDL_MASTER_JOURNAL_DIR), restore the
+        dispatcher's state, bump the incarnation, and mirror every mutation
+        from here on. All init-time dispatcher setup (task creation,
+        checkpoint fast-forward, train-end arming) happens BEFORE the
+        attach, so the WAL only ever holds post-start ops (the constructor
+        snapshots the merged state)."""
+        self.journal = open_master_journal()
+        self.master_incarnation = 1
+        self._recovered_state = None
+        self._recovered_leases = []
+        if self.journal is None:
+            return
+        state = self.journal.load()
+        # Every journaled master records its incarnation at startup, so a
+        # nonzero replayed incarnation means a previous life.
+        if state["incarnation"] > 0:
+            self._recovered_state = state
+            self.master_incarnation = state["incarnation"] + 1
+            self.task_d.restore_state(state)
+            self._recovered_leases = self.task_d.inflight_leases()
+            logger.warning(
+                "Master journal replayed: incarnation %d, records_done=%d, "
+                "%d in-flight leases restored, hint_seq=%d",
+                self.master_incarnation, state["records_done"],
+                len(self._recovered_leases), state["hint_seq"],
+            )
+        self.task_d.attach_journal(self.journal)
+        self.journal.add_state_provider(self.task_d.export_state)
+        self.journal.add_state_provider(
+            lambda: {"incarnation": self.master_incarnation})
+        self.journal.record({
+            "op": "incarnation", "value": self.master_incarnation,
+        })
+
+    def _build_job_context(self):
+        """What the JAX master's prepare() builds before it binds its
+        port, short of starting threads: the heartbeat, the telemetry
+        aggregator (with an obs dir), the world-hint board, the policy
+        engine (ELASTICDL_POLICY), their journaled state, and the
+        servicer's job context."""
+        from elasticdl_tpu_torch.common.heartbeat import HeartbeatWriter
+        from elasticdl_tpu_torch.master.policy import (
+            PolicyEngine,
+            WorldHintBoard,
+            policy_enabled,
+        )
+
+        self._heartbeat = HeartbeatWriter(job=self.args.job_name)
+        self.aggregator = None
+        self.policy = None
+        exporter = self.obs.exporter if self.obs is not None else None
+        if self.obs is not None and self.obs.obs_dir:
+            # Job-level telemetry: scrape every advertised per-role
+            # endpoint (in one process, the master's own registry, read in
+            # process), derive throughput/straggler/imbalance signals,
+            # re-export them as edl_job_* gauges + /api/summary, and run
+            # the alert rules.
+            from elasticdl_tpu_torch.observability.aggregator import (
+                TelemetryAggregator,
+            )
+
+            self.aggregator = TelemetryAggregator(
+                self.obs.obs_dir, job=self.args.job_name)
+            if exporter is not None:
+                exporter.summary_provider = self.aggregator.summary
+        recovered = self._recovered_state
+        self.world_hints = WorldHintBoard()
+        if self.journal is not None:
+            # hint_seq survives the restart: a board resuming from 0 would
+            # make trainers silently ignore every post-restart hint.
+            if recovered is not None:
+                self.world_hints.restore_state(recovered)
+            self.world_hints.attach_journal(self.journal)
+            self.journal.add_state_provider(self.world_hints.export_state)
+        if policy_enabled() and self.aggregator is not None:
+            # The closed loop: aggregator signals -> rules -> actuators
+            # (the dispatcher's blacklist and backup tasks; no instance
+            # manager in process).
+            self.policy = PolicyEngine(
+                self.aggregator.summary, self.task_d,
+                instance_manager=None, world_hints=self.world_hints)
+            if self.journal is not None:
+                # Resume without re-firing already-applied decisions:
+                # restored cooldowns keep them suppressed.
+                if recovered is not None:
+                    self.policy.restore_state(recovered)
+                self.policy.attach_journal(self.journal)
+                self.journal.add_state_provider(self.policy.export_state)
+            if exporter is not None:
+                exporter.summary_provider = self._summary
+        self.servicer.bind_job_context(
+            metrics_port=self.obs.metrics_port if self.obs else 0,
+            aggregator=self.aggregator,
+            policy=self.policy,
+            master_incarnation=self.master_incarnation,
+        )
+
+    def _reissue_leases(self):
+        """Re-lease trail: owners that reappear within the liveness window
+        keep their restored leases (seed_liveness grants the grace)."""
+        state = self._recovered_state
+        owners = sorted({wid for _, wid, _ in self._recovered_leases})
+        self.servicer.seed_liveness(owners)
+        observability.emit_event(
+            "master_recovered",
+            incarnation=self.master_incarnation,
+            records_done=state["records_done"],
+            leases=len(self._recovered_leases),
+            hint_seq=state["hint_seq"],
+            membership_epoch=state["membership_epoch"],
+        )
+        for tid, wid, task in self._recovered_leases:
+            observability.emit_event(
+                "lease_reissued", task_id=tid, worker=wid,
+                shard=task.shard_name, start=task.start, end=task.end,
+            )
+
+    def prepare(self):
+        """Starts the master's threads: the heartbeat, the telemetry
+        aggregator's poll and the policy engine's loop. The constructor
+        already did the rest of what the JAX master's prepare() does
+        before it binds its port, so stub() serves from construction on."""
+        self._heartbeat.start()
+        if self.aggregator is not None:
+            self.aggregator.start()
+        if self.policy is not None:
+            self.policy.start()
+        return self
+
+    def _summary(self):
+        """Aggregator summary with the policy plane merged in, so
+        /api/summary shows decisions next to signals."""
+        summary = self.aggregator.summary()
+        if self.policy is not None:
+            summary["policy"] = self.policy.summary()
+        return summary
+
+    def stop(self):
+        """Takes down what the constructor and prepare() started: the
+        heartbeat, the policy engine, the aggregator, the metrics service
+        (after a final train snapshot, so short jobs leave a record), the
+        journal (closed, not compacted) and the observability plane this
+        master set up."""
+        self._heartbeat.close()
+        if self.policy is not None:
+            self.policy.close()
+            self.policy = None
+        if self.aggregator is not None:
+            self.aggregator.close()
+            self.aggregator = None
+        if self.metrics_service is not None:
+            stats = self.task_d.stats()
+            self.metrics_service.log_scalars(
+                "train",
+                self.servicer.max_model_version,
+                {
+                    "records_done": stats["records_done"],
+                    "epoch": stats["epoch"],
+                    "todo_tasks": stats["todo"],
+                    "doing_tasks": stats["doing"],
+                },
+            )
+            self.metrics_service.close()
+            self.metrics_service = None
+        if self.journal is not None:
+            self.journal.close()
+            self.journal = None
+        if self._owns_obs:
+            self.obs.close()
+            self._owns_obs = False
 
     def _resume_from_ps_checkpoint(self, args):
         """Skip the records a PS checkpoint already trained on: the
@@ -172,6 +382,34 @@ class Master:
         self.ps_servers[ps_id] = self._build_ps(ps_id)
         logger.info("Relaunched PS shard %d", ps_id)
         return self.ps_servers[ps_id]
+
+
+def _master_plane(args):
+    """The master's observability plane -> (handle or None, owned).
+
+    `--metrics_dir` doubles as the obs dir, as in the JAX master, and
+    ELASTICDL_OBS_DIR stands in for it. A master with neither an obs dir
+    nor ELASTICDL_METRICS_PORT sets nothing up. A live plane over the
+    same obs dir (set up by the process hosting the job) is used as it is
+    and left to its owner. Any other live plane (one an earlier master of
+    this process left behind) is closed, and the master sets up its own:
+    role "master", its exporter on 127.0.0.1 unless ELASTICDL_METRICS_HOST
+    names another address (its scrapers live in this process), and the
+    flight recorder without signal handlers (the process's, not the
+    master's). stop() closes the plane the master set up."""
+    obs_dir = args.metrics_dir or knobs.get_str(observability.OBS_DIR_ENV)
+    if not obs_dir and not knobs.is_set(observability.METRICS_PORT_ENV):
+        return None, False
+    live = observability.current_handle()
+    if live is not None:
+        if live.obs_dir == obs_dir:
+            return live, False
+        live.close()
+    handle = observability.setup(
+        role="master", job=args.job_name, obs_dir=obs_dir,
+        arm_signals=False,
+        host=knobs.get_str("ELASTICDL_METRICS_HOST") or "127.0.0.1")
+    return handle, True
 
 
 class _ShardPlace:

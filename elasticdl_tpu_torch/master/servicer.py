@@ -4,15 +4,20 @@ and :255-320).
 Serves the worker-facing task protocol: task pulls (with WAIT when the
 queue is momentarily empty but the job is unfinished), batched pulls, task
 results, evaluation metric reports, model version reports (the evaluation
-trigger) and the job status. Method names match rpc.MASTER_SERVICE; each
-takes (request, context) as a gRPC handler does. The comm-rank, step-lease,
-liveness, telemetry, profile and world-hint methods come with the AllReduce,
-policy and observability slices.
+trigger) and the job status, with the job context the master binds once
+it is prepared (bind_job_context: the aggregator's stragglers and alerts,
+the policy's actions, the metrics port, the incarnation of a master
+replayed from its journal) and the liveness grace of a recovery
+(seed_liveness). Method names match rpc.MASTER_SERVICE; each takes
+(request, context) as a gRPC handler does. The comm-rank, step-lease,
+liveness, telemetry-push, profile and world-hint methods come with the
+AllReduce slice and the transport.
 """
 
 import threading
 import time
 
+from elasticdl_tpu_torch.chaos import injection
 from elasticdl_tpu_torch.common import tensor_utils
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.observability import tracing
@@ -37,10 +42,31 @@ class MasterServicer:
         # worker_id -> last-RPC wall time, for the liveness watchdog.
         self.worker_liveness = {}
         self.max_model_version = 0
-        # Monotonic master incarnation stamped into JobStatusResponse so
-        # clients can tell a restart from a stall. 1 = first life (a master
-        # without a journal never restarts into the same job).
+        # Bound after construction (master.prepare): the metrics endpoint,
+        # the aggregator and the policy engine exist only then.
+        self._metrics_port = 0
+        self._aggregator = None
+        self._policy = None
+        # Monotonic master incarnation (journal-recovered masters bump it)
+        # stamped into JobStatusResponse so clients and workers can tell a
+        # restart from a stall. 1 = first (or journal-less) life.
         self.master_incarnation = 1
+
+    def bind_job_context(
+        self,
+        metrics_port=0,
+        aggregator=None,
+        policy=None,
+        master_incarnation=None,
+    ):
+        """Late-bind job-status sources created after this servicer (the
+        JAX servicer's also takes the instance manager and the world-hint
+        board, which the port serves with its transport)."""
+        self._metrics_port = metrics_port
+        self._aggregator = aggregator
+        self._policy = policy
+        if master_incarnation is not None:
+            self.master_incarnation = master_incarnation
 
     def _touch(self, worker_id):
         with self._lock:
@@ -56,10 +82,24 @@ class MasterServicer:
         with self._lock:
             self.worker_liveness.pop(worker_id, None)
 
+    def seed_liveness(self, worker_ids):
+        """Grant recovery-time grace to workers that held journaled leases:
+        a reappearing owner's next call refreshes this stamp and keeps its
+        re-issued lease; one that never reappears ages out and the normal
+        watchdog sweeps its tasks back to the queue."""
+        now = time.time()
+        with self._lock:
+            for wid in worker_ids:
+                self.worker_liveness.setdefault(wid, now)
+
     # ---------- rpc methods (names match rpc.MASTER_SERVICE) ----------
 
     def get_task(self, request, context):
         self._touch(request.worker_id)
+        # Deterministic crash seam for the master-kill drill: a chaos
+        # "kill" rule on this point SIGKILLs the master at the Nth
+        # dispatch, BEFORE any lease is issued for this call.
+        injection.inject_local("master.dispatch")
         if request.task_type == pb.EVALUATION:
             task_id, task = self._task_d.get_eval_task(request.worker_id)
         else:
@@ -90,6 +130,7 @@ class MasterServicer:
         """Lease batching: up to max_tasks tasks in one call. An empty
         batch with finished=False is the WAIT analog."""
         self._touch(request.worker_id)
+        injection.inject_local("master.dispatch")
         leased = self._task_d.get_batch(
             request.worker_id, max(1, request.max_tasks)
         )
@@ -175,14 +216,22 @@ class MasterServicer:
             records_done=stats["records_done"],
             tasks_recovered=stats.get("tasks_recovered", 0),
             tasks_abandoned=stats.get("tasks_abandoned", 0),
+            metrics_port=self._metrics_port,
             master_incarnation=self.master_incarnation,
         )
-        # Policy plane: active blacklists, backup races.
+        if self._aggregator is not None:
+            # Straggler flags + alert count from the telemetry
+            # aggregator, so monitors see anomalies without scraping.
+            res.stragglers.extend(self._aggregator.stragglers())
+            res.alerts_fired = self._aggregator.alerts_fired()
+        # Policy plane: applied actions, active blacklists, backup races.
         res.policy_blacklisted.extend(
             f"worker-{wid}" for wid in stats.get("blacklisted", [])
         )
         res.backup_tasks_inflight = stats.get("backups_inflight", 0)
         res.backup_wins = stats.get("backup_wins", 0)
+        if self._policy is not None:
+            res.policy_actions = self._policy.actions_total()
         for wid, age in last_seen_ago.items():
             res.worker_last_seen_ago[wid] = age
         for wid, n in stats["doing_by_worker"].items():

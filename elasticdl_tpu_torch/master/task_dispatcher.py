@@ -8,8 +8,9 @@ worker's in-flight tasks are recovered; training tasks regenerate per epoch.
 This is what makes training elastic without checkpoint-restart — task
 assignment is the only distributed state, and it lives here.
 
-The write-ahead journal (attach_journal there) comes with the port of
-master/journal.py: until then `_journal` stays None and `_j` records nothing.
+Once a write-ahead journal is attached (attach_journal, master/journal.py),
+every mutation is mirrored into it through `_j` before the call returns;
+without one `_j` records nothing.
 """
 
 import collections
@@ -176,8 +177,8 @@ class TaskDispatcher:
         self._backup_wins = 0
         # Survivable control plane: monotonic lease tokens defend result
         # reports across a master restart, and every mutation below is
-        # mirrored into the write-ahead journal, once one is attached,
-        # BEFORE the RPC ack.
+        # mirrored into the attached write-ahead journal BEFORE the RPC
+        # ack (attach_journal). No journal attached -> zero overhead.
         self._journal = None
         self._next_lease_token = 0
         self._lease_tokens = {}  # task_id -> token, lives with _doing
@@ -192,6 +193,16 @@ class TaskDispatcher:
             self._create_tasks_locked(pb.PREDICTION)
 
     # ---------- journal plane ----------
+
+    def attach_journal(self, journal):
+        """Mirror every mutation into the write-ahead journal from now on.
+
+        Call AFTER construction-time setup (initial task creation,
+        set_completed_records fast-forward, restore_state): the caller
+        snapshots immediately after attaching, so the WAL only ever holds
+        post-start ops and replay never has to re-derive RNG shuffles."""
+        with self._lock:
+            self._journal = journal
 
     def _j(self, op):
         """Append one op to the journal (write-ahead: callers hold the

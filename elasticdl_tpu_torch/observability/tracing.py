@@ -11,7 +11,8 @@ when one interpreter hosts several roles.
 Trace context is a contextvar carrying (trace_id, span_id, job, task_id,
 lease_epoch); the worker re-keys it to each task, so every span of a task
 shares a trace id. Recording costs nothing until a recorder is installed
-(set_recorder).
+(set_recorder) or a span sink is added (add_sink, the flight recorder's
+feed).
 """
 
 import contextlib
@@ -26,6 +27,30 @@ import zlib
 _context = contextvars.ContextVar("edl_trace_context", default=None)
 
 _recorder = None
+
+# Secondary span consumers (the flight recorder). Sinks receive every
+# span the plane observes — (name, start_s, dur_s, cat, args) — even
+# when no file recorder is installed, and must be cheap + non-raising.
+_sinks = []
+
+
+def add_sink(sink):
+    if sink not in _sinks:
+        _sinks.append(sink)
+
+
+def remove_sink(sink):
+    if sink in _sinks:
+        _sinks.remove(sink)
+
+
+def _feed_sinks(name, start_s, dur_s, cat, args):
+    for sink in list(_sinks):
+        try:
+            sink(name, start_s, dur_s, cat, args)
+        except Exception:
+            pass
+
 
 class TraceContext:
     __slots__ = ("trace_id", "span_id", "job", "task_id", "lease_epoch")
@@ -196,25 +221,30 @@ def get_recorder():
 
 @contextlib.contextmanager
 def span(name, cat="edl", **args):
-    """Record a span around the with-body (no-op without a recorder; the
-    body's exceptions still propagate and the span still closes)."""
+    """Record a span around the with-body (no-op without a recorder or
+    sink; the body's exceptions still propagate and the span still
+    closes)."""
     rec = _recorder
-    if rec is None:
+    if rec is None and not _sinks:
         yield
         return
     start = time.time()
     try:
         yield
     finally:
-        rec.record(name, start, time.time() - start, cat=cat, args=args)
+        dur = time.time() - start
+        if rec is not None:
+            rec.record(name, start, dur, cat=cat, args=args)
+        _feed_sinks(name, start, dur, cat, args)
 
 
 def record_span(name, start_s, dur_s, cat="edl", args=None):
-    """Record an already-measured span, for callers that time the
-    interval themselves."""
+    """Record an already-measured span (recorder + sinks), for callers
+    that time the interval themselves."""
     rec = _recorder
     if rec is not None:
         rec.record(name, start_s, dur_s, cat=cat, args=args)
+    _feed_sinks(name, start_s, dur_s, cat, args)
 
 
 def instant(name, cat="edl", **args):

@@ -25,7 +25,10 @@ elasticdl_tpu/worker/ps_trainer.py:55-816).
   widening's backward) before they come down.
 
 Worker-side dense parameters are a cache of the PS state: the PS owns the
-model version. With model_steps > 1 the worker also advances its cached
+model version. Non-parameter state (the BatchNorm running statistics, torch
+buffers) is the worker's own, as every non-`params` collection is in the JAX
+trainer: the training forward of the PS step updates it, it never goes to
+the PS, and the export and worker checkpoints carry it as `batch_stats/...`. With model_steps > 1 the worker also advances its cached
 parameters through its own optimizer between pulls (the next pull
 overwrites that drift).
 
@@ -52,6 +55,7 @@ from elasticdl_tpu_torch.common.params import (
     flax_leaves,
     leaves_to_flax,
     params_to_flax,
+    state_to_flax,
 )
 from elasticdl_tpu_torch.common.rpc import RpcError
 from elasticdl_tpu_torch.common.timing import Timing
@@ -171,13 +175,6 @@ class ParameterServerTrainer(TorchTrainer):
         return tables
 
     def _materialize(self):
-        if any(True for _ in self._model.buffers()):
-            # The JAX PS trainer carries batch_stats through its step
-            # (elasticdl_tpu/worker/ps_trainer.py:505-517); the port's
-            # does not yet.
-            raise NotImplementedError(
-                "models with non-parameter state (BatchNorm batch_stats) "
-                "are not ported to ParameterServerStrategy yet")
         # Tables move before the model gets storage: a moved table never
         # has any.
         self._embedding_dims = self._place_tables()
@@ -598,7 +595,9 @@ class ParameterServerTrainer(TorchTrainer):
         """The final dense weights, pulled from the PS after the last push.
         Tables moved to the PS automatically come back into the stock
         model's parameters (model_handler.stuff_export_params); a
-        DistributedEmbedding's table stays in the PS."""
+        DistributedEmbedding's table stays in the PS. A model with buffers
+        adds the worker's "state" ({"batch_stats/<path>/mean" or "var"}),
+        as LocalTrainer.export_variables does."""
         if self._leaves is None:
             return None
         self._flush_pushes()
@@ -613,5 +612,9 @@ class ParameterServerTrainer(TorchTrainer):
                     ps_tables[table] = (ids, values)
             variables = model_handler.stuff_export_params(
                 variables, ps_tables, default_vocab=self._embedding_vocab)
-        return {"variables": variables, "opt_state": None, "rng": None,
-                "version": self._version}
+        exported = {"variables": variables, "opt_state": None, "rng": None,
+                    "version": self._version}
+        state = state_to_flax(self._model)
+        if state:
+            exported["state"] = state
+        return exported

@@ -11,6 +11,7 @@ import collections
 import itertools
 import time
 
+from elasticdl_tpu_torch.chaos import injection
 from elasticdl_tpu_torch.common import knobs
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.rpc import RpcError, StatusCode
@@ -204,6 +205,8 @@ class TaskDataService:
         it = iter(self._reader.read_records(task))
         while True:
             with dp.stage(wait_stage) as s:
+                if wait_stage == "read":
+                    injection.inject_local("datapath.read")
                 batch = list(itertools.islice(it, batch_size))
                 s.records = len(batch)
             if not batch:
@@ -218,6 +221,7 @@ class TaskDataService:
         as-is)."""
         dp = datapath.get()
         with dp.stage("read") as s:
+            injection.inject_local("datapath.read")
             records = list(self._reader.read_records(lease_range))
             s.records = len(records)
         return records

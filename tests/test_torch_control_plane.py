@@ -439,3 +439,350 @@ def test_checkpoints_restore_across_packages(tmp_path, jax_job):
     with np.load(tmp_path / "export.npz") as data:
         assert not any(k.startswith("__opt__") for k in data.files)
         assert "params/lm_head/kernel" in data.files
+
+
+# ---------- (f) the master relaunched from its journal ----------
+
+
+_TINY_DEF = """\
+from elasticdl_tpu_torch.models.transformer import transformer_lm as _lm
+from elasticdl_tpu_torch.models.transformer.transformer_lm import (  # noqa
+    eval_metrics_fn, feed, loss, optimizer,
+)
+
+
+def custom_model():
+    return _lm.custom_model(_lm.LMConfig(**{tiny!r}))
+"""
+
+
+class _MasterPlace:
+    """The servicer at the master's place, in one process: hands each call
+    to whichever Master holds the place now (a relaunched master comes
+    back on the same address), and records the traffic."""
+
+    def __init__(self, master):
+        self.master = master
+        self.traffic = []  # (method, request bytes, response bytes)
+
+    def __getattr__(self, method):
+        handler = getattr(self.master.servicer, method)
+
+        def call(request, context):
+            response = handler(request, context)
+            self.traffic.append((method, request.SerializeToString(),
+                                 response.SerializeToString()))
+            return response
+
+        return call
+
+
+def _crash(master):
+    """What a SIGKILL leaves of a master: its threads and its
+    observability plane gone, its journal closed without a final
+    compaction, nothing else flushed."""
+    for part in (master._heartbeat, master.policy, master.aggregator):
+        if part is not None:
+            part.close()
+    master.journal.close()
+    if getattr(master, "_owns_obs", False):  # the JAX master's is global
+        master.obs.close()
+
+
+def _relaunch_env(monkeypatch):
+    """No endpoint, flight recorder, heartbeat or memory sampler (none
+    is under test here), an aggregator that polls once, and no
+    TensorBoard writer (the JSONL stream is the metrics service's record
+    of truth in both packages)."""
+    from elasticdl_tpu.master import metrics_service as jax_metrics_service
+    from elasticdl_tpu_torch.master import metrics_service
+
+    for name, value in (("ELASTICDL_METRICS_PORT", "-1"),
+                        ("ELASTICDL_FLIGHTREC", "0"),
+                        ("ELASTICDL_HEARTBEAT_SECONDS", "0"),
+                        ("ELASTICDL_MEM_SAMPLE_SECONDS", "0"),
+                        ("ELASTICDL_AGGREGATOR_INTERVAL", "3600"),
+                        ("ELASTICDL_OBS_DIR", ""),
+                        ("ELASTICDL_JOB_NAME", "relaunch")):
+        monkeypatch.setenv(name, value)
+    for mod in (metrics_service, jax_metrics_service):
+        monkeypatch.setattr(mod, "_make_summary_writer", lambda d: None)
+
+
+def _relaunch_argv(tmp_path, model_def):
+    from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
+
+    train, valid = _lm_records()
+    paths = {}
+    for name, records in (("train", train), ("valid", valid)):
+        paths[name] = str(tmp_path / f"{name}.edlr")
+        with RecordFileWriter(paths[name]) as writer:
+            for record in records:
+                writer.write(record)
+    return ["--model_def", model_def, "--distribution_strategy", "Local",
+            "--training_data", paths["train"],
+            "--validation_data", paths["valid"],
+            "--records_per_task", "8", "--num_epochs", "1",
+            "--minibatch_size", "2", "--evaluation_steps", "4",
+            "--seed", "0", "--job_name", "relaunch"]
+
+
+def _events(path):
+    import json
+
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_master_relaunched_from_its_journal_mid_task(tmp_path, monkeypatch):
+    """The tiny LM as a job through the port's master, with its journal:
+    the master is dropped while the worker holds a lease (after minibatch 2
+    of 4 of training task 2) and a successor is built over the same
+    journal directory. It replays to incarnation 2, restores the lease and
+    the owner's liveness, accepts the straddling report once by its lease
+    token (a retried copy is discarded), and finishes with records_done
+    exact, every evaluation in metrics.jsonl. The same stub traffic, fed
+    to the JAX package's master relaunched at the same call, gets the same
+    answers byte for byte."""
+    import json
+
+    import elasticdl_tpu.observability as jax_observability
+    from elasticdl_tpu.common import args as jax_args
+    from elasticdl_tpu.common import rpc as jax_rpc
+    from elasticdl_tpu.master import master as jax_master_mod
+    from elasticdl_tpu_torch.common import args as edl_args
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.worker.main import build_worker
+
+    _relaunch_env(monkeypatch)
+    # The JAX package's plane is process-global and kept by the first
+    # master that sets it up: one left by an earlier JAX master of this
+    # process would keep this job's events elsewhere.
+    stale = jax_observability.current_handle()
+    if stale is not None:
+        stale.close()
+    model_def = tmp_path / "tiny_lm_def.py"
+    model_def.write_text(_TINY_DEF.format(tiny=TINY))
+    common = _relaunch_argv(tmp_path, str(model_def))
+
+    def master_args(parser_mod, name):
+        args = parser_mod.master_parser().parse_args(common + [
+            "--instance_backend", "none", "--master_port", "0",
+            "--metrics_dir", str(tmp_path / name / "metrics")])
+        parser_mod.validate_args(args)
+        return args
+
+    monkeypatch.setenv("ELASTICDL_MASTER_JOURNAL_DIR",
+                       str(tmp_path / "port" / "journal"))
+    place = _MasterPlace(Master(master_args(edl_args, "port")))
+    first = place.master
+    assert first.master_incarnation == 1
+    worker_args = edl_args.worker_parser().parse_args(common + [
+        "--worker_id", "0", "--master_addr", "in-process",
+        "--job_type", "training_with_evaluation"])
+    worker = build_worker(
+        worker_args,
+        MasterClient(rpc.InProcessStub(place, rpc.MASTER_SERVICE), 0),
+        device="cpu")
+    step = worker.trainer.train_minibatch
+    relaunch_at, held = [], []
+
+    def train_minibatch(features, labels):
+        result = step(features, labels)
+        if result[1] == 6:  # minibatch 2 of 4 of training task 2
+            held.extend((wid, task.start, task.end) for _, wid, task in
+                        first.task_d.inflight_leases())
+            _crash(first)
+            relaunch_at.append(len(place.traffic))
+            place.master = Master(master_args(edl_args, "port"))
+            # The lease's owner has its liveness seeded (its grace window).
+            assert list(place.master.servicer.snapshot_liveness()) == [0]
+            (tid, wid, _), = place.master.task_d.inflight_leases()
+            assert wid == 0
+            # A report for the held task under another lease's token (the
+            # worker's previous one) is acknowledged and discarded: the
+            # restored lease keeps the task and its accounting.
+            token = place.master.task_d.lease_token(tid)
+            stub = rpc.InProcessStub(place, rpc.MASTER_SERVICE)
+            assert stub.report_task_result(pb.ReportTaskResultRequest(
+                task_id=tid, lease_token=token - 1)) == pb.Empty()
+            assert place.master.task_d.lease_token(tid) == token
+            assert place.master.task_d.stats()["records_done"] == 8
+        return result
+
+    worker.trainer.train_minibatch = train_minibatch
+    worker.run()
+    successor = place.master
+    assert relaunch_at and successor is not first
+    assert successor.master_incarnation == 2
+    # The straddling report: task 2's, leased from the first master and
+    # reported by the worker to the successor (after the stale-token one
+    # above). A retried copy of it reaches the successor and is discarded.
+    reports = [i for i, (method, _, _) in enumerate(place.traffic)
+               if method == "report_task_result" and i > relaunch_at[0]]
+    straddling = place.traffic[reports[1]]
+    stub = rpc.InProcessStub(place, rpc.MASTER_SERVICE)
+    assert stub.report_task_result(pb.ReportTaskResultRequest.FromString(
+        straddling[1])) == pb.Empty()
+    status = stub.get_job_status(pb.GetJobStatusRequest())
+    stats = successor.task_d.stats()
+    assert stats["records_done"] == status.records_done == 24
+    assert status.master_incarnation == 2 and status.finished
+    assert successor.task_d.finished() and not successor.task_d.job_failed
+    assert worker.steps == 12
+    # Versions reach the master after each training task (4, 8, 12): the
+    # first master evaluates at 4, the successor at 8 and 12.
+    assert [v for v, _ in first.evaluation_service.completed_results] == [4]
+    evals = successor.evaluation_service.completed_results
+    assert [v for v, _ in evals] == [8, 12]
+    successor.stop()
+
+    events = _events(str(tmp_path / "port" / "metrics" / "events.jsonl"))
+    recovered = [e for e in events if e["kind"] == "master_recovered"]
+    reissued = [e for e in events if e["kind"] == "lease_reissued"]
+    assert [(e["incarnation"], e["records_done"], e["leases"])
+            for e in recovered] == [(2, 8, 1)]
+    assert len(held) == 1 and held[0][0] == 0  # the worker's one lease
+    assert [(e["worker"], e["start"], e["end"]) for e in reissued] == held
+    stale = [e for e in events if e["kind"] == "task_stale_lease"]
+    assert [(e["task_id"], e["expected"] - e["token"]) for e in stale] == [
+        (reissued[0]["task_id"], 1)]
+    lines = [json.loads(line) for line in open(
+        tmp_path / "port" / "metrics" / "metrics.jsonl")]
+    assert [(x["group"], x["step"]) for x in lines] == [
+        ("eval", 4), ("eval", 8), ("eval", 12), ("train", 12)]
+
+    # The JAX package's master on the same traffic, relaunched at the same
+    # call (its gRPC port never binds: the calls come from the record).
+    monkeypatch.setattr(jax_rpc, "serve", lambda *a, **kw: (None, 0))
+    monkeypatch.setenv("ELASTICDL_MASTER_JOURNAL_DIR",
+                       str(tmp_path / "jax" / "journal"))
+    jargs = master_args(jax_args, "jax")
+    jargs.model_def = "elasticdl_tpu.models.transformer.transformer_lm"
+    jmaster = jax_master_mod.Master(jargs)
+    jmaster.prepare()
+    for i, (method, request, response) in enumerate(place.traffic):
+        if i == relaunch_at[0]:
+            _crash(jmaster)
+            jmaster = jax_master_mod.Master(jargs)
+            jmaster.prepare()
+            assert jmaster.master_incarnation == 2
+        req_cls = jax_rpc.MASTER_SERVICE.methods[method][0]
+        got = getattr(jmaster.servicer, method)(
+            req_cls.FromString(request), None)
+        if method == "get_job_status":
+            assert got.master_incarnation == 2
+            assert got.records_done == 24 and got.finished
+        else:
+            assert got.SerializeToString() == response, (i, method)
+    jevals = jmaster.evaluation_service.completed_results
+    assert [v for v, _ in jevals] == [8, 12]
+    for (_, ours), (_, theirs) in zip(evals, jevals):
+        assert abs(ours["token_ce"] - theirs["token_ce"]) < EVAL_ATOL
+    jmaster.stop()
+    jevents = _events(str(tmp_path / "jax" / "metrics" / "events.jsonl"))
+    for kind in ("master_recovered", "lease_reissued", "task_stale_lease"):
+        strip = ("ts", "seq", "pid", "job", "role", "host")
+        assert [{k: v for k, v in e.items() if k not in strip}
+                for e in jevents if e["kind"] == kind] == [
+            {k: v for k, v in e.items() if k not in strip}
+            for e in events if e["kind"] == kind]
+
+
+def test_journaled_master_serves_before_prepare_and_relaunches(
+        tmp_path, monkeypatch):
+    """A journaled master serves from construction on: its constructor
+    snapshots the initial tasks, so a master that never ran prepare() and
+    is dropped with a lease out leaves a journal its successor finishes
+    the job from, every record counted once."""
+    from elasticdl_tpu_torch.common import args as edl_args
+    from elasticdl_tpu_torch.master.journal import SNAPSHOT_NAME
+    from elasticdl_tpu_torch.master.master import Master
+
+    _relaunch_env(monkeypatch)
+    journal_dir = tmp_path / "journal"
+    monkeypatch.setenv("ELASTICDL_MASTER_JOURNAL_DIR", str(journal_dir))
+    model_def = tmp_path / "tiny_lm_def.py"
+    model_def.write_text(_TINY_DEF.format(tiny=TINY))
+    args = edl_args.master_parser().parse_args(
+        _relaunch_argv(tmp_path, str(model_def))
+        + ["--instance_backend", "none", "--master_port", "0"])
+    edl_args.validate_args(args)
+
+    def lease(stub):
+        task = stub.get_task(pb.GetTaskRequest(worker_id=0))
+        assert task.type == pb.TRAINING
+        return task
+
+    def report(stub, task):
+        stub.report_task_result(pb.ReportTaskResultRequest(
+            task_id=task.task_id, lease_token=task.lease_token))
+
+    first = Master(args)
+    assert (journal_dir / SNAPSHOT_NAME).exists()
+    stub = first.stub()
+    report(stub, lease(stub))
+    held = lease(stub)
+    _crash(first)
+
+    successor = Master(args)
+    assert successor.master_incarnation == 2
+    assert [(tid, wid) for tid, wid, _ in
+            successor.task_d.inflight_leases()] == [(held.task_id, 0)]
+    stub = successor.stub()
+    report(stub, held)
+    report(stub, lease(stub))
+    done = stub.get_task(pb.GetTaskRequest(worker_id=0))
+    assert done.task_id == -1 and done.type != pb.WAIT
+    assert successor.task_d.stats()["records_done"] == 24
+    assert successor.task_d.finished()
+    successor.stop()
+
+
+def test_master_owns_its_observability_plane(tmp_path, monkeypatch):
+    """A master with an obs dir sets up its own plane (the exporter on
+    127.0.0.1, the flight recorder without signal handlers), replaces a
+    plane an earlier master of the process left over another obs dir, and
+    closes its plane in stop(). A master with neither an obs dir nor a
+    metrics port sets nothing up."""
+    import json
+    import signal
+
+    from elasticdl_tpu_torch import observability
+    from elasticdl_tpu_torch.common import args as edl_args
+    from elasticdl_tpu_torch.master.master import Master
+
+    _relaunch_env(monkeypatch)
+    monkeypatch.setenv("ELASTICDL_METRICS_PORT", "0")
+    monkeypatch.setenv("ELASTICDL_FLIGHTREC", "1")
+    model_def = tmp_path / "tiny_lm_def.py"
+    model_def.write_text(_TINY_DEF.format(tiny=TINY))
+    common = _relaunch_argv(tmp_path, str(model_def)) + [
+        "--instance_backend", "none", "--master_port", "0"]
+
+    def build(*extra):
+        args = edl_args.master_parser().parse_args(common + list(extra))
+        edl_args.validate_args(args)
+        return Master(args)
+
+    sigterm = signal.getsignal(signal.SIGTERM)
+    left = build("--metrics_dir", str(tmp_path / "a"))
+    assert observability.current_handle() is left.obs
+    assert left.obs.exporter._server.server_address[0] == "127.0.0.1"
+    assert left.obs.flight is not None
+    assert signal.getsignal(signal.SIGTERM) is sigterm
+    with open(tmp_path / "a" / "endpoints" / "master.json") as f:
+        assert json.load(f)["host"] == "127.0.0.1"
+
+    master = build("--metrics_dir", str(tmp_path / "b"))
+    assert observability.current_handle() is master.obs is not left.obs
+    assert left.obs.exporter._server.fileno() == -1  # closed
+    assert master.obs.obs_dir == str(tmp_path / "b")
+    master.stop()
+    assert observability.current_handle() is None
+    assert not (tmp_path / "b" / "endpoints" / "master.json").exists()
+
+    monkeypatch.delenv("ELASTICDL_METRICS_PORT")
+    bare = build()
+    assert bare.obs is None and observability.current_handle() is None
+    bare.stop()

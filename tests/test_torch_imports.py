@@ -1,7 +1,8 @@
 """The port stands alone: every module of elasticdl_tpu_torch (and
 chip_smoke.py) imports with jax, flax, optax, grpc, google.protobuf and
 ml_dtypes blocked (none is on the card's machine) and loads nothing of the
-JAX package."""
+JAX package; the control-plane modules among them (the journal, the policy
+engine, the telemetry plane, the chaos seams) import without grpc."""
 
 import os
 import pkgutil
@@ -53,7 +54,14 @@ def test_port_imports_with_jax_blocked():
                  "preprocessing.analyzer_utils",
                  "preprocessing.feature_column",
                  "models.census_fc.wide_deep_fc", "models.deepctr.wdl",
-                 "data.gen.criteo_tsv"):
+                 "data.gen.criteo_tsv", "master.journal",
+                 "master.metrics_service", "master.policy",
+                 "common.heartbeat", "chaos", "chaos.injection",
+                 "observability.promtext", "observability.exporter",
+                 "observability.push", "observability.alerts",
+                 "observability.aggregator", "observability.flightrec",
+                 "observability.dashboard",
+                 "worker.prediction_outputs_processor"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],

@@ -6,6 +6,7 @@ jobs through its Master (records exact, a shard relaunched mid-job), the
 pipelined path's invariants, the bfloat16 and int8 wires, and automatic
 table placement."""
 
+import functools
 import os
 
 import jax
@@ -25,7 +26,7 @@ from elasticdl_tpu.worker.ps_trainer import (
     ParameterServerTrainer as JaxPSTrainer,
 )
 from elasticdl_tpu_torch.common import args as edl_args
-from elasticdl_tpu_torch.common import rpc, tensor_utils
+from elasticdl_tpu_torch.common import rpc, save_utils, tensor_utils
 from elasticdl_tpu_torch.common.model_utils import get_model_spec
 from elasticdl_tpu_torch.data.gen.criteo import iter_criteo_records
 from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
@@ -50,6 +51,7 @@ BATCH = 64
 # the largest magnitude compared.
 LOSS_ATOL = 1e-6
 GRAD_RTOL = 1e-5
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 
 @pytest.fixture(autouse=True)
@@ -104,6 +106,11 @@ def three_steps():
             j_client, embedding_inputs=j_spec.module.embedding_inputs,
             pipeline_pushes=False, prefetch_overlap=False)
         j_pushes = _capture_pushes(j_client)
+        j_pulls = []
+        _jp = j_client.pull_dense_parameters
+        def _jpull(*a, **k):
+            r = _jp(*a, **k); j_pulls.append({n: np.array(v) for n, v in r[2].items()}); return r
+        j_client.pull_dense_parameters = _jpull
         j_trainer.init_variables_if_needed(batches[0][0])
         named, _ = flatten_params(jax.device_get(
             j_trainer._variables["params"]))
@@ -590,3 +597,161 @@ def test_sync_mode_stale_push_is_rejected_then_recomputed():
     assert accepted and version == 3
     assert outcomes == [True, True, False, True]
     assert [s.parameters.version for s in shards] == [3, 3]
+
+
+# ---------- BatchNorm state under the PS trainer ----------
+
+
+def _nest_flax(named):
+    tree = {}
+    for name, value in named.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+class _JittedInit:
+    """A flax module whose init runs as one jitted call (eagerly it
+    compiles every initializer on its own, seconds on the CPU)."""
+
+    def __init__(self, module):
+        self._module = module
+
+    def init(self, rngs, features, training=False):
+        return jax.jit(functools.partial(
+            self._module.init, training=training))(rngs, features)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+def _float64_gradients(model_cls, state, named, loss, features, labels):
+    """The training-mode gradients of a float64 copy of the model at the
+    given buffers (`state`, a state_dict) and flax-named weights, in flax
+    layout."""
+    from elasticdl_tpu_torch.common.params import flax_leaves, load_flax
+
+    model = model_cls()
+    model.load_state_dict(state)
+    load_flax(model, named)
+    model = model.double().train()
+    loss(torch.from_numpy(labels),
+         model(torch.from_numpy(features).double())).backward()
+    return {leaf.name: leaf.to_flax(leaf.param.grad).numpy()
+            for leaf in flax_leaves(model)}
+
+
+def test_mnist_batch_stats_under_ps_match_jax(tmp_path, monkeypatch):
+    """MNIST (BatchNorm after the convs) through each package's PS trainer
+    on two shards, from the same weights, three inline steps. The worker's
+    batch_stats after each step agree with the JAX trainer's within 1e-5,
+    and the first push's dense gradients within 1e-5 of its largest value.
+    Later pushes start from each package's own PS weights (one float32
+    rounding apart), where XLA's CPU gradients lie up to 3e-5 of the push's
+    largest value from a float64 evaluation: there the port is held to
+    1e-5 of that float64 evaluation at its own weights, and to 1e-4 of the
+    JAX push. The port's PS export carries batch_stats and, loaded into the
+    JAX model, gives the port's eval logits."""
+    from elasticdl_tpu.models.mnist import mnist_model as jmnist
+    from elasticdl_tpu_torch.common.params import state_to_flax
+    from elasticdl_tpu_torch.models.mnist import mnist_model
+
+    rng = np.random.default_rng(7)
+    batches = [(rng.random((4, 28, 28), dtype=np.float32),
+                rng.integers(0, 10, size=4).astype(np.int64))
+               for _ in range(3)]
+    # The JAX trainer's steps compile with XLA's backend at optimization
+    # level 0: the same IEEE arithmetic, compiled in a fraction of the time.
+    monkeypatch.setattr(jax, "jit", functools.partial(
+        jax.jit, compiler_options=FAST_COMPILE))
+    opt = jmnist.optimizer()
+    servers = [JaxParameterServer(i, 2, optimizer_spec=opt)
+               for i in range(2)]
+    try:
+        j_client = JaxPSClient([s.addr for s in servers], worker_id=0,
+                               wire_dtype="float32")
+        j_trainer = JaxPSTrainer(
+            _JittedInit(jmnist.custom_model()), jmnist.loss, opt, j_client,
+            embedding_inputs=lambda features: {}, pipeline_pushes=False,
+            prefetch_overlap=False)
+        j_pushes = _capture_pushes(j_client)
+        j_trainer.init_variables_if_needed(batches[0][0])
+        named = {k: np.asarray(v) for k, v in flatten_params(
+            jax.device_get(j_trainer._variables["params"]))[0].items()}
+        j_stats = []
+        for f, lab in batches:
+            j_trainer.train_minibatch(f, lab)
+            j_stats.append({f"batch_stats/{k}": np.asarray(v) for k, v in
+                            flatten_params(jax.device_get(
+                                j_trainer._variables["batch_stats"]))[0]
+                            .items()})
+        j_client.close()
+    finally:
+        for s in servers:
+            s.stop()
+
+    shards = [ParameterServer(i, 2, optimizer_spec=mnist_model.optimizer())
+              for i in range(2)]
+    client = PSClient([s.stub() for s in shards], worker_id=0,
+                      wire_dtype="float32")
+    trainer = ParameterServerTrainer(
+        mnist_model.custom_model(), mnist_model.loss,
+        mnist_model.optimizer(), client, pipeline_pushes=False,
+        prefetch_overlap=False, device="cpu")
+    pushes = _capture_pushes(client)
+    pulls = []
+    pull = client.pull_dense_parameters
+
+    def capture_pull(*args, **kw):
+        result = pull(*args, **kw)
+        pulls.append({k: np.array(v) for k, v in result[2].items()})
+        return result
+
+    client.pull_dense_parameters = capture_pull
+    trainer.load_flax_params(named)
+    for step, (f, lab) in enumerate(batches):
+        before = {k: v.clone() for k, v in
+                  trainer._model.state_dict().items()}
+        assert trainer.train_minibatch(f, lab)[0]
+        stats = state_to_flax(trainer._model)
+        assert sorted(stats) == sorted(j_stats[step]) == [
+            "batch_stats/BatchNorm_0/mean", "batch_stats/BatchNorm_0/var"]
+        for name, value in stats.items():
+            _close(value, j_stats[step][name], what=f"{name} step {step}")
+        dense, j_dense = pushes[step][0], j_pushes[step][0]
+        assert sorted(dense) == sorted(j_dense) == sorted(named)
+        # Relative to the push's largest gradient: a BatchNorm scale's
+        # gradient sums thousands of products that cancel, so its float32
+        # rounding is relative to the push, not to itself.
+        scale = max(float(np.abs(g).max()) for g in j_dense.values())
+        if step == 0:
+            refs = [(j_dense, GRAD_RTOL)]
+        else:
+            exact = _float64_gradients(
+                mnist_model.MnistCNN, before, pulls[-1], mnist_model.loss,
+                f, lab)
+            refs = [(exact, GRAD_RTOL), (j_dense, 10 * GRAD_RTOL)]
+        for ref, rtol in refs:
+            for name in dense:
+                err = float(np.abs(dense[name] - ref[name]).max())
+                assert err <= rtol * scale, (name, step, err, scale)
+    exported = trainer.export_variables()
+    assert exported["state"].keys() == j_stats[-1].keys()
+    for name, value in exported["state"].items():
+        np.testing.assert_array_equal(value, stats[name])
+    # A worker checkpoint of the PS trainer carries them as well.
+    save_utils.save_trainer_checkpoint(trainer, str(tmp_path / "ckpt"))
+    with np.load(tmp_path / "ckpt.npz") as data:
+        for name, value in stats.items():
+            np.testing.assert_array_equal(data[name], value)
+    want = trainer.evaluate_minibatch(batches[0][0])
+    variables = {
+        "params": _nest_flax(exported["variables"]),
+        "batch_stats": _nest_flax({k[len("batch_stats/"):]: v for k, v in
+                                   exported["state"].items()})}
+    got = jax.jit(jmnist.custom_model().apply)(variables, batches[0][0])
+    _close(got, want, what="eval logits of the export in the JAX model")
+    client.close()

@@ -398,14 +398,26 @@ def test_deepfm_distributed_trains_on_two_ps_shards(tmp_path):
         assert server.parameters.version == 24
 
 
-def test_ps_trainer_refuses_batchnorm_state():
-    """BatchNorm state under ParameterServerStrategy is not ported: the PS
-    trainer refuses such a model at its first batch instead of training
-    without its running statistics."""
+def test_ps_trainer_trains_batchnorm_state():
+    """BatchNorm state under ParameterServerStrategy: the PS trainer keeps
+    a model's running statistics on the worker, updates them in the PS
+    step, leaves them out of the pushed gradients, and exports them
+    (tests/test_torch_ps_trainer.py holds them against the JAX
+    trainer)."""
+    from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
+
+    shard = ParameterServer(0, 1, optimizer_spec=cifar10_cnn.optimizer())
+    client = PSClient([shard.stub()])
     trainer = ParameterServerTrainer(
         cifar10_cnn.custom_model(), cifar10_cnn.loss,
-        cifar10_cnn.optimizer(), PSClient([None]), device="cpu")
+        cifar10_cnn.optimizer(), client, pipeline_pushes=False,
+        device="cpu")
     features, labels = cifar10_cnn.feed(_images(2, (32, 32, 3), 5),
                                         "training", None)
-    with pytest.raises(NotImplementedError, match="batch_stats"):
-        trainer.train_minibatch(features, labels)
+    assert trainer.train_minibatch(features, labels)[0]
+    state = trainer.export_variables()["state"]
+    assert len(state) == 12
+    assert np.abs(state["batch_stats/BatchNorm_0/mean"]).max() > 0
+    assert not any(k.startswith("batch_stats") or "mean" in k
+                   for k in shard.parameters.dense)
+    client.close()
