@@ -112,7 +112,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    job through Master with ParameterServerStrategy and 2 shards, its model
    spec without embedding_inputs: tok_emb and pos_emb move to the PS and
    the ids feed is derived. One job on the float32 wire and one on the
-   int8 wire, 6 steps each: records_done exact, every push accepted,
+   int8 wire, 4 steps each: records_done exact, every push accepted,
    losses falling, exact flash-attention launch counts (12 forward
    launches come from the capture forward that derives the feed); the
    export loaded into a stock TransformerLM gives the PS trainer's logits
@@ -142,8 +142,35 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    CIFAR-10, census wide & deep, DNN and feature-column wide & deep,
    heart, iris from CSV, DeepFM, and DeepFM with both tables on 2 PS
    shards): records_done exact and the loss falling.
+14. processes: the job across processes on the card. First the socket
+   transport on loopback in this process (ms per small call, GB/s of a
+   64 MiB push) and the record reader (native and Python ms per record).
+   proc_lm: the flagship LM (64 training records, tasks of 16, training
+   only) through `python -m elasticdl_tpu_torch.master.main` with the
+   journal, --metrics_dir and two worker processes on the one card;
+   at 16 records worker 0 is stopped (SIGSTOP) and worker 1 SIGKILLed
+   and relaunched by the instance manager, so the tasks left wait for
+   the relaunched worker; at 40 records (its work) worker 0 is continued
+   and the master SIGKILLed, and master.main started again with
+   --instance_backend none over the same journal and port; the orphaned
+   workers finish the job with it. Checks records_done 64, one relaunch
+   of worker 1 and a task it reported, incarnation 2 with
+   master_recovered, both workers outliving the master, finite losses,
+   no process left, and each worker process's kernel launches and
+   accepted telemetry pushes as its exit line gives them; prints the
+   recovery times (from the workers' trace spans and a port probe),
+   each worker's ms per step, the pushes, the job's timeline and wall.
+   proc_ps: DeepFM-PS on ps_job's data and sizes through master.main with
+   two PS processes and one worker; shard 0 SIGKILLed at 65,536 records
+   and relaunched on its port. Checks records_done, every evaluation in
+   metrics.jsonl, one relaunch of shard 0, finite losses, accepted
+   pushes from every process; prints the recovery times, ms per step
+   beside the in-process ps_step f32 pipelined step, bytes per step over
+   the socket and the wall beside ps_job's.
 The PS, CTR and zoo phases launch none of the flash-attention kernels;
-their counts are reset before each and read after it. Then each phase's
+their counts are reset before each and read after it. proc_lm's kernels
+run in its worker processes: each logs its counts at its exit, and the
+kernels line carries them as proc_lm_launches. Then each phase's
 seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
 {...}}.
 """
@@ -156,7 +183,10 @@ import json
 import logging
 import math
 import os
+import re
 import resource
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -375,10 +405,10 @@ CTR_CHECK_RTOL = 1e-5
 
 # The flagship LM on the parameter server: its model spec declares no
 # embedding_inputs, so tok_emb and pos_emb move to 2 in-process shards and
-# the ids feed is derived. One job per wire, each 6 steps of 4 sequences
+# the ids feed is derived. One job per wire, each 4 steps of 4 sequences
 # from .edlr records (tasks of 8), the loss logged every step.
 LM_PS_WIRES = ("float32", "int8")
-LM_PS_STEPS = 6
+LM_PS_STEPS = 4
 LM_PS_TASK = 8
 # (c): the first batch through the PS path against a direct LocalTrainer
 # step from the same weights: the loss relative, the tok_emb row gradients
@@ -1841,7 +1871,7 @@ def _ps_profile_step(trainer, batch):
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         trainer.train_minibatch(*batch)[2].item()
-        trainer._flush_pushes()
+        trainer.flush_pushes()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - start)
     busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
@@ -1865,7 +1895,7 @@ def _ps_run(name, wire, pipelined, batches):
 
     for i in range(PS_WARMUP):
         step(i)
-    trainer._flush_pushes()
+    trainer.flush_pushes()
     torch.cuda.synchronize()
     trainer.timing.reset()
     trainer.h2d_bytes = trainer.d2h_bytes = 0
@@ -1873,7 +1903,7 @@ def _ps_run(name, wire, pipelined, batches):
     bytes0, pushes0 = push_bytes["bytes"], push_bytes["pushes"]
     start = time.perf_counter()
     losses = [step(i) for i in range(PS_WARMUP, PS_WARMUP + PS_STEPS)]
-    trainer._flush_pushes()
+    trainer.flush_pushes()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     losses = [float(x) for x in losses]
@@ -2004,7 +2034,7 @@ def phase_ps_job():
             if inside.get("train_minibatch_calls", 0) == PS_RESEED_AFTER:
                 # Between steps 8 and 9 shard 0 comes back empty, as a
                 # relaunched PS pod on the same address.
-                trainer._flush_pushes()
+                trainer.flush_pushes()
                 drill["version_before"] = trainer.get_model_version()
                 fresh = master.relaunch_ps(0)
                 drill["fresh_initialized"] = fresh.parameters.initialized
@@ -2074,7 +2104,7 @@ def phase_ps_job():
                 raise AssertionError(f"ps_job phase: {what}")
         emit({"phase": "ps_job", **_ps_checkpoint_round_trip(
             master, trainer, root)})
-    return launches
+    return result
 
 
 def _ps_checkpoint_round_trip(master, trainer, root):
@@ -2645,7 +2675,7 @@ def _zoo_ps():
     torch.backends.cudnn.deterministic = True
     try:
         loss = float(trainer.train_minibatch(*batches[0])[2])
-        trainer._flush_pushes()
+        trainer.flush_pushes()
         stats1 = state_to_flax(trainer._model)
         local = LocalTrainer(resnet50.custom_model(), resnet50.loss,
                              resnet50.optimizer())
@@ -2671,14 +2701,14 @@ def _zoo_ps():
 
     for i in range(ZOO_PS_WARMUP - 1):
         trainer.train_minibatch(*batches[(i + 1) % 2])
-    trainer._flush_pushes()
+    trainer.flush_pushes()
     torch.cuda.synchronize()
     trainer.timing.reset()
     bytes0, pushes0 = push_bytes["bytes"], push_bytes["pushes"]
     start = time.perf_counter()
     losses = [trainer.train_minibatch(*batches[i % 2])[2]
               for i in range(ZOO_PS_STEPS)]
-    trainer._flush_pushes()
+    trainer.flush_pushes()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     losses = [float(x) for x in losses]
@@ -3029,6 +3059,596 @@ def phase_zoo():
     return results
 
 
+# The processes phase: the job across processes, every process on the one
+# card. proc_lm: the flagship LM (training only) through master.main with
+# two worker processes, 64 records in tasks of 16; once 16 records are
+# done worker 0 is stopped and worker 1 SIGKILLed and relaunched by the
+# instance manager, once 40 are done worker 0 is continued, the master
+# SIGKILLed and relaunched with --instance_backend none over
+# its journal and port. proc_ps: DeepFM-PS on ps_job's data through
+# master.main with 2 PS processes and one worker; shard 0 is SIGKILLed once
+# 65,536 records are done and relaunched on its port. Every wait on a
+# process of a job ends after PROC_TIMEOUT seconds.
+PROC_LM_WORKERS = 2
+PROC_LM_KILL_WORKER_AT = 16
+PROC_LM_KILL_MASTER_AT = 40
+PROC_PS_KILL_SHARD_AT = 65536
+PROC_LM_PATIENCE_S = 30
+PROC_TIMEOUT = 240
+# The transport on loopback: small calls and one 64 MiB push, in this
+# process; the native and Python record readers on READER_RECORDS records.
+TRANSPORT_SMALL_CALLS = 2000
+TRANSPORT_PUSH_MB = 64
+TRANSPORT_PUSHES = 8
+READER_RECORDS = 16384
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _proc_master(argv, env, log_path):
+    """master.main in a process group of its own (its children join it),
+    its output (and its children's) to log_path. The group stays in this
+    process's session, so it is not orphaned while this process lives: an
+    orphaned group that holds a stopped process is sent SIGHUP when one of
+    its members exits (a kernel may do so at any member's exit)."""
+    with open(log_path, "wb") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.master.main", *argv],
+            cwd=REPO_DIR, env=env, stdout=log, stderr=subprocess.STDOUT,
+            process_group=0)
+
+
+def _proc_wait(predicate, what, proc=None, timeout=PROC_TIMEOUT):
+    end = time.time() + timeout
+    while time.time() < end:
+        value = predicate()
+        if value:
+            return value
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(
+                f"master exited ({proc.returncode}) waiting for {what}")
+        time.sleep(0.05)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def _proc_port(log_path, proc):
+    def port():
+        with open(log_path, errors="replace") as f:
+            found = re.search(r"Master serving on port (\d+)", f.read())
+        return int(found.group(1)) if found else None
+
+    return _proc_wait(port, "the master's port", proc)
+
+
+def _proc_status(port):
+    """-> a callable giving the master's JobStatusResponse (an empty one
+    while the master does not answer)."""
+    stub = rpc.Stub(rpc.build_channel(f"127.0.0.1:{port}", ready_timeout=0),
+                    rpc.MASTER_SERVICE)
+
+    def status():
+        try:
+            return stub.get_job_status(pb.GetJobStatusRequest(), timeout=5)
+        except rpc.RpcError:
+            return pb.JobStatusResponse()
+
+    return status
+
+
+def _accepting_after(port, since):
+    """Seconds from `since` until 127.0.0.1:port accepts a connection
+    again, after it refused one (polled every 2 ms): a SIGKILLed process's
+    listener closes only once the process is gone."""
+    end = time.time() + PROC_TIMEOUT
+    refused = False
+    while time.time() < end:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=0.05).close()
+            if refused:
+                return time.time() - since
+        except OSError:
+            refused = True
+        time.sleep(0.002)
+    raise AssertionError(f"port {port} did not accept again")
+
+
+def _proc_env(**extra):
+    env = dict(os.environ)
+    for name in ("ELASTICDL_TORCH_DEVICE", "ELASTICDL_CHAOS",
+                 "ELASTICDL_MASTER_JOURNAL_DIR", "ELASTICDL_OBS_DIR"):
+        env.pop(name, None)  # the card, no faults but the drill's kills
+    env.update({"ELASTICDL_HEARTBEAT_SECONDS": "0",
+                "ELASTICDL_METRICS_PORT": "-1",
+                "PYTHONPATH": REPO_DIR}, **extra)
+    return env
+
+
+def _trace_spans(obs_dir, role):
+    path = os.path.join(obs_dir, f"trace_{role}.jsonl")
+    spans = []
+    with open(path) as f:
+        for line in f:
+            event = json.loads(line)
+            if event.get("ph") == "X":
+                spans.append(event)
+    return spans
+
+
+def _first_after(spans, name_end, since, end=False, ok=False):
+    """Seconds from `since` to the start (end=True: the end) of the first
+    span named ...name_end that starts after `since` (ok=True: of a call
+    that ended OK)."""
+    times = [(s["ts"] + (s["dur"] if end else 0)) / 1e6 for s in spans
+             if s["name"].endswith(name_end) and s["ts"] / 1e6 > since
+             and (not ok or s.get("args", {}).get("code") == "OK")]
+    return min(times) - since if times else None
+
+
+_TIMELINE = (
+    ("master_serving", r"Master serving on port"),
+    ("launched", r"Launched (\w+ \d+)"),
+    ("model_built", r"Initialized model"),
+    ("first_step", r"Step 1 \("),
+    ("exited", r"(\w+ \d+) exited with code"),
+    ("relaunching", r"Relaunching (\w+ \d+)"),
+    ("journal_replayed", r"Master journal replayed"),
+    ("master_unreachable", r"Master unreachable"),
+    ("channel_rebuilt", r"rebuilt the channel"),
+    ("shard_degraded", r"PS shard \d+ degraded"),
+    ("shard_healthy", r"PS shard \d+ healthy again"),
+    ("job_done", r"All tasks complete"),
+    ("worker_exit", r"Worker (\d+) exiting"),
+)
+
+
+def _timeline(text, start):
+    """[(seconds since `start`, marker)] of the job's log lines that mark
+    its lifecycle, in order (log times are the host's local clock, to the
+    millisecond)."""
+    out = []
+    for line in text.splitlines():
+        stamp = re.match(r"\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3})\]",
+                         line)
+        if not stamp:
+            continue
+        for name, pattern in _TIMELINE:
+            found = re.search(pattern, line)
+            if found:
+                t = time.mktime(time.strptime(stamp.group(1),
+                                              "%Y-%m-%d %H:%M:%S"))
+                label = f"{name} {found.group(1)}" if found.groups() else name
+                out.append((round(t + int(stamp.group(2)) / 1e3 - start, 3),
+                            label))
+                break
+    return sorted(out)
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _print_log_tails(paths, lines=60):
+    """The last lines of a failed job's logs, to stderr."""
+    for path in paths:
+        if os.path.exists(path):
+            with open(path, errors="replace") as f:
+                tail = f.read().splitlines()[-lines:]
+            print(f"--- last {len(tail)} lines of {os.path.basename(path)}",
+                  *tail, sep="\n", file=sys.stderr)
+
+
+def _proc_teardown(procs, port):
+    """Kills what is left of a job: each master's process group, then any
+    process that still carries the job's master address."""
+    from elasticdl_tpu_torch.chaos import process as chaos_process
+
+    for proc in procs:
+        if proc is not None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait(timeout=30)
+    if port is not None:
+        for pid, _ in chaos_process.find_job_pids(port):
+            chaos_process.deliver(pid, signal.SIGKILL)
+
+
+def _exit_lines(text, role):
+    """{"worker-<id>": [exit record, ...]} of the processes of one kind
+    (role "Worker" or "PS") that logged an exit line, in log order."""
+    out = {}
+    prefix = "worker" if role == "Worker" else "ps"
+    for rid, body in re.findall(rf"{role} (\d+) exiting: (\{{.*\}})", text):
+        out.setdefault(f"{prefix}-{rid}", []).append(json.loads(body))
+    return out
+
+
+def _push_summary(exits):
+    """Per role: telemetry pushes, accepted snapshots, bytes per push
+    (failed ones included) and ms per answered push, from the processes'
+    exit lines."""
+    out = {}
+    for role, records in exits.items():
+        t = records[-1]["telemetry"]
+        out[role] = {**t, "bytes_per_push": t["payload_bytes"]
+                     / max(t["pushes"], 1),
+                     "ms_per_push": 1e3 * t["seconds"] / max(
+                         t["pushes"], 1)}
+    return out
+
+
+def _push_tally(text):
+    """The last "Telemetry pushes accepted" line a master logged at its
+    stop: {role: {"snapshots", "payload_bytes"}}, or None."""
+    found = re.findall(r"Telemetry pushes accepted: (\{.*\})", text)
+    return json.loads(found[-1]) if found else None
+
+
+def _proc_lm(root):
+    """The flagship LM across processes with a worker kill and a master
+    kill; returns the recovery times and the checks' inputs."""
+    from elasticdl_tpu_torch.chaos import process as chaos_process
+
+    cfg = tlm.flagship_config(SEQ)
+    paths, _ = _write_job_inputs(root, cfg, n_valid=0)
+    obs = os.path.join(root, "metrics")
+    # A worker whose wait for work outlasts the finished successor's 2 s
+    # linger rides the master's absence for the patience window before it
+    # exits, so the window is cut from 120 s to PROC_LM_PATIENCE_S, well
+    # over the master's outage.
+    env = _proc_env(
+        ELASTICDL_MASTER_JOURNAL_DIR=os.path.join(root, "journal"),
+        ELASTICDL_MASTER_PATIENCE_SECONDS=str(PROC_LM_PATIENCE_S))
+    argv = ["--model_def", paths["model_def"],
+            "--distribution_strategy", "Local",
+            "--training_data", paths["train"],
+            "--records_per_task", str(JOB_RECORDS_PER_TASK),
+            "--num_epochs", "1", "--minibatch_size", str(BATCH),
+            "--log_loss_steps", "1", "--metrics_dir", obs,
+            "--job_name", "proc-lm", "--task_timeout_check_seconds", "1",
+            "--seed", "0"]
+    logs = [os.path.join(root, f"master{i}.log") for i in (1, 2)]
+    start = time.time()
+    first = _proc_master(argv + [
+        "--instance_backend", "local_process",
+        "--num_workers", str(PROC_LM_WORKERS), "--master_port", "0"],
+        env, logs[0])
+    second = port = None
+    try:
+        port = _proc_port(logs[0], first)
+        status = _proc_status(port)
+        _proc_wait(lambda: status().records_done >= PROC_LM_KILL_WORKER_AT,
+                   f"{PROC_LM_KILL_WORKER_AT} records", first)
+        # A relaunched flagship worker needs ~20 s to build its model;
+        # worker 0 alone would finish the job's last 48 records in less.
+        # So worker 0 is stopped (SIGSTOP) before worker 1 is killed: the
+        # tasks left wait for the relaunched worker 1, and worker 0 keeps
+        # the one it holds until it is continued at the master's kill.
+        stopped = chaos_process.find_role_pid("worker", 0, port,
+                                              timeout=PROC_TIMEOUT)
+        chaos_process.deliver(stopped, signal.SIGSTOP)
+        worker_kill = time.time()
+        chaos_process.kill_role("worker", 1, port, timeout=PROC_TIMEOUT)
+        _proc_wait(lambda: status().records_done >= PROC_LM_KILL_MASTER_AT,
+                   f"{PROC_LM_KILL_MASTER_AT} records", first)
+        relaunches = status().relaunches
+        # Worker 0 is continued just before the master's kill: a group
+        # whose parent dies is orphaned, and one holding a stopped process
+        # then gets SIGHUP. Its task is mid-step, far from its report.
+        chaos_process.deliver(stopped, signal.SIGCONT)
+        continued = master_kill = time.time()
+        os.kill(first.pid, signal.SIGKILL)
+        first.wait(timeout=30)
+        orphans = len(chaos_process.find_job_pids(port))
+        second = _proc_master(argv + ["--instance_backend", "none",
+                                      "--master_port", str(port)],
+                              env, logs[1])
+        accepting_s = _accepting_after(port, master_kill)
+        rc = second.wait(timeout=PROC_TIMEOUT)
+        _proc_wait(lambda: not chaos_process.find_job_pids(port),
+                   "the workers' exit")
+        wall_s = time.time() - start
+    except BaseException:
+        _print_log_tails(logs)
+        raise
+    finally:
+        _proc_teardown((first, second), port)
+    text = "".join(open(p, errors="replace").read() for p in logs)
+    losses = [float(x) for x in re.findall(r"\) loss (\S+)", text)]
+    spans = {f"worker-{i}": _trace_spans(obs, f"worker-{i}")
+             for i in range(PROC_LM_WORKERS)}
+    step_ms = {role: float(np.median([s["dur"] / 1e3 for s in sp
+                                      if s["name"] == "batch_process"]))
+               for role, sp in spans.items()}
+    all_spans = [s for sp in spans.values() for s in sp]
+    events = _jsonl(os.path.join(obs, "events.jsonl"))
+    trains = [m for m in _jsonl(os.path.join(obs, "metrics.jsonl"))
+              if m["group"] == "train"]
+    # The relaunched worker 1's accepted reports to the first master: with
+    # worker 0 stopped, every record done between the kills is its work.
+    relaunched_reports = sum(
+        1 for s in spans["worker-1"]
+        if s["name"].endswith("/report_task_result")
+        and worker_kill < s["ts"] / 1e6
+        and (s["ts"] + s["dur"]) / 1e6 < master_kill
+        and s.get("args", {}).get("code") == "OK")
+    exits = _exit_lines(text, "Worker")
+    return {
+        "timeline": _timeline(text, start),
+        "worker_kill_at_s": worker_kill - start,
+        "master_kill_at_s": master_kill - start,
+        "worker_0_stopped_s": continued - worker_kill,
+        "successor_rc": rc, "wall_s": wall_s,
+        "records_done": trains[-1]["records_done"] if trains else None,
+        "relaunches_before_master_kill": relaunches,
+        "pod_relaunch": [e["instance"] for e in events
+                         if e["kind"] == "pod_relaunch"],
+        "master_recovered": [e.get("incarnation") for e in events
+                             if e["kind"] == "master_recovered"],
+        "orphans_at_master_kill": orphans,
+        "losses": losses,
+        "ms_per_step_by_worker": step_ms,
+        # Each worker process's exit line: its steps, its kernel launches
+        # and its telemetry pushes (worker 1's first process was killed).
+        "worker_exits": exits,
+        "telemetry_push": _push_summary(exits),
+        "telemetry_push_accepted_by_successor": _push_tally(
+            open(logs[1], errors="replace").read()),
+        "relaunched_worker_reports_before_master_kill": relaunched_reports,
+        # The relaunched process ready to work (its first get_task) and
+        # its recovery: its first accepted task report.
+        "worker_kill_to_first_get_task_s": _first_after(
+            spans["worker-1"], "/get_task", worker_kill),
+        "relaunched_first_get_task_code": next(
+            (s["args"].get("code") for s in sorted(
+                spans["worker-1"], key=lambda s: s["ts"])
+             if s["name"].endswith("/get_task")
+             and s["ts"] / 1e6 > worker_kill), None),
+        "worker_kill_to_first_report_s": _first_after(
+            spans["worker-1"], "/report_task_result", worker_kill, end=True,
+            ok=True),
+        "master_kill_to_accepting_s": accepting_s,
+        # The successor's first dispatch decision a worker receives (a
+        # task, WAIT or the job's end) and its first accepted report.
+        "master_kill_to_first_get_task_answered_s": _first_after(
+            all_spans, "/get_task", master_kill, end=True, ok=True),
+        "master_kill_to_first_report_accepted_s": _first_after(
+            all_spans, "/report_task_result", master_kill, end=True,
+            ok=True),
+        "failed_attempts_by_code": _failed_attempts(all_spans),
+    }
+
+
+def _failed_attempts(spans):
+    """Client call attempts that did not end OK, by method and status."""
+    counts = {}
+    for s in spans:
+        code = s.get("args", {}).get("code")
+        if s["name"].startswith("rpc_client") and code not in (None, "OK"):
+            key = f"{s['name'].rsplit('/', 1)[-1]}:{code}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def _proc_ps(root):
+    """DeepFM-PS across processes with shard 0 killed mid-job."""
+    from elasticdl_tpu_torch.chaos import process as chaos_process
+
+    paths = _write_ps_job_inputs(root)
+    obs = os.path.join(root, "metrics")
+    argv = ["--model_def", PS_SPEC,
+            "--distribution_strategy", "ParameterServerStrategy",
+            "--num_ps", str(PS_SHARDS), "--num_workers", "1",
+            "--instance_backend", "local_process", "--master_port", "0",
+            "--training_data", paths["train"],
+            "--validation_data", paths["valid"],
+            "--records_per_task", str(PS_JOB_TASK),
+            "--num_epochs", "1", "--minibatch_size", str(PS_JOB_BATCH),
+            "--evaluation_steps", str(PS_JOB_EVAL_STEPS),
+            "--log_loss_steps", "4", "--metrics_dir", obs,
+            "--job_name", "proc-ps", "--task_timeout_check_seconds", "1",
+            "--seed", "0"]
+    log = os.path.join(root, "master.log")
+    start = time.time()
+    master = _proc_master(argv, _proc_env(), log)
+    port = None
+    try:
+        port = _proc_port(log, master)
+        status = _proc_status(port)
+        _proc_wait(lambda: status().records_done >= PROC_PS_KILL_SHARD_AT,
+                   f"{PROC_PS_KILL_SHARD_AT} records", master)
+        shard_kill = time.time()
+        chaos_process.kill_role("ps", 0, port, timeout=PROC_TIMEOUT)
+        accepting_s = _accepting_after(port + 1, shard_kill)
+        rc = master.wait(timeout=PROC_TIMEOUT)
+        _proc_wait(lambda: not chaos_process.find_job_pids(port),
+                   "the job's processes' exit")
+        wall_s = time.time() - start
+    except BaseException:
+        _print_log_tails([log])
+        raise
+    finally:
+        _proc_teardown((master,), port)
+    text = open(log, errors="replace").read()
+    losses = [float(x) for x in re.findall(r"\) loss (\S+)", text)]
+    worker = _trace_spans(obs, "worker-0")
+    steps = [s for s in worker if s["name"] == "batch_process"]
+    ps_bytes = sum(s["args"].get("sent", 0) + s["args"].get("received", 0)
+                   for s in worker if "/elasticdl_tpu.Pserver/" in s["name"])
+    metrics = _jsonl(os.path.join(obs, "metrics.jsonl"))
+    events = _jsonl(os.path.join(obs, "events.jsonl"))
+    return {
+        "timeline": _timeline(text, start),
+        "shard_kill_at_s": shard_kill - start,
+        "master_rc": rc, "wall_s": wall_s,
+        "records_done": [m["records_done"] for m in metrics
+                         if m["group"] == "train"][-1:],
+        "evals": [m for m in metrics if m["group"] == "eval"],
+        # Evaluations the master completed (its evaluation service logs
+        # each); a round a PS's liveness report_version opens while the
+        # finished master lingers never runs.
+        "evals_completed": len(re.findall(r"Evaluation @ version", text)),
+        "eval_rounds_opened": sum(
+            1 for e in events if e["kind"] == "task_create"
+            and e.get("type") == "EVALUATION"),
+        "pod_relaunch": [e["instance"] for e in events
+                         if e["kind"] == "pod_relaunch"],
+        "losses": losses,
+        "batches": len(steps),
+        "ms_per_step": float(np.median([s["dur"] / 1e3 for s in steps])),
+        "ps_bytes_per_batch": ps_bytes / max(len(steps), 1),
+        "shard_kill_to_accepting_s": accepting_s,
+        "shard_kill_to_first_push_s": _first_after(
+            _trace_spans(obs, "ps-0"), "/push_gradients_packed",
+            shard_kill, end=True),
+        "failed_attempts_by_code": _failed_attempts(worker),
+        # Telemetry pushes: the worker's side from its exit line, and
+        # what the master's aggregator accepted by role, from its stop.
+        "telemetry_push": _push_summary(_exit_lines(text, "Worker")),
+        "telemetry_push_accepted_by_master": _push_tally(text),
+    }
+
+
+class _Sink:
+    """A PS servicer that answers every push at once, for the transport's
+    own costs."""
+
+    def __getattr__(self, method):
+        return lambda request, context: rpc.PSERVER_SERVICE.methods[
+            method][1]()
+
+
+def _transport_loopback():
+    """ms per small call and GB/s of 64 MiB pushes over the socket
+    transport on 127.0.0.1, in this process."""
+    server, port = rpc.serve(_Sink(), rpc.PSERVER_SERVICE)
+    channel = rpc.build_channel(f"127.0.0.1:{port}")
+    stub = rpc.Stub(channel, rpc.PSERVER_SERVICE)
+    try:
+        small = pb.PullDenseParametersRequest(version=1)
+        for _ in range(100):
+            stub.pull_dense_parameters(small)
+        start = time.perf_counter()
+        for _ in range(TRANSPORT_SMALL_CALLS):
+            stub.pull_dense_parameters(small)
+        small_ms = 1e3 * (time.perf_counter() - start) / TRANSPORT_SMALL_CALLS
+        payload = np.random.default_rng(0).standard_normal(
+            TRANSPORT_PUSH_MB * 2**18).astype(np.float32)
+        push = pb.Model(dense_parameters=[
+            tensor_utils.ndarray_to_tensor_pb(payload, "w")])
+        stub.push_model(push)
+        start = time.perf_counter()
+        for _ in range(TRANSPORT_PUSHES):
+            stub.push_model(push)
+        push_s = (time.perf_counter() - start) / TRANSPORT_PUSHES
+    finally:
+        channel.close()
+        server.stop(0)
+    return {"small_call_ms": small_ms,
+            "push_mib": TRANSPORT_PUSH_MB, "push_ms": 1e3 * push_s,
+            "push_gb_per_s": push.ByteSize() / push_s / 1e9}
+
+
+def _record_reader(root):
+    """ms per record of a whole-file range read, native and Python."""
+    from elasticdl_tpu_torch.data.recordfile import RecordFile
+
+    path = os.path.join(root, "reader.edlr")
+    with RecordFileWriter(path) as writer:
+        for record in iter_criteo_records(READER_RECORDS, seed=3):
+            writer.write(record)
+    out = {}
+    for name, no_native in (("native", ""), ("python", "1")):
+        with _environ(EDL_NO_NATIVE=no_native):
+            rf = RecordFile(path)
+            got = list(rf.read(0, READER_RECORDS))
+            start = time.perf_counter()
+            got = list(rf.read(0, READER_RECORDS))
+            out[f"{name}_ms_per_record"] = (
+                1e3 * (time.perf_counter() - start) / READER_RECORDS)
+            rf.close()
+        out.setdefault("records", len(got))
+    return out
+
+
+def phase_processes(results):
+    """The job across processes on the card: the transport on loopback,
+    the record readers, then proc_lm and proc_ps with their drills."""
+    device = results["device"]
+    card = {"card": device["nvidia_smi"]}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        transport = _transport_loopback()
+        reader = _record_reader(root)
+    emit({"phase": "processes", **card, "transport": transport,
+          "record_reader": reader})
+    with tempfile.TemporaryDirectory() as root:
+        lm = _proc_lm(root)
+    emit({"phase": "processes", "run": "proc_lm", **card,
+          "workers_share_the_card": PROC_LM_WORKERS, **lm})
+    exits = lm["worker_exits"]
+    layers = tlm.flagship_config(SEQ).n_layers
+    checks = [
+        (lm["successor_rc"] == 0, "the successor's exit code"),
+        (lm["records_done"] == JOB_TRAIN_RECORDS, "records_done"),
+        (lm["pod_relaunch"] == ["worker-1"], "worker 1 relaunched once"),
+        (lm["master_recovered"] == [2], "incarnation 2, master_recovered"),
+        (lm["orphans_at_master_kill"] == PROC_LM_WORKERS,
+         "the workers outlive the master"),
+        (lm["losses"] and all(math.isfinite(x) for x in lm["losses"]),
+         "finite losses"),
+        (lm["relaunched_worker_reports_before_master_kill"] >= 1
+         and lm["worker_kill_to_first_report_s"] is not None,
+         "the relaunched worker reported a task"),
+        (sorted(exits) == [f"worker-{i}" for i in range(PROC_LM_WORKERS)]
+         and all(len(v) == 1 for v in exits.values()),
+         "one exit line per worker id"),
+        # Each worker process ran its steps through the hand-written
+        # kernels: one forward-with-lse, dQ and dK/dV per layer and step,
+        # and no plain forward (the job has no evaluation).
+        (all(e["steps"] > 0 and {k: v for k, v in e["kernel_launches"]
+                                 .items() if v}
+             == {n: layers * e["steps"]
+                 for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}
+             for v in exits.values() for e in v),
+         "each worker process's kernel launches"),
+        (all(t["accepted"] >= 1 for t in lm["telemetry_push"].values()),
+         "each worker's telemetry pushes accepted"),
+        (lm["master_kill_to_first_get_task_answered_s"] is not None
+         and lm["master_kill_to_first_report_accepted_s"] is not None,
+         "the successor answered the workers"),
+    ]
+    with tempfile.TemporaryDirectory() as root:
+        ps = _proc_ps(root)
+    emit({"phase": "processes", "run": "proc_ps", **card, **ps,
+          "in_process_ps_step_f32_pipelined_ms": results["ps_step"][
+              "f32_pipelined"]["ms_per_step"],
+          "in_process_ps_job_wall_s": results["ps_job"]["wall_s"]})
+    checks += [
+        (ps["master_rc"] == 0, "the PS job's exit code"),
+        (ps["records_done"] == [PS_JOB_TRAIN], "PS records_done"),
+        (ps["evals"] and len(ps["evals"]) == ps["evals_completed"]
+         and all({"auc", "accuracy"} <= set(m) for m in ps["evals"]),
+         "every PS evaluation in metrics.jsonl"),
+        (ps["pod_relaunch"] == ["ps-0"], "shard 0 relaunched once"),
+        (ps["losses"] and all(math.isfinite(x) for x in ps["losses"]),
+         "PS finite losses"),
+        (ps["shard_kill_to_first_push_s"] is not None,
+         "the relaunched shard took a push"),
+        (sorted(ps["telemetry_push_accepted_by_master"] or ())
+         == ["ps-0", "ps-1", "worker-0"]
+         and all(t["snapshots"] >= 1 for t in
+                 ps["telemetry_push_accepted_by_master"].values()),
+         "the PS job's telemetry pushes accepted"),
+    ]
+    failed = [what for ok, what in checks if not ok]
+    if failed:
+        raise AssertionError(f"processes phase: {failed}")
+    return {"proc_lm": lm, "proc_ps": ps, "transport": transport,
+            "record_reader": reader}
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
@@ -3037,7 +3657,8 @@ def main():
               ("moe_lm", phase_moe_lm),
               ("ps_step", phase_ps_step), ("ps_job", phase_ps_job),
               ("ctr_zoo", phase_ctr_zoo), ("lm_ps", phase_lm_ps),
-              ("zoo", phase_zoo)]
+              ("zoo", phase_zoo),
+              ("processes", lambda: phase_processes(results))]
     results, seconds = {}, {}
     for name, fn in phases:
         # A finished phase's trainers sit in reference cycles until the
@@ -3080,6 +3701,12 @@ def main():
         # The image and tabular zoo launches none.
         report[name]["zoo_launches"] = results["zoo"]["launches"].get(
             name, 0)
+        # The flagship's worker processes of the processes phase, as each
+        # process logged them at its exit.
+        report[name]["proc_lm_launches"] = {
+            role: e["kernel_launches"].get(name, 0)
+            for role, v in results["processes"]["proc_lm"][
+                "worker_exits"].items() for e in v}
     emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]

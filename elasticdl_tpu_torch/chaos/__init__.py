@@ -1,7 +1,6 @@
 """Deterministic fault injection (counterpart of elasticdl_tpu/chaos): the
-seeded FaultSchedule and its local injection points. The gRPC interceptors
-and the process helpers (chaos/process.py) come with the port's transport
-and process entry points.
+seeded FaultSchedule, applied to the transport's calls and at the local
+injection points, and the process helpers of chaos/process.py.
 
 Processes pick schedules up from the ELASTICDL_CHAOS environment variable
 (JSON, see injection.schedule_from_env).

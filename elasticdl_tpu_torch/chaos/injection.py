@@ -1,6 +1,5 @@
-"""Seeded, counter-based fault injection: the local half (counterpart of
-elasticdl_tpu/chaos/injection.py:1-198; its gRPC server and client
-interceptors come with the port's transport).
+"""Seeded, counter-based fault injection (counterpart of
+elasticdl_tpu/chaos/injection.py).
 
 A FaultSchedule owns a list of FaultRules plus one seeded RNG. Each rule
 matches calls by method-name substring and side ("server" or "client") and
@@ -8,7 +7,9 @@ fires on a deterministic call-index window: the rule's counter increments on
 every matching call, and calls with start <= index < start + count get the
 fault. Latency jitter draws from the schedule's seeded RNG, so two runs
 with the same schedule and the same call order inject byte-identical fault
-sequences. In the port the schedule reaches the local injection points
+sequences. The schedule reaches the transport's calls (`server_faults` and
+`client_faults`, which common/rpc.py applies where the JAX package installs
+its server and client interceptors) and the local injection points
 (`inject_local`): the master's dispatch, the worker's record read, the
 prefetch thread, the policy engine's scale actuation.
 
@@ -196,3 +197,52 @@ def inject_local(point):
             _INJECTED.labels(kind="kill", side="client").inc()
             logger.warning("CHAOS: SIGKILL self at local point %r", point)
             os.kill(os.getpid(), signal.SIGKILL)
+
+
+def server_faults(schedule, method, context):
+    """Applies the schedule's server faults to one call before its handler
+    runs (the JAX ChaosServerInterceptor): latency sleeps, deadline sleeps
+    past the caller's deadline, unavailable aborts with UNAVAILABLE.
+    Returns the kinds that fired; the server cuts the response of a call
+    whose kinds hold "truncate" in half."""
+    kinds = []
+    for rule in schedule.decide(method, "server"):
+        _INJECTED.labels(kind=rule.kind, side="server").inc()
+        kinds.append(rule.kind)
+        if rule.kind == "latency":
+            time.sleep(schedule.jitter(rule))
+        elif rule.kind == "deadline":
+            remaining = context.time_remaining()
+            # Sleep just past the caller's deadline; with no deadline to
+            # overrun, a plain latency fault.
+            time.sleep(remaining + 0.5 if remaining is not None
+                       else rule.latency_s)
+        elif rule.kind == "unavailable":
+            from elasticdl_tpu_torch.common.rpc import StatusCode
+
+            context.abort(
+                StatusCode.UNAVAILABLE,
+                f"chaos: injected UNAVAILABLE on {method}",
+            )
+    return kinds
+
+
+def client_faults(schedule, method, timeout):
+    """Applies the schedule's client faults to one call attempt before the
+    wire (the JAX ChaosClientInterceptor); returns the attempt's timeout
+    (shrunk to 1 ms by a deadline fault). An unavailable fault raises
+    UNAVAILABLE; "truncate" is server-side only."""
+    for rule in schedule.decide(method, "client"):
+        _INJECTED.labels(kind=rule.kind, side="client").inc()
+        if rule.kind == "latency":
+            time.sleep(schedule.jitter(rule))
+        elif rule.kind == "deadline":
+            timeout = 0.001
+        elif rule.kind == "unavailable":
+            from elasticdl_tpu_torch.common.rpc import RpcError, StatusCode
+
+            raise RpcError(
+                StatusCode.UNAVAILABLE,
+                f"chaos: injected UNAVAILABLE on {method}",
+            )
+    return timeout

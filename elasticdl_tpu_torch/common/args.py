@@ -1,7 +1,8 @@
-"""Argument definitions for the master and worker (counterpart of
-elasticdl_tpu/common/args.py: the same flags, defaults and cross-flag
-validation, so one command line means the same to both packages). The
-parameter-server parser comes with the parameter-server slice."""
+"""Argument definitions for the master, worker and parameter-server
+processes (counterpart of elasticdl_tpu/common/args.py: the same flags,
+defaults and cross-flag validation, so one command line means the same to
+both packages). Three-stage relay kept: master argv -> worker/PS argv
+(build_arguments_from_parsed_result)."""
 
 import argparse
 import os
@@ -440,4 +441,14 @@ def worker_parser():
     p.add_argument(
         "--quantized_grads", action="store_true", default=False
     )
+    return p
+
+
+def ps_parser():
+    p = argparse.ArgumentParser("elasticdl_tpu pserver")
+    add_common_arguments(p)
+    add_train_arguments(p)
+    add_ps_arguments(p)
+    p.add_argument("--num_ps", type=int, default=1)
+    p.add_argument("--master_addr", default="")
     return p

@@ -308,6 +308,49 @@ declare("ELASTICDL_JOURNAL_SNAPSHOT_EVERY", "int", 512,
         "Compact the master journal into a fresh snapshot after this many "
         "appended ops (bounds replay time and WAL growth).")
 
+# -- RPC plane (common/rpc.py) --
+declare("ELASTICDL_RPC_DEADLINES", "str", "",
+        "JSON {method: seconds} per-method deadline overrides.")
+declare("ELASTICDL_RPC_MAX_ATTEMPTS", "int", 0,
+        "Override max retry attempts for all methods; 0/unset keeps the "
+        "per-method matrix.")
+declare("ELASTICDL_RPC_BACKOFF_BASE", "float", 0.0,
+        "Override retry backoff base seconds for all methods; 0/unset "
+        "keeps the matrix.")
+declare("ELASTICDL_RPC_BACKOFF_MAX", "float", 0.0,
+        "Override retry backoff cap seconds for all methods; 0/unset "
+        "keeps the matrix.")
+declare("ELASTICDL_RPC_BREAKER_THRESHOLD", "int", 8,
+        "Consecutive connectivity failures that trip a peer's circuit "
+        "breaker; <=0 disables the breaker.")
+declare("ELASTICDL_RPC_BREAKER_COOLDOWN", "float", 5.0,
+        "Seconds an open breaker waits before a half-open probe.")
+declare("ELASTICDL_RPC_READY_TIMEOUT", "float", 30.0,
+        "Channel-readiness TCP probe budget in seconds; 0 disables the "
+        "ready-wait.")
+
+# -- push telemetry (observability/push.py) --
+declare("ELASTICDL_TELEMETRY_PUSH_INTERVAL", "float", 2.0,
+        "Seconds between push-telemetry reports from the worker and PS "
+        "processes to the master's ReportTelemetry RPC (default 2, the "
+        "aggregator's own interval, so pushed roles stay fresh and the "
+        "pull loop skips them); 0 disables pushing and leaves the master's "
+        "pull scrape as the only path. The JAX package defaults to 0.")
+declare("ELASTICDL_TELEMETRY_PUSH_JITTER", "float", 0.2,
+        "Fractional jitter applied to each push interval so a fleet of "
+        "reporters does not dogpile the master in lockstep.")
+declare("ELASTICDL_TELEMETRY_FULL_EVERY", "int", 16,
+        "Every Nth telemetry push is a full snapshot instead of a delta "
+        "(bounded resync horizon after a lost/reordered push); 0 sends "
+        "a full snapshot only when the master asks (need_full).")
+
+# -- process entry points (worker/main.py) --
+declare("ELASTICDL_TORCH_DEVICE", "str", "",
+        "The device a worker process trains on: unset means the CUDA "
+        "device (and a host without one makes the worker exit with an "
+        "error); 'cpu' trains on the CPU, as the tests ask. Set in the "
+        "master's environment, it reaches every worker it spawns.")
+
 # -- chaos (chaos/injection.py) --
 declare("ELASTICDL_CHAOS", "str", "",
         "JSON fault schedule injected into the rpc plane; set by drills, "

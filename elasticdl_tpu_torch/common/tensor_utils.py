@@ -492,13 +492,16 @@ class PackedPushRequest:
         self._nbytes = int(nbytes)
 
     def SerializeToString(self) -> bytes:  # noqa: N802 (message contract)
-        head = self._header.SerializeToString()
+        return b"".join(self.serialize_parts())
+
+    def serialize_parts(self):
+        """The encoding as buffers: the header's, then the payload field's
+        tag and length, then the payload views as they are."""
+        head = self._header.serialize_parts()
         if not self._nbytes:
             return head
-        return b"".join(
-            [head, _PACKED_PAYLOAD_TAG, _encode_varint(self._nbytes)]
-            + list(self._parts)
-        )
+        return head + [_PACKED_PAYLOAD_TAG, _encode_varint(self._nbytes),
+                       *self._parts]
 
 
 def merge_indexed_slices(values_list, ids_list):

@@ -1,6 +1,6 @@
-"""Seekable record file format (.edlr), pure Python (counterpart of
-elasticdl_tpu/data/recordfile.py:40-212; the same bytes on disk, so files
-move between the two packages).
+"""Seekable record file format (.edlr) (counterpart of
+elasticdl_tpu/data/recordfile.py; the same bytes on disk, so files move
+between the two packages).
 
     [magic "EDLR"][u32 version]
     v2 record: [u32 len][u32 crc32(payload)][payload] ...
@@ -8,17 +8,22 @@ move between the two packages).
     [u64 num_records][u64 index_offset][magic "EDLI"]
 
 Version 2 carries a per-record CRC32 (zlib polynomial) so corruption is
-detected at read time; v1 files (no CRC) remain readable. Range reads seek
-once and scan. The JAX package's native range reader (native/recordio.cc)
-comes with the slice that ports native/.
+detected at read time; v1 files (no CRC) remain readable. Range reads go
+through the host library's scanner (native/recordio.cc: one mmap, a C loop,
+the CRC checks), which raises if it cannot be built; EDL_NO_NATIVE=1 reads
+with the Python scan here instead, the plain reference the tests hold the
+scanner against.
 
 Written records are opaque bytes; the framework stores Example messages in
 them but any payload works.
 """
 
+import ctypes
 import os
 import struct
 import zlib
+
+import numpy as np
 
 _MAGIC = b"EDLR"
 _FOOTER_MAGIC = b"EDLI"
@@ -106,6 +111,9 @@ class RecordFile:
             )
         if count == 0:
             return
+        if not os.environ.get("EDL_NO_NATIVE"):
+            yield from self._read_native(start, count)
+            return
         # Per-call handle: readers cache RecordFile objects, and with the
         # prefetch reader a range scan runs on a producer thread — a
         # shared seek/read cursor would interleave across threads.
@@ -124,6 +132,49 @@ class RecordFile:
                     (length,) = _LEN.unpack(f.read(_LEN.size))
                     payload = f.read(length)
                 yield payload
+
+    def _read_native(self, start, count):
+        from elasticdl_tpu_torch import native
+
+        lib = native.lib()
+        # Payload span upper bound: from the first record's offset to the
+        # end of the range (headers included). Own handle for the index
+        # reads, as in the scan above.
+        with open(self.path, "rb") as f:
+            first = self._record_offset(start, f)
+            end = (
+                self._index_offset
+                if start + count == self.num_records
+                else self._record_offset(start + count, f)
+            )
+        # The offsets come from the file's index: check them before
+        # allocating, so a flipped bit raises the corrupt-file error.
+        if not 0 <= first <= end <= self._index_offset:
+            raise ValueError(
+                f"{self.path}: index entries out of bounds for records "
+                f"[{start}, {start + count}) (corrupt file)"
+            )
+        buf = np.empty(end - first, dtype=np.uint8)
+        lens = np.empty(count, dtype=np.int64)
+        total = lib.edl_records_read(
+            self.path.encode(), start, count,
+            buf.ctypes.data_as(ctypes.c_void_p), buf.nbytes,
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        if total == -5:
+            raise ValueError(
+                f"{self.path}: CRC mismatch in range [{start}, "
+                f"{start + count}) (corrupt file)"
+            )
+        if total < 0:
+            raise ValueError(
+                f"{self.path}: native record read failed (code {total})"
+            )
+        pos = 0
+        view = memoryview(buf)
+        for n in lens.tolist():
+            yield bytes(view[pos:pos + n])
+            pos += n
 
     def close(self):
         self._f.close()

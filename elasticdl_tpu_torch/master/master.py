@@ -1,12 +1,10 @@
-"""The master's job assembly and lifecycle (counterpart of
-elasticdl_tpu/master/master.py:75-230, 374-510, 659-704): from master args,
-the observability plane (observability.setup as role "master"), the model
-spec, the dataset shards, the task dispatcher, the metrics service
-(`--metrics_dir`), the evaluation service and the servicer; under
-ParameterServerStrategy also `--num_ps` parameter-server shards, built in
-this process with the arguments the JAX master hands its PS processes, and
-the resume from a PS checkpoint (`--checkpoint_dir_for_init`: records the
-checkpoint already trained on are not dispatched again).
+"""The master: control plane of one elastic training job (counterpart of
+elasticdl_tpu/master/master.py). From master args, the observability plane
+(observability.setup as role "master"), the model spec, the dataset shards,
+the task dispatcher, the metrics service (`--metrics_dir`), the evaluation
+service and the servicer; the resume from a PS checkpoint
+(`--checkpoint_dir_for_init`: records the checkpoint already trained on are
+not dispatched again).
 
 The survivable control plane: with ELASTICDL_MASTER_JOURNAL_DIR set, the
 master replays the journal's snapshot and write-ahead log
@@ -23,26 +21,45 @@ start, and after a replay the liveness grace of the leases' owners with the
 threads (heartbeat, aggregator poll, policy loop); `stop()` takes it all
 down again, the observability plane the master set up included.
 
-A worker in the same process reaches the master through `stub()` and the
-shards through `ps_stubs()`, in-process stubs that cross the wire format on
-every call. `relaunch_ps(i)` replaces shard i with a fresh one behind the
-same stubs, as a relaunched PS pod comes back on the same address. Serving
-over gRPC, the poll loop and its watchdogs and the instance managers come
-with the transport; the arguments that ask for them raise
-NotImplementedError. Unlike the JAX master, this one leaves the process
-environment alone: it spawns no processes that would read
-ELASTICDL_OBS_DIR or ELASTICDL_JOB_NAME from it.
+Two ways to run a job:
+- across processes (master/main.py): `serve()` binds the master's port
+  LAST, so the first call a client lands already sees the recovered
+  world, then `--instance_backend local_process` starts `--num_ps` PS
+  processes (ps/main.py) and `--num_workers` worker processes
+  (worker/main.py) with the argv of `_command_for`, and `run()` polls
+  until the job is done or failed, with the task-timeout and liveness
+  watchdog (journal compaction rides its tick). A master relaunched with
+  `--instance_backend none` over the journal and port of a dead one
+  serves the workers that outlived it. The master then exports
+  ELASTICDL_OBS_DIR and ELASTICDL_JOB_NAME for its children, as the JAX
+  master does.
+- in one process: a worker reaches the master through `stub()` and the
+  shards through `ps_stubs()`, in-process stubs that cross the wire format
+  on every call; under ParameterServerStrategy the master builds the
+  `--num_ps` shards itself, with the arguments the JAX master hands its PS
+  processes, and `relaunch_ps(i)` replaces shard i with a fresh one behind
+  the same stubs. The master leaves the process environment alone.
+
+`--instance_backend k8s` raises NotImplementedError: it comes with the
+`edl` client.
 """
 
+import json
+import os
 import sys
+import time
 
 from elasticdl_tpu_torch import observability
 from elasticdl_tpu_torch.common import knobs, rpc
+from elasticdl_tpu_torch.common.args import build_arguments_from_parsed_result
 from elasticdl_tpu_torch.common.constants import DistributionStrategy
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import get_model_spec
 from elasticdl_tpu_torch.data.reader import create_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.instance_manager import (
+    LocalProcessInstanceManager,
+)
 from elasticdl_tpu_torch.master.journal import open_master_journal
 from elasticdl_tpu_torch.master.metrics_service import MetricsService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
@@ -52,6 +69,46 @@ from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
 from elasticdl_tpu_torch.worker.master_client import MasterClient
 
 logger = get_logger("master.master")
+
+# Flag subsets relayed into spawned processes (the JAX master's) — each
+# must stay within what the receiving parser (worker_parser / ps_parser)
+# accepts.
+_WORKER_RELAY_ARGS = [
+    "job_name",
+    "model_zoo",
+    "model_def",
+    "distribution_strategy",
+    "minibatch_size",
+    "get_model_steps",
+    "ps_wire_dtype",
+    "log_loss_steps",
+    "seed",
+    "model_parallel_size",
+    "pipeline_stages",
+    "pipeline_schedule",
+    "pipeline_microbatches",
+    "pipeline_virtual_stages",
+    "context_parallel_size",
+    "context_parallel_impl",
+    "multi_host",
+    "zero1",
+    "quantized_grads",
+    "training_data",
+    "validation_data",
+    "prediction_data",
+    "records_per_task",
+    "num_epochs",
+    "prefetch_records",
+    "profile_dir",
+    "profile_start_step",
+    "profile_steps",
+]
+_PS_RELAY_ARGS = [
+    "job_name",
+    "model_zoo",
+    "model_def",
+    "seed",
+]
 
 
 def _reject_unported(args):
@@ -64,10 +121,11 @@ def _reject_unported(args):
             f"{DistributionStrategy.LOCAL} or "
             f"{DistributionStrategy.PARAMETER_SERVER}"
         )
-    if args.instance_backend != "none":
+    if args.instance_backend not in ("none", "local_process"):
         raise NotImplementedError(
-            "instance managers are not ported to elasticdl_tpu_torch yet; "
-            "use --instance_backend none and build workers in process"
+            f"--instance_backend {args.instance_backend} is not ported to "
+            "elasticdl_tpu_torch yet; use local_process, or none and build "
+            "workers in process"
         )
 
 
@@ -138,6 +196,9 @@ class Master:
             self.evaluation_service,
             worker_liveness_timeout=args.worker_liveness_timeout_seconds,
         )
+        self._server = None
+        self.port = None
+        self.instance_manager = self._build_instance_manager(args)
         self._build_job_context()
         if self.journal is not None:
             # Snapshot-on-start, once every state provider is attached:
@@ -153,7 +214,9 @@ class Master:
             if args.num_ps < 1:
                 raise ValueError(
                     "ParameterServerStrategy requires --num_ps >= 1")
-            self.ps_servers = [self._build_ps(i) for i in range(args.num_ps)]
+            if self.instance_manager is None:
+                self.ps_servers = [
+                    self._build_ps(i) for i in range(args.num_ps)]
 
     def _open_journal(self):
         """Replay snapshot+WAL (ELASTICDL_MASTER_JOURNAL_DIR), restore the
@@ -232,11 +295,12 @@ class Master:
             self.journal.add_state_provider(self.world_hints.export_state)
         if policy_enabled() and self.aggregator is not None:
             # The closed loop: aggregator signals -> rules -> actuators
-            # (the dispatcher's blacklist and backup tasks; no instance
-            # manager in process).
+            # (the dispatcher's blacklist and backup tasks; the instance
+            # manager's restarts and scaling when workers are processes).
             self.policy = PolicyEngine(
                 self.aggregator.summary, self.task_d,
-                instance_manager=None, world_hints=self.world_hints)
+                instance_manager=self.instance_manager,
+                world_hints=self.world_hints)
             if self.journal is not None:
                 # Resume without re-firing already-applied decisions:
                 # restored cooldowns keep them suppressed.
@@ -247,6 +311,7 @@ class Master:
             if exporter is not None:
                 exporter.summary_provider = self._summary
         self.servicer.bind_job_context(
+            instance_manager=self.instance_manager,
             metrics_port=self.obs.metrics_port if self.obs else 0,
             aggregator=self.aggregator,
             policy=self.policy,
@@ -273,6 +338,109 @@ class Master:
                 shard=task.shard_name, start=task.start, end=task.end,
             )
 
+    def _build_instance_manager(self, args):
+        if args.instance_backend == "none" or (
+                args.num_workers == 0 and args.num_ps == 0):
+            return None
+        # Spawned workers and PS processes find the obs dir and the job
+        # identity through the environment; a fixed metrics port is the
+        # master's alone (local children bind ephemeral ports).
+        if self.obs is not None and self.obs.obs_dir:
+            os.environ[observability.OBS_DIR_ENV] = self.obs.obs_dir
+        os.environ[observability.JOB_NAME_ENV] = args.job_name
+        os.environ.pop(observability.METRICS_PORT_ENV, None)
+        return LocalProcessInstanceManager(
+            self._command_for,
+            num_workers=args.num_workers,
+            num_ps=args.num_ps,
+            task_dispatcher=self.task_d,
+            max_relaunches=args.max_relaunches,
+        )
+
+    def _master_addr(self):
+        host = os.environ.get("MY_POD_IP", "127.0.0.1")
+        return f"{host}:{self.port}"
+
+    def _ps_addr(self, ps_id):
+        # PS i listens on base+1+i on this host. With --master_port 0 the
+        # base is the ACTUALLY BOUND master port (serve() binds before any
+        # instance spawns), so two concurrent jobs on one host don't
+        # collide on a fixed base.
+        base = self.args.master_port or self.port or 50001
+        return f"127.0.0.1:{base + 1 + ps_id}"
+
+    def ps_addrs(self):
+        return ",".join(self._ps_addr(i) for i in range(self.args.num_ps))
+
+    def _command_for(self, kind, instance_id):
+        """argv for a spawned instance: the JAX master's, with the port's
+        entry points."""
+        relay = build_arguments_from_parsed_result(
+            self.args,
+            filter_args=(
+                _WORKER_RELAY_ARGS if kind == "worker" else _PS_RELAY_ARGS
+            ),
+        )
+        if kind == "worker":
+            argv = [
+                sys.executable,
+                "-m",
+                "elasticdl_tpu_torch.worker.main",
+                "--worker_id",
+                str(instance_id),
+                "--master_addr",
+                self._master_addr(),
+            ]
+            if self.args.num_ps:
+                argv += ["--ps_addrs", self.ps_addrs()]
+            if self.args.training_data:
+                if self.args.validation_data:
+                    argv += ["--job_type", "training_with_evaluation"]
+            elif self.args.validation_data:
+                argv += ["--job_type", "evaluation_only"]
+            elif self.args.prediction_data:
+                argv += ["--job_type", "prediction_only"]
+            for flag in ("output", "checkpoint_dir_for_init"):
+                value = getattr(self.args, flag, "")
+                if value:
+                    argv += [f"--{flag}", str(value)]
+            return argv + relay
+        if kind == "ps":
+            ps_port = int(self._ps_addr(instance_id).rsplit(":", 1)[1])
+            argv = [
+                sys.executable,
+                "-m",
+                "elasticdl_tpu_torch.ps.main",
+                "--ps_id",
+                str(instance_id),
+                "--num_ps",
+                str(self.args.num_ps),
+                "--port",
+                str(ps_port),
+                "--master_addr",
+                self._master_addr(),
+            ]
+            for flag in (
+                "checkpoint_dir",
+                "checkpoint_steps",
+                "keep_checkpoint_max",
+                "checkpoint_dir_for_init",
+                "grads_to_wait",
+                "sync_version_tolerance",
+                "sync_window_timeout",
+            ):
+                value = getattr(self.args, flag, None)
+                # `is not None` so explicit numeric zeros still relay;
+                # empty-string defaults for the path flags stay dropped.
+                if value is not None and value != "":
+                    argv += [f"--{flag}", str(value)]
+            if not self.args.use_async:
+                argv += ["--use_sync"]
+            if self.args.lr_staleness_modulation:
+                argv += ["--lr_staleness_modulation"]
+            return argv + relay
+        raise ValueError(kind)
+
     def prepare(self):
         """Starts the master's threads: the heartbeat, the telemetry
         aggregator's poll and the policy engine's loop. The constructor
@@ -285,6 +453,105 @@ class Master:
             self.policy.start()
         return self
 
+    def serve(self):
+        """Binds the master's port (`--master_port`, 0 binds any; the
+        bound one is `self.port`), then starts the PS and worker processes
+        of the instance manager, as the end of the JAX master's prepare()
+        does."""
+        self._server, self.port = rpc.serve(
+            self.servicer, rpc.MASTER_SERVICE, port=self.args.master_port)
+        logger.info("Master serving on port %d", self.port)
+        if self.instance_manager is not None:
+            if self.args.num_ps:
+                self.instance_manager.start_parameter_servers()
+            self.instance_manager.start_workers()
+        return self
+
+    def run(self, poll_seconds=None):
+        """Poll until done or failed; returns the process exit code. Stops
+        the master on the way out."""
+        poll = poll_seconds or min(5.0, self.args.task_timeout_check_seconds)
+        last_watchdog = time.time()
+        last_metrics = time.time()
+        last_records = self.task_d.stats()["records_done"]
+
+        # Brief linger before the server stops on ANY terminal path, so
+        # monitors polling get_job_status can observe the terminal state
+        # (finished OR failed) instead of an ambiguous UNAVAILABLE.
+        def linger():
+            time.sleep(getattr(self.args, "shutdown_linger_seconds", 2.0))
+
+        try:
+            while True:
+                if self.task_d.finished():
+                    logger.info("All tasks complete; job done")
+                    linger()
+                    return 1 if self.task_d.job_failed else 0
+                if self.task_d.job_failed:
+                    logger.error("Job failed (task retries exhausted)")
+                    linger()
+                    return 1
+                if self.instance_manager is not None:
+                    if self.instance_manager.all_workers_failed():
+                        logger.error("All workers failed; aborting job")
+                        return 1
+                    if self.instance_manager.all_workers_done():
+                        logger.error(
+                            "All workers exited but tasks remain; "
+                            "aborting job")
+                        return 1
+                now = time.time()
+                if now - last_watchdog >= self.args.task_timeout_check_seconds:
+                    last_watchdog = now
+                    self._run_watchdog()
+                    # Journal maintenance rides the watchdog tick: this
+                    # thread holds no dispatcher or policy lock here, which
+                    # compaction requires (it calls back into the state
+                    # providers).
+                    if self.journal is not None:
+                        self.journal.maybe_compact()
+                if self.metrics_service and now - last_metrics >= 30.0:
+                    stats = self.task_d.stats()
+                    elapsed = now - last_metrics
+                    self.metrics_service.log_scalars(
+                        "train",
+                        self.servicer.max_model_version,
+                        {
+                            "records_per_sec": (
+                                stats["records_done"] - last_records
+                            ) / elapsed,
+                            "records_done": stats["records_done"],
+                            "epoch": stats["epoch"],
+                            "todo_tasks": stats["todo"],
+                            "doing_tasks": stats["doing"],
+                        },
+                    )
+                    last_metrics = now
+                    last_records = stats["records_done"]
+                time.sleep(poll)
+        finally:
+            self.stop()
+
+    def _run_watchdog(self):
+        """Task-timeout + liveness watchdog: the tasks of a worker whose
+        task runs over its timeout, or that has not called within the
+        liveness timeout, go back to the queue."""
+        slow = set(self.task_d.doing_tasks_over_timeout())
+        deadline = time.time() - self.args.worker_liveness_timeout_seconds
+        silent = {
+            wid
+            for wid, ts in self.servicer.snapshot_liveness().items()
+            if ts < deadline
+        }
+        for worker_id in slow | silent:
+            why = "slow" if worker_id in slow else "silent"
+            logger.warning(
+                "Watchdog: recovering tasks of %s worker %d", why, worker_id)
+            observability.emit_event(
+                "task_timeout", worker=worker_id, reason=why)
+            self.task_d.recover_tasks(worker_id)
+            self.servicer.forget_worker(worker_id)
+
     def _summary(self):
         """Aggregator summary with the policy plane merged in, so
         /api/summary shows decisions next to signals."""
@@ -294,18 +561,23 @@ class Master:
         return summary
 
     def stop(self):
-        """Takes down what the constructor and prepare() started: the
-        heartbeat, the policy engine, the aggregator, the metrics service
-        (after a final train snapshot, so short jobs leave a record), the
-        journal (closed, not compacted) and the observability plane this
-        master set up."""
+        """Takes down what the constructor, prepare() and serve() started:
+        the heartbeat, the policy engine, the aggregator, the instance
+        manager's processes, the metrics service (after a final train
+        snapshot, so short jobs leave a record), the server, the journal
+        (closed, not compacted) and the observability plane this master set
+        up."""
         self._heartbeat.close()
         if self.policy is not None:
             self.policy.close()
             self.policy = None
         if self.aggregator is not None:
+            logger.info("Telemetry pushes accepted: %s",
+                        json.dumps(self.aggregator.push_tally()))
             self.aggregator.close()
             self.aggregator = None
+        if self.instance_manager is not None:
+            self.instance_manager.stop()
         if self.metrics_service is not None:
             stats = self.task_d.stats()
             self.metrics_service.log_scalars(
@@ -320,6 +592,9 @@ class Master:
             )
             self.metrics_service.close()
             self.metrics_service = None
+        if self._server is not None:
+            self._server.stop(2)
+            self._server = None
         if self.journal is not None:
             self.journal.close()
             self.journal = None

@@ -4,14 +4,14 @@ and :255-320).
 Serves the worker-facing task protocol: task pulls (with WAIT when the
 queue is momentarily empty but the job is unfinished), batched pulls, task
 results, evaluation metric reports, model version reports (the evaluation
-trigger) and the job status, with the job context the master binds once
-it is prepared (bind_job_context: the aggregator's stragglers and alerts,
-the policy's actions, the metrics port, the incarnation of a master
-replayed from its journal) and the liveness grace of a recovery
-(seed_liveness). Method names match rpc.MASTER_SERVICE; each takes
-(request, context) as a gRPC handler does. The comm-rank, step-lease,
-liveness, telemetry-push, profile and world-hint methods come with the
-AllReduce slice and the transport.
+trigger), pushed telemetry and the job status, with the job context the
+master binds once it is prepared (bind_job_context: the instance manager's
+relaunches, the aggregator's stragglers and alerts, the policy's actions,
+the metrics port, the incarnation of a master replayed from its journal)
+and the liveness grace of a recovery (seed_liveness). Method names match
+rpc.MASTER_SERVICE; each takes (request, context) as a gRPC handler does.
+The comm-rank, step-lease, liveness, profile and world-hint methods come
+with the AllReduce slice and on-demand profiling.
 """
 
 import threading
@@ -42,8 +42,10 @@ class MasterServicer:
         # worker_id -> last-RPC wall time, for the liveness watchdog.
         self.worker_liveness = {}
         self.max_model_version = 0
-        # Bound after construction (master.prepare): the metrics endpoint,
-        # the aggregator and the policy engine exist only then.
+        # Bound after construction (master.prepare): the instance manager,
+        # the metrics endpoint, the aggregator and the policy engine exist
+        # only then.
+        self._instance_manager = None
         self._metrics_port = 0
         self._aggregator = None
         self._policy = None
@@ -54,14 +56,16 @@ class MasterServicer:
 
     def bind_job_context(
         self,
+        instance_manager=None,
         metrics_port=0,
         aggregator=None,
         policy=None,
         master_incarnation=None,
     ):
         """Late-bind job-status sources created after this servicer (the
-        JAX servicer's also takes the instance manager and the world-hint
-        board, which the port serves with its transport)."""
+        JAX servicer's also takes the world-hint board, which the port
+        serves with the AllReduce slice)."""
+        self._instance_manager = instance_manager
         self._metrics_port = metrics_port
         self._aggregator = aggregator
         self._policy = policy
@@ -188,6 +192,26 @@ class MasterServicer:
             )
         return pb.Empty()
 
+    def report_telemetry(self, request, context):
+        """Push-based telemetry: merge a batch of (delta-encoded) metric
+        snapshots into the aggregator. Roles the aggregator cannot extend
+        (sequence gap) come back in need_full, telling the reporter to
+        resend a full snapshot. Without a bound aggregator every snapshot
+        lands on need_full."""
+        if self._aggregator is None:
+            return pb.ReportTelemetryResponse(
+                accepted=0,
+                need_full=sorted(
+                    {s.role for s in request.snapshots if s.role}
+                ),
+            )
+        accepted, need_full = self._aggregator.ingest_push(
+            request.snapshots, origin=request.origin
+        )
+        return pb.ReportTelemetryResponse(
+            accepted=accepted, need_full=need_full
+        )
+
     def get_job_status(self, request, context):
         """Telemetry for monitors. Workers with a call inside the liveness
         timeout count as alive."""
@@ -219,6 +243,8 @@ class MasterServicer:
             metrics_port=self._metrics_port,
             master_incarnation=self.master_incarnation,
         )
+        if self._instance_manager is not None:
+            res.relaunches = self._instance_manager.total_relaunches()
         if self._aggregator is not None:
             # Straggler flags + alert count from the telemetry
             # aggregator, so monitors see anomalies without scraping.

@@ -1,10 +1,12 @@
-"""The port's host library: builds kernels.cc, idmap.cc and codec.cc with g++
-at first use and loads them with ctypes (counterpart of
+"""The port's host library: builds kernels.cc, idmap.cc, recordio.cc and
+codec.cc with g++ at first use and loads them with ctypes (counterpart of
 elasticdl_tpu/native/__init__.py).
 
 kernels.cc and idmap.cc are copies of the JAX package's, compiled with the
 same flags, so both packages apply the same optimizer updates and create the
-same embedding rows bit for bit. codec.cc is the port's own: the columnar
+same embedding rows bit for bit. recordio.cc is the JAX package's range read
+of `.edlr` files (data/recordfile.py) with its own CRC32 in place of zlib's.
+codec.cc is the port's own: the columnar
 Example decode (data/example.py) and the bfloat16 rounding of the wire
 (common/tensor_utils.py), which the JAX package gets from protobuf's and
 ml_dtypes' compiled code. The library goes to `build/torch_ext/` at the
@@ -14,9 +16,11 @@ are host kernels: the parameter server's store lives in host memory, and
 records are decoded on the worker's host.
 
 A failed build or load raises. There is no numpy fallback on the main path:
-the numpy rules in ps/optimizer.py, the Python codec of proto/messages.py
-and the numpy rounding of common/tensor_utils.py are the plain references
-the tests hold the library against.
+the numpy rules in ps/optimizer.py, the Python codec of proto/messages.py,
+the numpy rounding of common/tensor_utils.py and the Python record reader
+are the plain references the tests hold the library against. EDL_NO_NATIVE=1
+is the one explicit way to the Python record reader, as in the JAX
+package.
 """
 
 import ctypes
@@ -29,7 +33,7 @@ import threading
 from elasticdl_tpu_torch.ops._build import BUILD_DIR
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("kernels.cc", "idmap.cc", "codec.cc")
+SOURCES = ("kernels.cc", "idmap.cc", "recordio.cc", "codec.cc")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-march=native",
              "-shared"]
 
@@ -97,6 +101,11 @@ def _declare(lib):
         i64ptr, i64ptr,
     ]
     lib.edl_decode_examples.restype = i64
+    lib.edl_records_read.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, i64ptr,
+    ]
+    lib.edl_records_read.restype = ctypes.c_longlong
     return lib
 
 

@@ -38,6 +38,7 @@ from elasticdl_tpu_torch.common import knobs
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.observability import alerts as alerts_mod
 from elasticdl_tpu_torch.observability import promtext
+from elasticdl_tpu_torch.observability import push as push_mod
 from elasticdl_tpu_torch.observability.metrics import default_registry
 
 logger = get_logger("observability.aggregator")
@@ -81,6 +82,14 @@ def read_endpoints(endpoints_dir):
         if info.get("port"):
             endpoints.append(info)
     return endpoints
+
+
+def _snap_field(snap, name, default):
+    """Field access across pb.TelemetrySnapshot / dict / namespace —
+    ingest_push accepts all three (tests and relays skip the proto)."""
+    if isinstance(snap, dict):
+        return snap.get(name, default)
+    return getattr(snap, name, default)
 
 
 class SeriesStore:
@@ -253,10 +262,16 @@ class TelemetryAggregator:
         self._throughput_history = collections.deque(maxlen=60)
         self._stop = threading.Event()
         self._thread = None
-        # Store/derive mutations happen from the poll thread and from
-        # direct poll_once() calls; one lock covers both.
+        # Store/derive mutations happen from the poll thread AND from
+        # RPC handler threads (ingest_push); one lock covers both.
         self._ingest_lock = threading.RLock()
-        # role -> ts of the last ingested payload; the
+        # (role, pid) -> {"seq", "families", "ts"}: per-origin merged
+        # push state. A delta only applies when it extends the held seq.
+        self._push_states = {}
+        self._push_last_by_role = {}  # role -> last accepted push ts
+        # role -> [accepted snapshots, their payload bytes] (push_tally)
+        self._push_by_role = {}
+        # role -> ts of the last ingested payload (push or pull); the
         # telemetry-freshness signal.
         self._last_report = {}
         # Endpoint directory cache: rescan only when the dir mtime moved
@@ -385,6 +400,29 @@ class TelemetryAggregator:
             "Endpoint membership diffs observed on rescan",
             labelnames=("op",),
         )
+        self._c_push_reports = reg.counter(
+            "edl_master_push_reports_total",
+            "ReportTelemetry batches handled",
+        )
+        self._c_push_snapshots = reg.counter(
+            "edl_master_push_snapshots_total",
+            "Pushed telemetry snapshots accepted, by encoding",
+            labelnames=("kind",),
+        )
+        self._c_push_bytes = reg.counter(
+            "edl_master_push_payload_bytes_total",
+            "Pushed telemetry payload volume",
+        )
+        self._c_push_resyncs = reg.counter(
+            "edl_master_push_resyncs_total",
+            "Pushed deltas rejected for a sequence gap (need_full "
+            "answered)",
+        )
+        self._g_push_roles = reg.gauge(
+            "edl_master_push_roles",
+            "Roles whose telemetry arrived by push within the freshness "
+            "horizon",
+        )
         self._g_freshness = reg.gauge(
             "edl_master_telemetry_freshness_seconds",
             "Age of the stalest reporting role's telemetry at the end "
@@ -479,19 +517,31 @@ class TelemetryAggregator:
             self._c_ep_diffs.labels(op="withdraw").inc()
         return self._ep_cache
 
+    def _push_horizon(self):
+        """How recently a role must have pushed for the pull loop to
+        leave it alone (and for it to count as push-reporting)."""
+        return 3.0 * self.interval
+
+    def _push_fresh(self, role, now):
+        ts = self._push_last_by_role.get(role)
+        return ts is not None and (now - ts) <= self._push_horizon()
+
     def poll_once(self, now=None):
         """One scrape + derive + export pass (the thread's body; callable
         directly from tests and `edl dash --once` style flows). Without
         an explicit `now`, each endpoint's samples are stamped when they
         were actually read — endpoints scrape sequentially with a
         per-endpoint timeout, and a wedged peer must not skew the rate
-        denominators of everyone scraped after it."""
+        denominators of everyone scraped after it. Roles with a fresh
+        push are skipped here: push owns their freshness, pull stays the
+        fallback when pushes stop."""
         t_tick = time.perf_counter()
         live = now is None
         scraped = set()
         stale = 0
         live_keys = set()
         texts = []  # (role, text, ts) — ingested under the lock below
+        wall = time.time() if live else now
         t_fanout = time.perf_counter()
         for info in self._refresh_endpoints():
             role = info.get("role", "")
@@ -499,6 +549,8 @@ class TelemetryAggregator:
                 continue  # own registry is read in-process below
             key = self._endpoint_key(info)
             live_keys.add(key)
+            if self._push_fresh(role, wall):
+                continue
             if self._is_stale(info):
                 # Dead pod whose advertisement survived (SIGKILL skips
                 # the clean-shutdown removal): stop hammering the port.
@@ -536,6 +588,10 @@ class TelemetryAggregator:
                 if self._ingest(role, text, ts):
                     scraped.add(role)
                     self._c_scrapes.labels(role=role or "?").inc()
+            # Push-reporting roles are as good as scraped for derive.
+            for role, ts in self._push_last_by_role.items():
+                if (now - ts) <= self._push_horizon():
+                    scraped.add(role)
             # The master's own registry never travels over HTTP:
             # reading it in-process keeps master-side signals alive
             # even when its exporter could not bind a port.
@@ -558,7 +614,8 @@ class TelemetryAggregator:
         return True
 
     def _ingest_families(self, role, families, now):
-        """Store every sample of already-parsed families."""
+        """Store every sample of already-parsed families (the push path
+        lands here directly — merged state needs no text round-trip)."""
         for family in families.values():
             # The aggregator's own edl_job_* output must not feed back
             # into its input when it ingests the master registry.
@@ -570,6 +627,73 @@ class TelemetryAggregator:
                 )
         if role != "master":
             self._last_report[role] = now
+
+    # ---------- push ingestion ----------
+
+    def ingest_push(self, snapshots, origin="", now=None):
+        """Apply one ReportTelemetry batch; -> (accepted, need_full).
+
+        Each snapshot is a pb.TelemetrySnapshot (or any object/dict with
+        the same fields). Fulls replace the per-(role, pid) state;
+        deltas must extend the held sequence (seq == last+1) or the
+        role lands on the need_full list and the reporter resends a
+        full snapshot next push. The merged state — not the delta — is
+        ingested each time, so the series store ends up exactly where a
+        pull scrape of the same registry would have put it."""
+        wall = time.time() if now is None else now
+        accepted = 0
+        need_full = set()
+        self._c_push_reports.inc()
+        with self._ingest_lock:
+            for snap in snapshots:
+                role = _snap_field(snap, "role", "")
+                pid = _snap_field(snap, "pid", 0)
+                seq = _snap_field(snap, "seq", 0)
+                full = _snap_field(snap, "full", False)
+                payload = _snap_field(snap, "payload", "")
+                key = (role, pid)
+                self._c_push_bytes.inc(len(payload))
+                try:
+                    delta = (
+                        promtext.parse(payload)
+                        if payload
+                        else collections.OrderedDict()
+                    )
+                except promtext.ParseError:
+                    self._c_scrape_errors.labels(role=role or "?").inc()
+                    need_full.add(role)
+                    continue
+                state = self._push_states.get(key)
+                if full:
+                    state = {"seq": seq, "families": delta, "ts": wall}
+                    self._push_states[key] = state
+                    self._c_push_snapshots.labels(kind="full").inc()
+                elif state is None or seq != state["seq"] + 1:
+                    # Lost/reordered push (or a master restart): the
+                    # held state no longer matches what the reporter
+                    # diffed against.
+                    self._c_push_resyncs.inc()
+                    need_full.add(role)
+                    continue
+                else:
+                    push_mod.apply_delta(state["families"], delta)
+                    state["seq"] = seq
+                    state["ts"] = wall
+                    self._c_push_snapshots.labels(kind="delta").inc()
+                self._ingest_families(role, state["families"], wall)
+                self._push_last_by_role[role] = wall
+                tally = self._push_by_role.setdefault(role, [0, 0])
+                tally[0] += 1
+                tally[1] += len(payload)
+                accepted += 1
+        return accepted, sorted(need_full)
+
+    def push_tally(self):
+        """{role: {"snapshots", "payload_bytes"}}: the pushed snapshots
+        this aggregator accepted, by role, since it started."""
+        with self._ingest_lock:
+            return {role: {"snapshots": n, "payload_bytes": b}
+                    for role, (n, b) in sorted(self._push_by_role.items())}
 
     # ---------- derivation ----------
 
@@ -843,7 +967,7 @@ class TelemetryAggregator:
         self._g_workers.set(len(workers))
 
         # --- telemetry freshness + fleet rollups ---
-        # Per-role age of the last ingested payload.
+        # Per-role age of the last ingested payload (push or pull).
         # Roles silent for 30 intervals are dead/scaled away and leave
         # the freshness sample set (their series age out via rate()'s
         # staleness window already).
@@ -855,6 +979,22 @@ class TelemetryAggregator:
                 continue
             freshness[role] = age
             self._h_staleness.observe(max(0.0, age))
+        # _derive always runs under _ingest_lock (re-entrant), but take
+        # it explicitly here: these maps are also written by the RPC
+        # handler path and the pruning must visibly share that guard.
+        with self._ingest_lock:
+            for key, state in list(self._push_states.items()):
+                if now - state["ts"] > 30.0 * self.interval:
+                    del self._push_states[key]
+            for role, ts in list(self._push_last_by_role.items()):
+                if now - ts > 30.0 * self.interval:
+                    del self._push_last_by_role[role]
+        push_roles = sum(
+            1
+            for ts in self._push_last_by_role.values()
+            if (now - ts) <= self._push_horizon()
+        )
+        self._g_push_roles.set(push_roles)
         ages = sorted(freshness.values())
         fresh_max = ages[-1] if ages else None
         if fresh_max is not None:
@@ -864,10 +1004,8 @@ class TelemetryAggregator:
             "workers_reporting": len(workers),
             "ps_reporting": len(ps),
             "roles_reporting": len(freshness),
-            # Every role reports by pull: the push path (ReportTelemetry)
-            # comes with the transport.
-            "push_roles": 0,
-            "pull_roles": len(freshness),
+            "push_roles": push_roles,
+            "pull_roles": max(0, len(freshness) - push_roles),
             "step_ewma_p50": percentile(step_vals, 0.50),
             "step_ewma_p90": percentile(step_vals, 0.90),
             "step_ewma_p99": percentile(step_vals, 0.99),

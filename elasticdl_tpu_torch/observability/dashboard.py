@@ -1,6 +1,6 @@
 """Terminal dashboard rendering for `edl dash` / `edl top --watch`
 (counterpart of elasticdl_tpu/observability/dashboard.py; the `edl` client
-comes with the port's process entry points).
+comes in the slice after the process entry points).
 
 Pure text: takes the /api/summary JSON dict the master's aggregator
 publishes (plus an optional JobStatusResponse) and renders one frame —

@@ -1,6 +1,5 @@
-"""Tracing: Chrome-trace JSONL spans (counterpart of
-elasticdl_tpu/observability/tracing.py, without its gRPC interceptors, which
-come with the transport).
+"""Tracing: Chrome-trace JSONL spans and trace context across processes
+(counterpart of elasticdl_tpu/observability/tracing.py).
 
 Each process appends complete ("ph": "X") events to its own
 `trace_<role>.jsonl`, loadable in Perfetto / chrome://tracing. The trace
@@ -10,7 +9,13 @@ when one interpreter hosts several roles.
 
 Trace context is a contextvar carrying (trace_id, span_id, job, task_id,
 lease_epoch); the worker re-keys it to each task, so every span of a task
-shares a trace id. Recording costs nothing until a recorder is installed
+shares a trace id. The transport (common/rpc.py) carries it across
+processes as the JAX package's interceptors do: `inject` adds it to a call's
+metadata (`edl-trace-*` keys) and `record_client_call` records the client
+span; on the server `serve_traced` runs the handler under the propagated
+context and records the server span, so one task's dispatch -> pull ->
+train -> push -> report chain shares a trace id across every process it
+touches. Recording costs nothing until a recorder is installed
 (set_recorder) or a span sink is added (add_sink, the flight recorder's
 feed).
 """
@@ -23,6 +28,13 @@ import threading
 import time
 import uuid
 import zlib
+
+# Metadata keys (lowercase, as gRPC's must be).
+_MD_TRACE = "edl-trace-id"
+_MD_PARENT = "edl-parent-span"
+_MD_TASK = "edl-task-id"
+_MD_EPOCH = "edl-lease-epoch"
+_MD_JOB = "edl-job"
 
 _context = contextvars.ContextVar("edl_trace_context", default=None)
 
@@ -251,3 +263,74 @@ def instant(name, cat="edl", **args):
     rec = _recorder
     if rec is not None:
         rec.instant(name, cat=cat, args=args)
+
+
+# ---------- propagation across the transport ----------
+
+
+def inject(metadata):
+    """`metadata` (pairs) plus the caller's trace context, if any."""
+    ctx = _context.get()
+    if ctx is None:
+        return metadata
+    extra = [(_MD_TRACE, ctx.trace_id)]
+    if ctx.span_id:
+        extra.append((_MD_PARENT, ctx.span_id))
+    if ctx.job:
+        extra.append((_MD_JOB, ctx.job))
+    if ctx.task_id >= 0:
+        extra.append((_MD_TASK, str(ctx.task_id)))
+    if ctx.lease_epoch >= 0:
+        extra.append((_MD_EPOCH, str(ctx.lease_epoch)))
+    return list(metadata or ()) + extra
+
+
+def context_from_metadata(metadata):
+    """TraceContext extracted from invocation metadata, or None."""
+    md = {k: v for k, v in (metadata or ())}
+    trace_id = md.get(_MD_TRACE)
+    if trace_id is None:
+        return None
+    return TraceContext(
+        trace_id=trace_id,
+        span_id=md.get(_MD_PARENT, ""),
+        job=md.get(_MD_JOB, ""),
+        task_id=int(md.get(_MD_TASK, -1)),
+        lease_epoch=int(md.get(_MD_EPOCH, -1)),
+    )
+
+
+def record_client_call(method, start_s, code, sent=0, received=0):
+    """The client span of one call attempt, from `start_s` to now, with the
+    status and the message bytes sent and received (the port's transport
+    adds the byte counts to the JAX span's args)."""
+    rec = _recorder
+    if rec is None and not _sinks:
+        return
+    dur = time.time() - start_s
+    args = {"code": str(code), "sent": sent, "received": received}
+    if rec is not None:
+        rec.record(f"rpc_client{method}", start_s, dur, cat="rpc", args=args)
+    _feed_sinks(f"rpc_client{method}", start_s, dur, "rpc", args)
+
+
+def serve_traced(method, metadata, handler):
+    """Runs `handler()` under the trace context propagated in `metadata`
+    and records the server span."""
+    ctx = context_from_metadata(metadata)
+    token = _context.set(ctx) if ctx is not None else None
+    try:
+        rec = _recorder
+        if rec is None and not _sinks:
+            return handler()
+        start = time.time()
+        try:
+            return handler()
+        finally:
+            dur = time.time() - start
+            if rec is not None:
+                rec.record(f"rpc_server{method}", start, dur, cat="rpc")
+            _feed_sinks(f"rpc_server{method}", start, dur, "rpc", None)
+    finally:
+        if token is not None:
+            _context.reset(token)

@@ -293,9 +293,15 @@ class Message:
     # ---------- encoding ----------
 
     def SerializeToString(self):
+        return b"".join(self.serialize_parts())
+
+    def serialize_parts(self):
+        """The encoding as a list of buffers whose concatenation is
+        SerializeToString(): payload fields appear as they were set, so a
+        transport can send them without joining them first."""
         chunks = []
         self._chunks(chunks)
-        return b"".join(chunks)
+        return chunks
 
     def ByteSize(self):
         """The encoded size, without joining the encoding."""
@@ -634,6 +640,30 @@ class PushGradientsPackedRequest(Message):
     )
 
 
+class TelemetrySnapshot(Message):
+    FIELDS = (
+        Field(1, "role", "string"),
+        Field(2, "pid", "int64"),
+        Field(3, "seq", "int64"),
+        Field(4, "full", "bool"),
+        Field(5, "payload", "string"),
+    )
+
+
+class ReportTelemetryRequest(Message):
+    FIELDS = (
+        Field(1, "snapshots", TelemetrySnapshot, "repeated"),
+        Field(2, "origin", "string"),
+    )
+
+
+class ReportTelemetryResponse(Message):
+    FIELDS = (
+        Field(1, "accepted", "int32"),
+        Field(2, "need_full", "string", "repeated"),
+    )
+
+
 MESSAGES = (
     Empty, Task, Tensor, Example, GetTaskRequest, ReportTaskResultRequest,
     ReportEvaluationMetricsRequest, ReportVersionRequest,
@@ -642,5 +672,6 @@ MESSAGES = (
     PullDenseParametersRequest, PullDenseParametersResponse,
     PullEmbeddingVectorsRequest, PullEmbeddingTableRequest,
     PushGradientsRequest, PushGradientsResponse, TensorSpan, SlicesSpan,
-    PushGradientsPackedRequest,
+    PushGradientsPackedRequest, TelemetrySnapshot, ReportTelemetryRequest,
+    ReportTelemetryResponse,
 )

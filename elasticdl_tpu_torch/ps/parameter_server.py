@@ -1,12 +1,17 @@
-"""One parameter-server shard in this process (counterpart of
-elasticdl_tpu/ps/parameter_server.py:23-125).
+"""One parameter-server shard (counterpart of
+elasticdl_tpu/ps/parameter_server.py).
 
 It builds the store, the optimizer, the optional checkpoint saver and the
 restore from a checkpoint (resharding to this shard's id and count), and
-the servicer, with the JAX class's arguments minus `port`. A client reaches
-it through `stub()`, an in-process stub that crosses the wire format on
-every call. Serving it over gRPC (`ps/main.py`) comes with the transport.
+the servicer, with the JAX class's arguments. With `port` (0 binds any) it
+serves the servicer over the transport of common/rpc.py at `addr`, as the
+shard process of ps/main.py does, and `wait()` blocks until `stop()` or
+until the master stops answering; without one, a client in this process
+reaches it through `stub()`, an in-process stub that crosses the wire
+format on every call.
 """
+
+import threading
 
 from elasticdl_tpu_torch.common import rpc
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -24,6 +29,7 @@ class ParameterServer:
         self,
         ps_id,
         num_ps,
+        port=None,
         optimizer_spec=None,
         use_async=True,
         grads_to_wait=1,
@@ -66,7 +72,38 @@ class ParameterServer:
             master_client=master_client,
             shard_id=ps_id,
         )
-        logger.info("PS %d/%d ready in process", ps_id, num_ps)
+        self._stop_event = threading.Event()
+        self._server = None
+        self.port = None
+        if port is None:
+            logger.info("PS %d/%d ready in process", ps_id, num_ps)
+            return
+        self._server, self.port = rpc.serve(
+            self.servicer, rpc.PSERVER_SERVICE, port=port)
+        logger.info("PS %d/%d serving on port %d", ps_id, num_ps, self.port)
+
+    @property
+    def addr(self):
+        return f"localhost:{self.port}"
+
+    def wait(self, master_liveness_check=None, poll_seconds=30):
+        """Block until stopped; with a liveness callable, exit when the
+        master is gone (the reference PS watches the master pod)."""
+        while not self._stop_event.is_set():
+            if master_liveness_check is not None:
+                try:
+                    alive = master_liveness_check()
+                except Exception:
+                    alive = False
+                if not alive:
+                    logger.info("Master gone; PS %d exiting", self.ps_id)
+                    break
+            self._stop_event.wait(poll_seconds)
+
+    def stop(self):
+        self._stop_event.set()
+        if self._server is not None:
+            self._server.stop(0)
 
     def stub(self):
         """A client stub of this shard's service, for a worker in this

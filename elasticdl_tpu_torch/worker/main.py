@@ -1,23 +1,36 @@
-"""Worker assembly (counterpart of elasticdl_tpu/worker/main.py:28-125):
-from worker args and a master client, the reader, the model spec, the
-trainer, the callbacks and the Worker.
+"""`python -m elasticdl_tpu_torch.worker.main` — the worker process, and the
+worker's assembly (counterpart of elasticdl_tpu/worker/main.py).
 
-The process entry point (`main`, with observability setup and telemetry
-push) comes with the gRPC transport; until then a worker runs in the
-master's process, its MasterClient on an in-process stub
-(master/master.py:Master.stub) and, under ParameterServerStrategy, its
-PSClient on the shards' in-process stubs (Master.ps_stubs). Arguments that
-ask for what is not ported raise NotImplementedError.
+`build_worker` assembles, from worker args and a master client, the reader,
+the model spec, the trainer, the callbacks and the Worker. `main` is the
+process: observability as role worker-<id>, a MasterClient on
+`--master_addr`, the PS shards on `--ps_addrs`, the Worker, the telemetry
+reporter, then the run, the close and an exit line with the process's
+steps, kernel launches and pushes. It trains on the device
+ELASTICDL_TORCH_DEVICE names (unset: the CUDA device, and a host without
+one ends the process with the device rule's error). A worker in the
+master's process uses build_worker on an in-process stub
+(master/master.py:Master.stub) and, under ParameterServerStrategy, the
+shards' in-process stubs (Master.ps_stubs). Arguments that ask for what is
+not ported raise NotImplementedError.
 """
 
+import json
 import sys
 
+from elasticdl_tpu_torch import observability
+from elasticdl_tpu_torch.common import knobs
+from elasticdl_tpu_torch.common.args import validate_args, worker_parser
 from elasticdl_tpu_torch.common.constants import DistributionStrategy, JobType
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import get_model_spec
 from elasticdl_tpu_torch.common.save_utils import ExportModelCallback
 from elasticdl_tpu_torch.data.prefetch import PrefetchReader
 from elasticdl_tpu_torch.data.reader import CompositeReader, create_data_reader
+from elasticdl_tpu_torch.observability.metrics import default_registry
+from elasticdl_tpu_torch.observability.push import TelemetryReporter
+from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.worker.master_client import MasterClient
 from elasticdl_tpu_torch.worker.ps_client import PSClient
 from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
 from elasticdl_tpu_torch.worker.trainer import LocalTrainer
@@ -38,8 +51,8 @@ def build_trainer(args, spec, ps_stubs=None, device=None):
     if strategy == DistributionStrategy.PARAMETER_SERVER:
         if not ps_stubs:
             raise ValueError(
-                "ParameterServerStrategy needs the PS shards' stubs "
-                "(ps_stubs, e.g. Master.ps_stubs())"
+                "ParameterServerStrategy needs the PS shards' addresses or "
+                "stubs (ps_stubs, e.g. --ps_addrs or Master.ps_stubs())"
             )
         return ParameterServerTrainer(
             spec.build_model(),
@@ -69,9 +82,9 @@ def build_trainer(args, spec, ps_stubs=None, device=None):
 
 
 def build_worker(args, master_client, ps_stubs=None, device=None):
-    """The Worker that `worker/main.py:main` runs in the JAX package, on the
-    given MasterClient and, under ParameterServerStrategy, the PS shards'
-    stubs; `device=None` trains on the CUDA device."""
+    """The Worker that `main` runs, on the given MasterClient and, under
+    ParameterServerStrategy, the PS shards (one address or stub per shard);
+    `device=None` trains on the CUDA device."""
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir (the worker's device trace) is not ported yet"
@@ -119,3 +132,42 @@ def build_worker(args, master_client, ps_stubs=None, device=None):
         log_loss_steps=args.log_loss_steps,
         extra_callbacks=extra_callbacks,
     )
+
+
+def main(argv=None):
+    args = worker_parser().parse_args(argv)
+    validate_args(args)
+    role = f"worker-{args.worker_id}"
+    obs = observability.setup(role=role, job=args.job_name)
+    mc = MasterClient(args.master_addr, args.worker_id,
+                      worker_host=args.worker_host)
+    ps = args.ps_addrs.split(",") if args.ps_addrs else None
+    device = knobs.get_str("ELASTICDL_TORCH_DEVICE") or None
+    worker = build_worker(args, mc, ps_stubs=ps, device=device)
+    # Push-based telemetry every ELASTICDL_TELEMETRY_PUSH_INTERVAL seconds
+    # (0 turns it off); while the pushes stay fresh the master's aggregator
+    # does not pull-scrape this worker.
+    reporter = TelemetryReporter(
+        mc.report_telemetry, default_registry(), role=role,
+        seed=args.worker_id,
+    ).start()
+    try:
+        worker.run()
+    finally:
+        close = getattr(worker.trainer, "close", None)
+        if close is not None:
+            close()
+        reporter.close()
+        mc.close()
+        obs.close()
+        # The exit line, also on the way out of a failure, carries what
+        # only this process can count: its steps, its flash-attention
+        # kernel launches and its telemetry pushes.
+        logger.info("Worker %d exiting: %s", args.worker_id, json.dumps({
+            "steps": worker.steps, "kernel_launches": dict(fa.launches),
+            "telemetry": reporter.stats()}, sort_keys=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,22 +1,56 @@
 """Worker-side wrapper over the Master service stub (counterpart of
-elasticdl_tpu/worker/master_client.py:12-130, for the methods the port's
-servicer has).
+elasticdl_tpu/worker/master_client.py, for the methods the port's servicer
+has).
 
-It takes the stub instead of an address: rpc.InProcessStub(servicer,
-rpc.MASTER_SERVICE) for a master in this process. The gRPC channel, and
-with it `reconnect`, comes with the transport.
+`master` is the master's address ("host:port"), over which the client
+builds a hardened channel (common/rpc.py), or a stub: an
+rpc.InProcessStub(servicer, rpc.MASTER_SERVICE) for a master in this
+process. Only the address form can `reconnect`.
 """
+
+import threading
 
 import numpy as np
 
-from elasticdl_tpu_torch.common import tensor_utils
+from elasticdl_tpu_torch.common import rpc, tensor_utils
 from elasticdl_tpu_torch.proto import messages as pb
 
 
 class MasterClient:
-    def __init__(self, stub, worker_id):
-        self._stub = stub
+    def __init__(self, master, worker_id, worker_host=""):
+        self._addr = None
+        self._channel = None
+        self._reconnect_lock = threading.Lock()
+        if isinstance(master, str):
+            self._addr = master
+            self._channel = rpc.build_channel(master)
+            self._stub = rpc.Stub(self._channel, rpc.MASTER_SERVICE)
+        else:
+            self._stub = master
         self._worker_id = worker_id
+        self.worker_host = worker_host
+
+    def reconnect(self, probe_timeout=1.0):
+        """Rebuild the channel once the master accepts TCP again (a master
+        relaunched on the same address). Returns True when the swap
+        happened; False (channel untouched) while the master is still
+        unreachable or the client holds a stub. Safe from any thread:
+        every call reads self._stub at call time, so in-flight users
+        migrate on their next call."""
+        if self._addr is None:
+            return False
+        with self._reconnect_lock:
+            if not rpc.wait_channel_ready(self._addr, probe_timeout):
+                return False
+            old = self._channel
+            self._channel = rpc.build_channel(self._addr, ready_timeout=0)
+            self._stub = rpc.Stub(self._channel, rpc.MASTER_SERVICE)
+            old.close()
+            return True
+
+    def close(self):
+        if self._channel is not None:
+            self._channel.close()
 
     def get_task(self, task_type=pb.TRAINING):
         return self._stub.get_task(
@@ -89,3 +123,14 @@ class MasterClient:
 
     def get_job_status(self):
         return self._stub.get_job_status(pb.GetJobStatusRequest())
+
+    def report_telemetry(self, snapshots, origin=""):
+        """Push a batch of (possibly delta-encoded) metric snapshots.
+        snapshots: iterable of pb.TelemetrySnapshot (or kwargs dicts)."""
+        req = pb.ReportTelemetryRequest(origin=origin)
+        for snap in snapshots:
+            if isinstance(snap, dict):
+                req.snapshots.add(**snap)
+            else:
+                req.snapshots.append(snap)
+        return self._stub.report_telemetry(req)

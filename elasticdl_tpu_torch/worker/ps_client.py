@@ -7,17 +7,19 @@ by sha256(name) mod N, embedding ids by id mod N. Every fan-out issues one
 are deduplicated before the wire, and a push travels as one packed request
 per shard (chunked past ELASTICDL_PS_MAX_PUSH_BYTES).
 
-The client is built on a list of stubs, index = shard id (in this process,
-`ParameterServer.stub()` or the master's shard stubs). The readiness probes
-and channel building of the gRPC client come with the transport.
+The client is built on a list with one entry per shard, index = shard id:
+an address ("host:port", a shard process, reached over a hardened channel
+of common/rpc.py) or a stub (in this process, `ParameterServer.stub()` or
+the master's shard stubs).
 """
 
+import concurrent.futures
 import os
 import time
 
 import numpy as np
 
-from elasticdl_tpu_torch.common import hash_utils, knobs, tensor_utils
+from elasticdl_tpu_torch.common import hash_utils, knobs, rpc, tensor_utils
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.rpc import RpcError
 from elasticdl_tpu_torch.observability import emit_event, tracing
@@ -69,8 +71,9 @@ class _PendingVectorPull:
 
 
 class PSClient:
-    def __init__(self, stubs, worker_id=-1, wire_dtype=None):
-        """stubs: one PSERVER_SERVICE stub per shard, index = ps_id.
+    def __init__(self, shards, worker_id=-1, wire_dtype=None):
+        """shards: per shard (index = ps_id) its address "host:port" or a
+        PSERVER_SERVICE stub.
 
         wire_dtype: "float32", "bfloat16" or "int8" (None reads the
         ELASTICDL_WIRE_DTYPE knob). bfloat16 halves the sparse legs: rows
@@ -104,7 +107,21 @@ class PSClient:
         # sub-phases there.
         self.timing = None
         self._worker_id = worker_id
-        self._stubs = list(stubs)
+        shards = list(shards)
+        self._addrs = [s if isinstance(s, str) else None for s in shards]
+        # Readiness-probe the shard processes CONCURRENTLY, then build
+        # channels without re-probing: serial probing would cost
+        # num_dead * timeout at worker startup when shards are
+        # mid-relaunch.
+        self._probe_ready_concurrently()
+        self._channels = [
+            rpc.build_channel(a, ready_timeout=0) if a is not None else None
+            for a in self._addrs
+        ]
+        self._stubs = [
+            rpc.Stub(ch, rpc.PSERVER_SERVICE) if ch is not None else s
+            for ch, s in zip(self._channels, shards)
+        ]
         self.num_ps = len(self._stubs)
         # Per-shard pull cursors: each shard's version advances on its own.
         self._dense_versions = [-1] * self.num_ps
@@ -118,10 +135,27 @@ class PSClient:
         self.unseeded_shards = set()
 
     def close(self):
-        for stub in self._stubs:
-            close = getattr(stub, "close", None)
+        for channel, stub in zip(self._channels, self._stubs):
+            owner = channel if channel is not None else stub
+            close = getattr(owner, "close", None)
             if close is not None:
                 close()
+
+    def _probe_ready_concurrently(self):
+        addrs = [a for a in self._addrs if a is not None]
+        timeout = rpc.ready_timeout()
+        if timeout <= 0 or not addrs:
+            return
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(addrs)) as pool:
+            ready = list(pool.map(
+                lambda a: rpc.wait_channel_ready(a, timeout), addrs))
+        for addr, ok in zip(addrs, ready):
+            if not ok:
+                logger.warning(
+                    "PS shard %s not accepting connections after %.0fs; "
+                    "proceeding (retries/degradation take over)",
+                    addr, timeout)
 
     # ---------- shard health ----------
 

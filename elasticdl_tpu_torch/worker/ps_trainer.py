@@ -479,9 +479,11 @@ class ParameterServerTrainer(TorchTrainer):
             self._row_cache.note_version(self._version)
         return accepted, version
 
-    def _flush_pushes(self):
+    def flush_pushes(self):
         """Wait for the in-flight background push (read-your-writes for
-        eval and export; also where a failed push raises)."""
+        eval and export; also where a failed push raises). The Worker
+        calls it before it reports a training task done, so that a task
+        counts as done only once its gradients are in the PS."""
         future, self._push_future = self._push_future, None
         if future is not None:
             future.result()
@@ -559,7 +561,7 @@ class ParameterServerTrainer(TorchTrainer):
         # One push in flight: wait out the previous (raising its errors),
         # then hand this step's grads to the push thread, whose copy to the
         # host waits for this step's compute.
-        self._flush_pushes()
+        self.flush_pushes()
         self._push_future = self._push_executor.submit(
             self._push_payload, buffer, layout, flat_ids, self._version,
             int(np.asarray(labels).shape[0]))
@@ -571,7 +573,7 @@ class ParameterServerTrainer(TorchTrainer):
 
     def evaluate_minibatch(self, features, model_version=-1):
         self.init_variables_if_needed(features)
-        self._flush_pushes()  # read-your-writes for the eval pull
+        self.flush_pushes()  # read-your-writes for the eval pull
         self._sync_model()
         # use_cache=False: evaluation reads the freshest rows.
         rows, _ = self._prefetch_embeddings(features, use_cache=False)
@@ -585,7 +587,7 @@ class ParameterServerTrainer(TorchTrainer):
 
     def close(self):
         try:
-            self._flush_pushes()
+            self.flush_pushes()
         finally:
             if self._push_executor is not None:
                 self._push_executor.shutdown(wait=True)
@@ -600,7 +602,7 @@ class ParameterServerTrainer(TorchTrainer):
         as LocalTrainer.export_variables does."""
         if self._leaves is None:
             return None
-        self._flush_pushes()
+        self.flush_pushes()
         self._sync_model()
         variables = params_to_flax(self._model)
         if self._embedding_vocab:

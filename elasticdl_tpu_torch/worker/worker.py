@@ -199,6 +199,14 @@ class Worker:
                         "batch_process"
                     ):
                         self._process_with_retries(process_batch, records)
+            if task.type == pb.TRAINING:
+                # A training task is done once its gradients are applied:
+                # the pipelined PS trainer's last push lands, and the PS's
+                # version report (which may open an evaluation round) with
+                # it, before the task's report can finish the job.
+                flush = getattr(self._trainer, "flush_pushes", None)
+                if flush is not None:
+                    flush()
             self._tds.report_task(task.task_id)
             _TASKS.labels(result="success").inc()
         except Exception as e:

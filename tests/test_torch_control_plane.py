@@ -133,7 +133,25 @@ def _servicer_pair():
 
 def test_servicer_through_stub_answers_as_jax_servicer():
     ours, theirs = _servicer_pair()
-    stub = rpc.InProcessStub(ours, rpc.MASTER_SERVICE)
+    _answers_as_jax_servicer(
+        rpc.InProcessStub(ours, rpc.MASTER_SERVICE), theirs)
+
+
+def test_servicer_over_the_socket_answers_as_jax_servicer():
+    """The same calls through the port's socket transport (common/rpc.py
+    serve and a channel) answer as the JAX servicer does."""
+    ours, theirs = _servicer_pair()
+    server, port = rpc.serve(ours, rpc.MASTER_SERVICE)
+    channel = rpc.build_channel(f"127.0.0.1:{port}", ready_timeout=0)
+    try:
+        _answers_as_jax_servicer(rpc.Stub(channel, rpc.MASTER_SERVICE),
+                                 theirs)
+    finally:
+        channel.close()
+        server.stop(0)
+
+
+def _answers_as_jax_servicer(stub, theirs):
     logits = np.random.default_rng(0).standard_normal(
         (2, 3, 5)).astype(np.float32)
     labels = np.array([[1, 2, 3], [4, 0, 1]], np.int32)
@@ -189,6 +207,49 @@ def test_servicer_through_stub_answers_as_jax_servicer():
         assert type(got).__name__ == type(want).__name__
         parsed = type(want).FromString(got.SerializeToString())
         assert parsed == want, method
+
+
+def test_master_client_over_the_socket_and_its_reconnect(monkeypatch):
+    """MasterClient on an address: the worker's calls cross the socket and
+    answer as through the in-process stub of an identical servicer;
+    reconnect() waits for a master that rebinds the same port, then swaps
+    the channel."""
+    monkeypatch.setenv("ELASTICDL_RPC_MAX_ATTEMPTS", "1")
+    rpc.reload_config()
+    ours, _ = _servicer_pair()
+    twin, _ = _servicer_pair()
+    server, port = rpc.serve(ours, rpc.MASTER_SERVICE)
+    client = MasterClient(f"127.0.0.1:{port}", 0)
+    local = MasterClient(rpc.InProcessStub(twin, rpc.MASTER_SERVICE), 0)
+    try:
+        for mc in (client, local):
+            assert mc.reconnect() is (mc is client)
+        for call in (lambda mc: mc.get_task(),
+                     lambda mc: mc.get_task_batch(2),
+                     lambda mc: mc.report_task_results(
+                         [(0, "", {"records": 8}, 1)]),
+                     lambda mc: mc.report_task_result(1, lease_token=2),
+                     lambda mc: mc.report_version(2),
+                     lambda mc: mc.report_telemetry(
+                         [dict(role="worker-0", seq=1, full=True)],
+                         origin="worker-0")):
+            assert call(client) == call(local)
+        got, want = client.get_job_status(), local.get_job_status()
+        assert got.records_done == want.records_done == 16
+        server.stop(0)
+        with pytest.raises(rpc.RpcError) as err:
+            client.get_task()
+        assert err.value.code() == rpc.StatusCode.UNAVAILABLE
+        assert client.reconnect(probe_timeout=0.2) is False
+        server, _ = rpc.serve(ours, rpc.MASTER_SERVICE, port=port)
+        assert client.reconnect()
+        rpc.reload_config()  # the breaker tripped on the dead peer
+        assert client.get_job_status().records_done == 16
+    finally:
+        client.close()
+        server.stop(0)
+        monkeypatch.undo()
+        rpc.reload_config()
 
 
 def test_stub_surfaces_handler_errors_as_rpc_errors():

@@ -2,7 +2,8 @@
 chip_smoke.py) imports with jax, flax, optax, grpc, google.protobuf and
 ml_dtypes blocked (none is on the card's machine) and loads nothing of the
 JAX package; the control-plane modules among them (the journal, the policy
-engine, the telemetry plane, the chaos seams) import without grpc."""
+engine, the telemetry plane, the chaos seams, the socket transport, the
+process entry points and the instance manager) import without grpc."""
 
 import os
 import pkgutil
@@ -61,7 +62,9 @@ def test_port_imports_with_jax_blocked():
                  "observability.push", "observability.alerts",
                  "observability.aggregator", "observability.flightrec",
                  "observability.dashboard",
-                 "worker.prediction_outputs_processor"):
+                 "worker.prediction_outputs_processor", "common.rpc",
+                 "master.instance_manager", "master.main", "ps.main",
+                 "worker.main", "chaos.process", "data.recordfile"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],

@@ -11,6 +11,7 @@ import json
 import os
 import signal
 import sys
+import time
 import types
 import urllib.error
 import urllib.request
@@ -161,6 +162,86 @@ def test_push_delta_matches_jax():
     assert "edl_rt_total 6" in out[PORT] and 'kind="a"' not in out[PORT]
 
 
+class _ScriptedRegistry:
+    """A registry whose exposition advances one text per expose()."""
+
+    def __init__(self, texts):
+        self._texts = list(texts)
+        self._i = 0
+
+    def expose(self):
+        text = self._texts[min(self._i, len(self._texts) - 1)]
+        self._i += 1
+        return text
+
+
+def _run_reporter(mods):
+    """One package's TelemetryReporter through scripted master answers:
+    accepted, need_full, an error, accepted twice; then its thread on a
+    short interval. -> (what the master was sent and push_once returned,
+    the counters, the thread's pushes)."""
+    texts = [_rich_registry(metrics.MetricsRegistry, scale=k).expose()
+             for k in (1, 2, 2, 3, 4)]
+    answers = [
+        types.SimpleNamespace(accepted=1, need_full=[]),
+        types.SimpleNamespace(accepted=0, need_full=["worker-3"]),
+        RuntimeError("master unreachable"),
+        types.SimpleNamespace(accepted=1, need_full=[]),
+        types.SimpleNamespace(accepted=1, need_full=[]),
+    ]
+    sent = []
+
+    def report(snaps, origin=""):
+        snap = snaps[0]
+        sent.append((origin, snap["role"], snap["seq"], snap["full"],
+                     snap["payload"]))
+        answer = answers[len(sent) - 1]
+        if isinstance(answer, Exception):
+            raise answer
+        return answer
+
+    reporter = mods["push"].TelemetryReporter(
+        report, _ScriptedRegistry(texts), role="worker-3", interval=0.01,
+        jitter=0.0, full_every=0, seed=3)
+    returned = [reporter.push_once() for _ in answers]
+    counters = (reporter.pushes, reporter.errors)
+    threaded = mods["push"].TelemetryReporter(
+        lambda snaps, origin="": types.SimpleNamespace(
+            accepted=len(snaps), need_full=[]),
+        _ScriptedRegistry(texts), role="worker-3", interval=0.01,
+        jitter=0.2, seed=3).start()
+    deadline = time.time() + 10
+    while threaded.pushes < 3 and time.time() < deadline:
+        time.sleep(0.01)
+    threaded.close()
+    idle = mods["push"].TelemetryReporter(
+        report, _ScriptedRegistry(texts), role="worker-3", interval=0)
+    return (sent, returned, counters, threaded.pushes >= 3,
+            idle.enabled, idle.start()._thread), reporter
+
+
+def test_telemetry_reporter_matches_jax(monkeypatch):
+    """The port's reporter sends the JAX reporter's snapshots (seq, full
+    after need_full, deltas otherwise) for the same answers, counts the
+    same pushes and errors, and runs its thread the same way. Its own
+    counters add the accepted snapshots and payload bytes. Its default
+    interval is 2 s where the JAX package's is 0 (off)."""
+    got, reporter = _run_reporter(MODULES[PORT])
+    want, _ = _run_reporter(MODULES[JAX])
+    assert got == want
+    sent = got[0]
+    assert [(seq, full) for _, _, seq, full, _ in sent] == [
+        (1, True), (2, False), (3, True), (4, False), (5, False)]
+    assert got[1] == [True, True, False, True, True]
+    assert got[2] == (4, 1)
+    stats = reporter.stats()
+    assert stats["accepted"] == 3 and stats["errors"] == 1
+    assert stats["payload_bytes"] == sum(len(p) for *_, p in sent)
+    monkeypatch.delenv(push.PUSH_INTERVAL_ENV, raising=False)
+    assert push.TelemetryReporter(None, None, "worker-0").interval == 2.0
+    assert jax_push.TelemetryReporter(None, None, "worker-0").interval == 0.0
+
+
 SIGNALS = [
     # (now, signals): a straggler rises and clears, a PS shard runs hot,
     # progress stalls with tasks in flight, a task is abandoned, a worker
@@ -273,6 +354,76 @@ def test_aggregator_summary_matches_jax(tmp_path):
     frame = dashboard.render(last, width=100)
     assert frame == jax_dashboard.render(last, width=100)
     assert "worker-0" in frame
+
+
+class _TextRegistry:
+    """A registry whose exposition is a given text (a role's at a step)."""
+
+    def __init__(self, role, state):
+        self._role = role
+        self._state = state
+
+    def expose(self):
+        return _scrape_texts(self._state["step"])[self._role]
+
+
+def _run_push(mods, servicer_cls, dispatcher_cls, request_module, obs_dir):
+    """The aggregator of one package fed by push (worker-0 and ps-0, through
+    its servicer's ReportTelemetry handler) and by pull (the other two
+    roles) at the same `now`; one worker-0 push is lost on the way, so the
+    next delta is refused and the reporter resends a full snapshot."""
+    agg = mods["aggregator"].TelemetryAggregator(
+        obs_dir, registry=mods["registry"](), job="agg", interval=1.0)
+    state = {"step": 0}
+    agg._scrape = lambda info: _scrape_texts(state["step"])[info["role"]]
+    servicer = servicer_cls(dispatcher_cls({}, {}, {}))
+    servicer.bind_job_context(aggregator=agg)
+    pushers = {role: mods["push"].TelemetryPusher(
+        _TextRegistry(role, state), role, full_every=4)
+        for role in ("worker-0", "ps-0")}
+    trail = []
+    for step, now in enumerate((1000.0, 1010.0, 1020.0, 1030.0, 1040.0)):
+        state["step"] = step
+        for role, pusher in pushers.items():
+            snap = pusher.snapshot()
+            if role == "worker-0" and step == 1:
+                continue  # lost on the way
+            request = request_module.ReportTelemetryRequest(origin=role)
+            request.snapshots.add(**snap)
+            agg_now = agg.ingest_push
+            agg.ingest_push = lambda snaps, origin="", _f=agg_now: _f(
+                snaps, origin=origin, now=now)
+            try:
+                response = servicer.report_telemetry(request, None)
+            finally:
+                agg.ingest_push = agg_now
+            if role in response.need_full:
+                pusher.reset()
+            trail.append((role, snap["seq"], snap["full"],
+                          response.accepted, list(response.need_full)))
+        agg.poll_once(now=now)
+        trail.append(agg.summary())
+    agg.close()
+    return trail
+
+
+def test_pushed_telemetry_gives_the_jax_summary(tmp_path):
+    obs_dir = str(tmp_path)
+    os.makedirs(os.path.join(obs_dir, "endpoints"))
+    for role in ("worker-0", "worker-1", "ps-0", "ps-1"):
+        with open(os.path.join(obs_dir, "endpoints", f"{role}.json"),
+                  "w") as f:
+            json.dump({"role": role, "port": 1, "pid": 0,
+                       "host": "127.0.0.1"}, f)
+    got = _run_push(MODULES[PORT], MasterServicer, TaskDispatcher, pb,
+                    obs_dir)
+    want = _run_push(MODULES[JAX], JaxServicer, JaxTaskDispatcher, pb2,
+                     obs_dir)
+    assert got == want
+    assert ("worker-0", 3, False, 0, ["worker-0"]) in got  # the gap
+    fleet = got[-1]["fleet"]
+    assert fleet["push_roles"] == 2 and fleet["pull_roles"] == 2
+    assert got[-1]["stragglers"] == ["worker-0"]
 
 
 def _flight_trail(side, tmp_path):

@@ -4,6 +4,8 @@ feed) against the JAX package's: the host library's applies against their
 numpy reference and the JAX optimizer, table rows, servicer answers for the
 same request bytes, checkpoints across the two packages, the feed."""
 
+import time
+
 import numpy as np
 import pytest
 
@@ -322,6 +324,76 @@ def test_in_process_stub_futures_and_errors():
         assert err.value.code() == rpc.StatusCode.UNKNOWN
     finally:
         stub.close()
+
+
+def test_served_shard_futures_and_errors_over_the_socket():
+    ps = ParameterServer(0, 1, port=0, optimizer_spec=optimizers.sgd(0.1))
+    channel = rpc.build_channel(ps.addr, ready_timeout=0)
+    stub = rpc.Stub(channel, rpc.PSERVER_SERVICE)
+    try:
+        stub.push_model(pb.Model.FromString(_model_bytes()))
+        futures = [stub.pull_dense_parameters.future(
+            pb.PullDenseParametersRequest()) for _ in range(6)]
+        assert all(f.result().initialized for f in futures)
+        with pytest.raises(rpc.RpcError) as err:
+            stub.pull_embedding_vectors.future(pb.PullEmbeddingVectorsRequest(
+                name="nope", ids_bytes=b"\0" * 8)).result()
+        assert err.value.code() == rpc.StatusCode.UNKNOWN
+    finally:
+        channel.close()
+        ps.stop()
+
+
+def test_ps_main_exits_when_the_master_stops_answering(monkeypatch):
+    """ps/main.py serves its shard and leaves once report_version to the
+    master fails."""
+    import threading
+
+    from elasticdl_tpu_torch.ps import main as ps_main
+
+    for name, value in (("ELASTICDL_RPC_MAX_ATTEMPTS", "1"),
+                        ("ELASTICDL_RPC_READY_TIMEOUT", "0"),
+                        ("ELASTICDL_METRICS_PORT", "-1"),
+                        ("ELASTICDL_OBS_DIR", ""),
+                        ("ELASTICDL_FLIGHTREC", "0")):
+        monkeypatch.setenv(name, value)
+    rpc.reload_config()
+    versions = []
+
+    class Master:
+        def __getattr__(self, method):
+            def handler(request, context):
+                versions.append(request.model_version)
+                return pb.Empty()
+            return handler
+
+    master, master_port = rpc.serve(Master(), rpc.MASTER_SERVICE)
+    probe = __import__("socket").socket()
+    probe.bind(("127.0.0.1", 0))
+    ps_port = probe.getsockname()[1]
+    probe.close()
+    out = {}
+    thread = threading.Thread(target=lambda: out.update(rc=ps_main.main([
+        "--ps_id", "0", "--num_ps", "1", "--port", str(ps_port),
+        "--master_addr", f"127.0.0.1:{master_port}",
+        "--model_def", "elasticdl_tpu_torch.models.dac_ctr.deepfm_ps",
+    ], poll_seconds=0.05)))
+    thread.start()
+    try:
+        assert rpc.wait_channel_ready(f"127.0.0.1:{ps_port}", 10)
+        deadline = time.time() + 10
+        while not versions and time.time() < deadline:
+            time.sleep(0.02)
+        assert versions and versions[0] == 0
+        master.stop(0)
+        thread.join(timeout=20)
+        assert not thread.is_alive() and out["rc"] == 0
+        assert not rpc.wait_channel_ready(f"127.0.0.1:{ps_port}", 0.3)
+    finally:
+        master.stop(0)
+        thread.join(timeout=20)
+        monkeypatch.undo()
+        rpc.reload_config()
 
 
 # ---------- checkpoints across the two packages ----------

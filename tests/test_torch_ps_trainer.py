@@ -138,9 +138,51 @@ def three_steps():
     trainer.load_flax_params(named)
     losses = [float(trainer.train_minibatch(f, l)[2]) for f, l in batches]
     client.close()
+
+    # The same steps over the port's socket transport: shards serving on
+    # ports, the client on their addresses.
+    served = [ParameterServer(i, 2, port=0,
+                              optimizer_spec=spec.build_optimizer_spec())
+              for i in range(2)]
+    try:
+        client = PSClient([s.addr for s in served], worker_id=0,
+                          wire_dtype="float32")
+        trainer = ParameterServerTrainer(
+            spec.build_model(), spec.loss, spec.build_optimizer_spec(),
+            client, embedding_inputs=spec.module.embedding_inputs,
+            pipeline_pushes=False, prefetch_overlap=False, device="cpu")
+        socket_pushes = _capture_pushes(client)
+        trainer.load_flax_params(named)
+        socket_losses = [float(trainer.train_minibatch(f, l)[2])
+                         for f, l in batches]
+        client.close()
+    finally:
+        for s in served:
+            s.stop()
     return dict(named=named, j_losses=j_losses, losses=losses,
                 j_pushes=j_pushes, pushes=pushes, j_state=j_state,
-                shards=shards)
+                shards=shards, socket_losses=socket_losses,
+                socket_pushes=socket_pushes, socket_shards=served)
+
+
+def test_three_steps_over_sockets_equal_in_process(three_steps):
+    """PSClient on addresses, shards serving over the socket transport: the
+    same losses, pushes and shard state, bitwise, as on in-process stubs."""
+    r = three_steps
+    assert r["socket_losses"] == r["losses"]
+    for (dense, sparse), (s_dense, s_sparse) in zip(r["pushes"],
+                                                    r["socket_pushes"]):
+        assert sorted(dense) == sorted(s_dense)
+        for name in dense:
+            np.testing.assert_array_equal(dense[name], s_dense[name])
+        for table in sparse:
+            for a, b in zip(sparse[table], s_sparse[table]):
+                np.testing.assert_array_equal(a, b)
+    for shard, served in zip(r["shards"], r["socket_shards"]):
+        assert shard.parameters.version == served.parameters.version
+        for name, value in shard.parameters.dense.items():
+            np.testing.assert_array_equal(value,
+                                          served.parameters.dense[name])
 
 
 def test_first_step_loss_and_gradients_match_jax(three_steps):

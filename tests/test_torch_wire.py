@@ -111,6 +111,14 @@ CASES = {
         push_id=(2**63) + 12345, chunk_index=1, chunk_count=3,
         payload_offset=1 << 20, payload_total_bytes=3 << 20,
         payload=b"\x00\xff" * 12)),
+    "ReportTelemetryRequest": ("ReportTelemetryRequest", dict(
+        snapshots=[dict(role="worker-0", pid=4242, seq=3, full=True,
+                        payload="edl_worker_steps_total 7\n"),
+                   dict(role="ps-1", pid=-1, seq=2**40)],
+        origin="worker-0")),
+    "ReportTelemetryResponse": ("ReportTelemetryResponse", dict(
+        accepted=2, need_full=["ps-1", "worker-3"])),
+    "TelemetrySnapshot": ("TelemetrySnapshot", dict(role="master")),
     "JobStatusResponse_maps": ("JobStatusResponse", dict(
         records_done=64, last_eval_metrics={"token_ce": 1.5, "z": -0.0},
         worker_last_seen_ago={0: 0.25, -1: 3.0},
