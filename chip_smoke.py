@@ -167,10 +167,37 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    pushes from every process; prints the recovery times, ms per step
    beside the in-process ps_step f32 pipelined step, bytes per step over
    the socket and the wall beside ps_job's.
+15. client: the user's entry points, `python -m
+   elasticdl_tpu_torch.client.main`, each command with the master in its
+   own process and one worker process on the card. `edl train` of the
+   flagship (32 records in tasks of 16, training only, exported with
+   --output), then `edl predict` of 8 records from that export, its model
+   def adding a prediction-outputs processor that saves each minibatch's
+   last-position logits; they must equal this process's forward of the
+   same export within 1e-4 of the largest value. Then `edl train` and
+   `edl evaluate` of the MNIST CNN (the flagship's evaluation report is
+   over the transport's cap): its metrics must land in metrics.jsonl.
+   Checks each worker's launches exactly from its exit line (the train
+   worker 12 each of flash_fwd_lse, flash_dq, flash_dkv per step and no
+   flash_fwd; the predict worker 12 flash_fwd per minibatch and nothing
+   else); prints each command's wall time and its processes' timeline.
+16. k8s: `edl train --instance_backend k8s` of the flagship (48 records
+   in tasks of 16, one worker pod, training only) against
+   tests/fake_k8s_server.py on loopback (EDL_K8S_API_SERVER). _Kubelet
+   runs each pod created there as a local process and reports its phases;
+   the client creates the master pod, the master pod's K8sInstanceManager
+   the worker pod. After the worker's first accepted report its pod is
+   SIGKILLed and reported Failed with exit code 137, reason Preempted; the
+   master relaunches it as -r1, which trains the tasks left. Checks
+   records_done 48, one relaunch, the master pod Succeeded, the
+   TensorBoard service, no process left and the relaunched pod's
+   launches; prints the time from the kill to the relaunched pod's first
+   accepted report beside proc_lm's worker recovery.
 The PS, CTR and zoo phases launch none of the flash-attention kernels;
-their counts are reset before each and read after it. proc_lm's kernels
-run in its worker processes: each logs its counts at its exit, and the
-kernels line carries them as proc_lm_launches. Then each phase's
+their counts are reset before each and read after it. proc_lm's, the
+client's and the k8s pods' kernels run in their worker processes: each
+logs its counts at its exit, and the kernels line carries them as
+proc_lm_launches, client_launches and k8s_launches. Then each phase's
 seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
 {...}}.
 """
@@ -190,6 +217,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import urllib.request
@@ -202,6 +230,7 @@ import torch.nn.functional as F
 from elasticdl_tpu_torch import native
 from elasticdl_tpu_torch.common import args as edl_args
 from elasticdl_tpu_torch.common import rpc, tensor_utils
+from elasticdl_tpu_torch.common.model_utils import Modes
 from elasticdl_tpu_torch.common.params import (
     flax_leaves,
     params_from_flax,
@@ -212,7 +241,7 @@ from elasticdl_tpu_torch.common.save_utils import save_trainer_checkpoint
 from elasticdl_tpu_torch.data.example import encode_example
 from elasticdl_tpu_torch.data.gen.criteo import iter_criteo_records
 from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
-from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
+from elasticdl_tpu_torch.data.recordfile import RecordFile, RecordFileWriter
 from elasticdl_tpu_torch.layers import moe as moe_layer
 from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv
 from elasticdl_tpu_torch.master import journal as master_journal
@@ -3649,6 +3678,471 @@ def phase_processes(results):
             "record_reader": reader}
 
 
+# The `edl` client on the card: the flagship trained with `edl train`
+# (CLIENT_TRAIN records in tasks of CLIENT_TASK, training only, exported),
+# CLIENT_PREDICT records predicted from that export with `edl predict`,
+# and the MNIST CNN trained and evaluated (its report fits under the
+# transport's cap; the flagship's 2 GiB one does not, as in the JAX
+# package). Each command runs the master in its own process and one
+# worker process.
+CLIENT_TRAIN = 32
+CLIENT_PREDICT = 8
+CLIENT_TASK = 16
+CLIENT_MNIST_TRAIN = 256
+CLIENT_MNIST_VALID = 64
+CLIENT_MNIST_BATCH = 32
+CLIENT_LOGITS_RTOL = 1e-4
+CLIENT_TIMEOUT = 300
+# The predict job's model definition: MODEL_DEF with a prediction-outputs
+# processor that saves each minibatch's last-position logits.
+CLIENT_PREDICT_DEF = MODEL_DEF + """
+
+import numpy as _np
+
+
+class _LastLogits:
+    def __init__(self):
+        self.rows = []
+
+    def process(self, predictions, worker_id):
+        self.rows.append(_np.asarray(predictions)[:, -1])
+
+    def close(self):
+        _np.save({out!r}, _np.concatenate(self.rows))
+
+
+prediction_outputs_processor = _LastLogits()
+"""
+
+
+def _edl(command, argv, env, log_path, timeout=CLIENT_TIMEOUT):
+    """`python -m elasticdl_tpu_torch.client.main <command> <argv>` in a
+    process group of its own, its output (and its children's) to log_path;
+    -> (exit code, seconds, log text). The group is killed on the way
+    out."""
+    start = time.time()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.client.main",
+             command, *argv],
+            cwd=REPO_DIR, env=env, stdout=log, stderr=subprocess.STDOUT,
+            process_group=0)
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    with open(log_path, errors="replace") as f:
+        text = f.read()
+    return rc, time.time() - start, text
+
+
+def _edl_run(name, command, argv, env, root, logs):
+    """One `edl` command of the client phase -> its record (exit code,
+    wall, its processes' timeline and the worker's exit lines); a
+    nonzero exit raises."""
+    log = os.path.join(root, f"{name}.log")
+    logs.append(log)
+    start = time.time()
+    rc, wall_s, text = _edl(command, argv, env, log)
+    record = {"rc": rc, "wall_s": wall_s,
+              "timeline": _timeline(text, start),
+              "worker_exits": _exit_lines(text, "Worker")}
+    if rc != 0:
+        raise AssertionError(f"edl {command} ({name}) exited {rc}")
+    return record, text
+
+
+def _client_reference(ckpt, records):
+    """The flagship's last-position logits on the prediction `records`, by
+    this process on the card from the exported weights, minibatch by
+    minibatch as the predict worker ran them."""
+    cfg = tlm.flagship_config(SEQ)
+    trainer = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer())
+    trainer.restore_on_init = ckpt
+    rows = []
+    for i in range(0, len(records), BATCH):
+        features, _ = tlm.feed(records[i:i + BATCH], Modes.PREDICTION, None)
+        rows.append(trainer.evaluate_minibatch(features)[:, -1])
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return np.concatenate(rows)
+
+
+def _launch_check(exits, counts):
+    """Each worker process's flash-attention launches as its exit line
+    gives them, against {kernel: launches per step, or "fwd": per
+    predicted minibatch}; True if all exact."""
+    ok = bool(exits)
+    for records in exits.values():
+        for e in records:
+            got = {k: v for k, v in e["kernel_launches"].items() if v}
+            ok = ok and got == counts(e)
+    return ok
+
+
+def phase_client(results):
+    """`edl train`, `edl predict` and `edl evaluate` through the port's
+    client on the card."""
+    device = results["device"]
+    card = {"card": device["nvidia_smi"]}
+    layers = tlm.flagship_config(SEQ).n_layers
+    env = _proc_env()
+    logs = []
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            cfg = tlm.flagship_config(SEQ)
+            paths, _ = _write_job_inputs(root, cfg, n_train=CLIENT_TRAIN,
+                                         n_valid=CLIENT_PREDICT)
+            rf = RecordFile(paths["valid"])
+            predict_records = list(rf.read(0, CLIENT_PREDICT))
+            rf.close()
+            out = os.path.join(root, "last_logits.npy")
+            predict_def = os.path.join(root, "lm_predict_def.py")
+            with open(predict_def, "w") as f:
+                f.write(CLIENT_PREDICT_DEF.format(seq=SEQ, out=out))
+            ckpt = os.path.join(root, "flagship.npz")
+            common = ["--distribution_strategy", "Local",
+                      "--num_workers", "1", "--master_port", "0",
+                      "--task_timeout_check_seconds", "1", "--seed", "0",
+                      "--minibatch_size", str(BATCH)]
+            train, _ = _edl_run("train", "train", [
+                "--model_def", paths["model_def"],
+                "--training_data", paths["train"],
+                "--records_per_task", str(CLIENT_TASK),
+                "--num_epochs", "1", "--log_loss_steps", "1",
+                "--output", ckpt, "--job_name", "client-train", *common],
+                env, root, logs)
+            predict, _ = _edl_run("predict", "predict", [
+                "--model_def", predict_def,
+                "--prediction_data", paths["valid"],
+                "--records_per_task", str(CLIENT_PREDICT),
+                "--checkpoint_dir_for_init", ckpt,
+                "--job_name", "client-predict", *common], env, root, logs)
+            got = np.load(out)
+            want = _client_reference(ckpt, predict_records)
+            err = float(np.abs(got - want).max()) if got.shape == (
+                want.shape) else math.inf
+            rel = err / max(float(np.abs(want).max()), 1e-30)
+            mnist = {}
+            mnist_data = {}
+            for split, n in (("train", CLIENT_MNIST_TRAIN),
+                             ("valid", CLIENT_MNIST_VALID)):
+                split_root = os.path.join(root, f"mnist_{split}")
+                os.makedirs(split_root)
+                mnist_data[split] = _zoo_small_records(
+                    "mnist", split_root, n)
+            mnist_ckpt = os.path.join(root, "mnist.npz")
+            obs = os.path.join(root, "mnist_metrics")
+            mnist_common = [
+                "--model_def", ZOO_SMALL["mnist"][0],
+                "--records_per_task", str(2 * CLIENT_MNIST_BATCH),
+                *common[:-1], str(CLIENT_MNIST_BATCH)]
+            mnist["train"], _ = _edl_run("mnist_train", "train", [
+                "--training_data", mnist_data["train"], "--num_epochs", "2",
+                "--output", mnist_ckpt, "--job_name", "client-mnist",
+                *mnist_common], env, root, logs)
+            mnist["evaluate"], _ = _edl_run("mnist_evaluate", "evaluate", [
+                "--validation_data", mnist_data["valid"],
+                "--checkpoint_dir_for_init", mnist_ckpt,
+                "--metrics_dir", obs, "--job_name", "client-mnist-eval",
+                *mnist_common], env, root, logs)
+            evals = [m for m in _jsonl(os.path.join(obs, "metrics.jsonl"))
+                     if m["group"] == "eval"]
+        except BaseException:
+            _print_log_tails(logs)
+            raise
+    emit({"phase": "client", **card, "train": train, "predict": predict,
+          "predict_last_logits_max_abs_err": err,
+          "predict_last_logits_rel_err": rel, "mnist": mnist,
+          "mnist_evals": evals})
+    steps = CLIENT_TRAIN // BATCH
+    batches = CLIENT_PREDICT // BATCH
+    trains = {n: layers for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}
+    checks = [
+        (len(train["worker_exits"].get("worker-0", [])) == 1
+         and train["worker_exits"]["worker-0"][0]["steps"] == steps,
+         "the train worker's steps"),
+        # Training runs the three training kernels once per layer and
+        # step and no plain forward.
+        (_launch_check(train["worker_exits"], lambda e: {
+            n: k * e["steps"] for n, k in trains.items()}),
+         "the train worker's kernel launches"),
+        # Prediction runs the forward without lse, once per layer and
+        # predicted minibatch, and nothing else.
+        (_launch_check(predict["worker_exits"], lambda e: {
+            "flash_fwd": layers * batches}), "the predict worker's launches"),
+        (got.shape == (CLIENT_PREDICT, cfg.vocab)
+         and np.isfinite(got).all(), "the predicted logits' shape"),
+        (rel <= CLIENT_LOGITS_RTOL, "predicted logits vs this process's"),
+        (evals and all("accuracy" in m and math.isfinite(m["accuracy"])
+                       for m in evals), "MNIST evaluation in metrics.jsonl"),
+    ]
+    failed = [what for ok, what in checks if not ok]
+    if failed:
+        raise AssertionError(f"client phase: {failed}")
+    return {"train": train, "predict": predict, "mnist": mnist,
+            "predict_last_logits_rel_err": rel}
+
+
+# The k8s backend on the card: the flagship submitted with `edl train
+# --instance_backend k8s` against tests/fake_k8s_server.py (K8S_RECORDS
+# records in tasks of K8S_TASK, one worker pod, training only), the pods
+# run by _Kubelet; the worker pod is preempted after its first accepted
+# report and relaunched by the master.
+K8S_RECORDS = 48
+K8S_TASK = 16
+K8S_NS = "default"
+K8S_JOB = "k8s-lm"
+K8S_GRACE_S = 30
+
+
+class _Kubelet:
+    """Plays kubelet for a fake API server: each pod created there runs as
+    a local process (its container's command, `python` resolved to this
+    interpreter, the container's env values over `env`, MY_POD_IP
+    127.0.0.1) in a process group of its own, its output to
+    <root>/<pod>.log. It reports Running at the start and Succeeded, or
+    Failed with the exit code, at the exit; a pod deleted while its
+    process runs gets SIGTERM, then SIGKILL after K8S_GRACE_S. preempt()
+    SIGKILLs a pod's processes and reports exit code 137, reason
+    Preempted."""
+
+    def __init__(self, server, root, env):
+        self._server = server
+        self._root = root
+        self._env = env
+        self.procs = {}  # pod name -> Popen
+        self.started = {}  # pod name -> time
+        self.exited = {}  # pod name -> (exit code, time)
+        self._preempted = set()
+        self._deleted = {}  # pod name -> time SIGTERM was sent
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def log(self, name):
+        return os.path.join(self._root, f"{name}.log")
+
+    def _phase(self, name, phase, statuses=None):
+        try:
+            self._server.set_pod_phase(K8S_NS, name, phase, statuses)
+        except KeyError:
+            pass  # deleted meanwhile
+
+    def _start(self, name, pod):
+        container = pod["spec"]["containers"][0]
+        command = list(container["command"])
+        if command[0] == "python":
+            command[0] = sys.executable
+        env = dict(self._env)
+        env.update({e["name"]: e["value"] for e in container.get("env", [])
+                    if "value" in e})
+        env["MY_POD_IP"] = "127.0.0.1"
+        with open(self.log(name), "wb") as log:
+            self.procs[name] = subprocess.Popen(
+                command, cwd=REPO_DIR, env=env, stdout=log,
+                stderr=subprocess.STDOUT, process_group=0)
+        self.started[name] = time.time()
+        self._phase(name, "Running")
+
+    def _exit_status(self, name, rc):
+        if name in self._preempted:
+            code, reason = 137, "Preempted"
+        else:
+            code, reason = (rc if rc > 0 else 128 - rc), "Error"
+        return [{"state": {"terminated": {"exitCode": code,
+                                          "reason": reason}}}]
+
+    def _loop(self):
+        while not self._stop.is_set():
+            pods = self._server.pods(K8S_NS)
+            for name, pod in pods.items():
+                if (name not in self.procs
+                        and (pod.get("status") or {}).get("phase")
+                        == "Pending"):
+                    self._start(name, pod)
+            now = time.time()
+            for name, proc in list(self.procs.items()):
+                if name in self.exited:
+                    continue
+                rc = proc.poll()
+                if rc is None:
+                    if name not in pods:
+                        first = self._deleted.setdefault(name, now)
+                        sig = (signal.SIGTERM if first == now else
+                               signal.SIGKILL if now - first > K8S_GRACE_S
+                               else None)
+                        if sig is not None:
+                            _killpg(proc, sig)
+                    continue
+                self.exited[name] = (rc, now)
+                if rc == 0:
+                    self._phase(name, "Succeeded")
+                else:
+                    self._phase(name, "Failed", self._exit_status(name, rc))
+            self._stop.wait(0.02)
+
+    def preempt(self, name):
+        self._preempted.add(name)
+        _killpg(self.procs[name], signal.SIGKILL)
+        return time.time()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        for proc in self.procs.values():
+            _killpg(proc, signal.SIGKILL)
+            proc.wait(timeout=30)
+
+
+def _killpg(proc, sig):
+    try:
+        os.killpg(proc.pid, sig)
+    except ProcessLookupError:
+        pass
+
+
+def phase_k8s(results):
+    """`edl train --instance_backend k8s` of the flagship against the fake
+    API server, with a preempted worker pod."""
+    sys.path.insert(0, os.path.join(REPO_DIR, "tests"))
+    from fake_k8s_server import FakeK8sApiServer
+
+    from elasticdl_tpu_torch.chaos import process as chaos_process
+
+    device = results["device"]
+    card = {"card": device["nvidia_smi"]}
+    layers = tlm.flagship_config(SEQ).n_layers
+    torch.cuda.empty_cache()
+    server = FakeK8sApiServer()
+    kubelet = port = None
+    logs = []
+    master_pod = f"elasticdl-{K8S_JOB}-master"
+    worker_pod = f"elasticdl-{K8S_JOB}-worker-0"
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            paths, _ = _write_job_inputs(root, tlm.flagship_config(SEQ),
+                                         n_train=K8S_RECORDS, n_valid=0)
+            obs = os.path.join(root, "metrics")
+            env = _proc_env(EDL_K8S_API_SERVER=server.endpoint,
+                            ELASTICDL_OBS_DIR=obs)
+            kubelet = _Kubelet(server, root, env)
+            logs += [kubelet.log(master_pod), kubelet.log(worker_pod),
+                     kubelet.log(worker_pod + "-r1")]
+            start = time.time()
+            submit = os.path.join(root, "submit.log")
+            logs.append(submit)
+            rc, submit_s, _ = _edl("train", [
+                "--model_def", paths["model_def"],
+                "--distribution_strategy", "Local",
+                "--training_data", paths["train"],
+                "--records_per_task", str(K8S_TASK), "--num_epochs", "1",
+                "--minibatch_size", str(BATCH), "--log_loss_steps", "1",
+                "--num_workers", "1", "--instance_backend", "k8s",
+                "--image_name", "elasticdl_tpu_torch:card",
+                "--job_name", K8S_JOB, "--master_port", "0",
+                "--metrics_dir", obs, "--task_timeout_check_seconds", "1",
+                "--seed", "0"], env, submit)
+            if rc != 0:
+                raise AssertionError(f"edl train (k8s) exited {rc}")
+            _proc_wait(lambda: master_pod in kubelet.procs,
+                       "the master pod's process")
+            master = kubelet.procs[master_pod]
+            port = _proc_port(kubelet.log(master_pod), master)
+            status = _proc_status(port)
+            _proc_wait(lambda: status().records_done >= K8S_TASK,
+                       "the worker's first accepted report", master)
+            kill = kubelet.preempt(worker_pod)
+            _proc_wait(lambda: kubelet.exited.get(master_pod),
+                       "the master pod's exit")
+            _proc_wait(lambda: all(p.poll() is not None
+                                   for p in kubelet.procs.values()),
+                       "the pods' processes' exit")
+            left = chaos_process.find_job_pids(port)
+            wall_s = time.time() - start
+            pods = {name: (pod.get("status") or {}).get("phase")
+                    for name, pod in server.pods(K8S_NS).items()}
+            services = sorted(server.services(K8S_NS))
+        except BaseException:
+            _print_log_tails(logs)
+            raise
+        finally:
+            if kubelet is not None:
+                kubelet.stop()
+            server.stop()
+        texts = {name: open(kubelet.log(name), errors="replace").read()
+                 for name in kubelet.procs}
+        spans = _trace_spans(obs, "worker-0")
+        trains = [m for m in _jsonl(os.path.join(obs, "metrics.jsonl"))
+                  if m["group"] == "train"]
+        events = _jsonl(os.path.join(obs, "events.jsonl"))
+    relaunched = worker_pod + "-r1"
+    exits = {name: _exit_lines(text, "Worker").get("worker-0", [])
+             for name, text in texts.items() if name != master_pod}
+    k8s = {
+        "submit_s": submit_s, "wall_s": wall_s,
+        "timeline": sorted(
+            (t, f"{name}: {label}") for name, text in texts.items()
+            for t, label in _timeline(text, start)),
+        "pods_started_at_s": {n: t - start
+                              for n, t in kubelet.started.items()},
+        "pods_exited": {n: (rc, t - start)
+                        for n, (rc, t) in kubelet.exited.items()},
+        "pod_phases_at_end": pods, "services": services,
+        "kill_at_s": kill - start,
+        "records_done": trains[-1]["records_done"] if trains else None,
+        "pod_relaunch": [e["instance"] for e in events
+                         if e["kind"] == "pod_relaunch"],
+        "worker_exits": exits,
+        "processes_left": len(left),
+        "losses": [float(x) for x in re.findall(
+            r"\) loss (\S+)", "".join(texts.values()))],
+        # The relaunched pod's recovery: kill to its first accepted
+        # report (its first get_task beside it).
+        "kill_to_relaunched_pod_started_s": (
+            kubelet.started.get(relaunched, math.inf) - kill),
+        "kill_to_first_get_task_s": _first_after(spans, "/get_task", kill),
+        "kill_to_first_report_s": _first_after(
+            spans, "/report_task_result", kill, end=True, ok=True),
+        "proc_lm_worker_kill_to_first_report_s": results["processes"][
+            "proc_lm"]["worker_kill_to_first_report_s"],
+    }
+    emit({"phase": "k8s", **card, **k8s})
+    steps = (K8S_RECORDS - K8S_TASK) // BATCH
+    checks = [
+        (k8s["records_done"] == K8S_RECORDS, "records_done"),
+        (k8s["pod_relaunch"] == ["worker-0"], "worker 0 relaunched once"),
+        (pods.get(master_pod) == "Succeeded", "the master pod Succeeded"),
+        (sorted(kubelet.procs) == [master_pod, worker_pod, relaunched],
+         "the pods the master created"),
+        (kubelet.exited[master_pod][0] == 0
+         and kubelet.exited[relaunched][0] == 0, "the pods' exit codes"),
+        (f"tensorboard-{K8S_JOB}" in services, "the TensorBoard service"),
+        (not left, "no process left"),
+        (k8s["losses"] and all(math.isfinite(x) for x in k8s["losses"]),
+         "finite losses"),
+        (not exits[worker_pod] and len(exits[relaunched]) == 1
+         and exits[relaunched][0]["steps"] == steps,
+         "the relaunched pod trained the tasks left"),
+        (_launch_check({relaunched: exits[relaunched]}, lambda e: {
+            n: layers * e["steps"]
+            for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}),
+         "the relaunched pod's kernel launches"),
+        (k8s["kill_to_first_report_s"] is not None,
+         "the relaunched pod reported a task"),
+    ]
+    failed = [what for ok, what in checks if not ok]
+    if failed:
+        raise AssertionError(f"k8s phase: {failed}")
+    return k8s
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
@@ -3658,7 +4152,9 @@ def main():
               ("ps_step", phase_ps_step), ("ps_job", phase_ps_job),
               ("ctr_zoo", phase_ctr_zoo), ("lm_ps", phase_lm_ps),
               ("zoo", phase_zoo),
-              ("processes", lambda: phase_processes(results))]
+              ("processes", lambda: phase_processes(results)),
+              ("client", lambda: phase_client(results)),
+              ("k8s", lambda: phase_k8s(results))]
     results, seconds = {}, {}
     for name, fn in phases:
         # A finished phase's trainers sit in reference cycles until the
@@ -3707,6 +4203,17 @@ def main():
             role: e["kernel_launches"].get(name, 0)
             for role, v in results["processes"]["proc_lm"][
                 "worker_exits"].items() for e in v}
+        # The worker processes of `edl train` and `edl predict`, and the
+        # worker pods of the k8s job (the preempted one logged none).
+        report[name]["client_launches"] = {
+            job: e["kernel_launches"].get(name, 0)
+            for job in ("train", "predict")
+            for v in results["client"][job]["worker_exits"].values()
+            for e in v}
+        report[name]["k8s_launches"] = {
+            pod: e["kernel_launches"].get(name, 0)
+            for pod, v in results["k8s"]["worker_exits"].items()
+            for e in v}
     emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]

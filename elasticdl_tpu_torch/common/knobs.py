@@ -197,6 +197,9 @@ declare("ELASTICDL_ROLE", "str", "",
 declare("ELASTICDL_JOB_NAME", "str", "",
         "Job name stamped into JSON log records and event logs; set by "
         "the master for every spawned instance.")
+declare("ELASTICDL_LOG_LEVEL", "str", "",
+        "Package log level: DEBUG/INFO/WARNING/ERROR or a number; "
+        "default INFO. The k8s master forwards it to its pods.")
 declare("ELASTICDL_OBS_DIR", "str", "",
         "Directory for traces, the event log, and endpoint "
         "advertisements; the master seeds it into every child process.")

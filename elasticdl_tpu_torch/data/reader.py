@@ -3,7 +3,7 @@
 
 `read_records(task)` yields raw records for the task's range;
 `create_shards()` returns {shard_name: (start, num_records)} for the master
-to partition into tasks. The ODPS reader comes with its own slice.
+to partition into tasks. An `odps://` origin goes to data/odps_reader.py.
 """
 
 import csv
@@ -176,9 +176,12 @@ def create_data_reader(data_origin, records_per_task=None, **kwargs):
     if isinstance(data_origin, (list, tuple)):
         return InMemoryReader(data_origin, **kwargs)
     if isinstance(data_origin, str) and data_origin.startswith("odps://"):
-        raise NotImplementedError(
-            "the ODPS reader is not ported to elasticdl_tpu_torch yet"
+        from elasticdl_tpu_torch.data.odps_reader import (
+            OdpsReader,
+            parse_odps_origin,
         )
+
+        return OdpsReader(**{**parse_odps_origin(data_origin), **kwargs})
     if os.path.isdir(data_origin):
         return RecordFileReader(data_origin, **kwargs)
     if data_origin.endswith(".csv"):

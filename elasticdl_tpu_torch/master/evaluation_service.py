@@ -88,6 +88,15 @@ class EvaluationService:
             self._job = EvaluationJob(self._metrics_factory(), model_version, n)
             return True
 
+    def open_job(self, model_version, total_tasks):
+        """Opens an evaluation job over `total_tasks` evaluation tasks the
+        dispatcher already holds: an evaluation-only job's, created at the
+        start. (The JAX master opens none for them, so their metrics are
+        dropped.)"""
+        with self._lock:
+            self._job = EvaluationJob(
+                self._metrics_factory(), model_version, total_tasks)
+
     def report_evaluation_metrics(self, outputs, labels):
         with self._lock:
             if self._job is None:

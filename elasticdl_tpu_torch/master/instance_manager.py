@@ -8,7 +8,7 @@ failure -> task recovery + relaunch up to the cap. The policy engine's
 actuators (`restart_worker`, `scale_workers`) and the status queries of the
 master's poll loop are the JAX manager's. Children get the master's
 environment plus their ELASTICDL_ROLE stamp; ELASTICDL_TORCH_DEVICE rides
-along in it. The k8s backend comes with the `edl` client.
+along in it. The pods of the k8s backend: master/k8s_instance_manager.py.
 """
 
 import os

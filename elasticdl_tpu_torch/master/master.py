@@ -40,8 +40,14 @@ Two ways to run a job:
   processes, and `relaunch_ps(i)` replaces shard i with a fresh one behind
   the same stubs. The master leaves the process environment alone.
 
-`--instance_backend k8s` raises NotImplementedError: it comes with the
-`edl` client.
+With `--instance_backend k8s` the instance manager
+(master/k8s_instance_manager.py) creates the worker and PS pods over the
+Kubernetes API, with the environment the JAX master forwards to them:
+ELASTICDL_OBS_DIR, the job name and ELASTICDL_LOG_LEVEL (not
+ELASTICDL_COMPILE_CACHE_DIR, as the port has no compile cache, nor
+ELASTICDL_LOG_FORMAT, as the port has no JSON log format). Each PS is reached through its service
+`<job>-ps-<i>:50002`, and with the metrics service on, `serve()` also
+creates the TensorBoard LoadBalancer service in front of the master pod.
 """
 
 import json
@@ -64,6 +70,7 @@ from elasticdl_tpu_torch.master.journal import open_master_journal
 from elasticdl_tpu_torch.master.metrics_service import MetricsService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.ps import checkpoint as ps_checkpoint
 from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
 from elasticdl_tpu_torch.worker.master_client import MasterClient
@@ -109,6 +116,8 @@ _PS_RELAY_ARGS = [
     "model_def",
     "seed",
 ]
+# The port each PS serves on in its pod, behind its service (k8s).
+PS_SERVICE_PORT = 50002
 
 
 def _reject_unported(args):
@@ -120,12 +129,6 @@ def _reject_unported(args):
             "ported to elasticdl_tpu_torch yet; use "
             f"{DistributionStrategy.LOCAL} or "
             f"{DistributionStrategy.PARAMETER_SERVER}"
-        )
-    if args.instance_backend not in ("none", "local_process"):
-        raise NotImplementedError(
-            f"--instance_backend {args.instance_backend} is not ported to "
-            "elasticdl_tpu_torch yet; use local_process, or none and build "
-            "workers in process"
         )
 
 
@@ -190,7 +193,10 @@ class Master:
         if args.output and training_shards:
             # Arm the final export task (a train-end callback task).
             self.task_d.enable_train_end_task()
+        created = self.task_d.pending_tasks(pb.EVALUATION)
         self._open_journal()
+        if self.evaluation_service is not None and not training_shards:
+            self._open_evaluation_only_job(created)
         self.servicer = MasterServicer(
             self.task_d,
             self.evaluation_service,
@@ -217,6 +223,22 @@ class Master:
             if self.instance_manager is None:
                 self.ps_servers = [
                     self._build_ps(i) for i in range(args.num_ps)]
+
+    def _open_evaluation_only_job(self, created):
+        """An evaluation-only job (`edl evaluate`) creates its evaluation
+        tasks at the start, for the model the workers restore (version -1);
+        the evaluation job opens over those the dispatcher still holds
+        after a journal replay. The metric state is not journaled, so after
+        a relaunch the results cover the tasks evaluated since."""
+        left = self.task_d.pending_tasks(pb.EVALUATION)
+        if left < created:
+            logger.warning(
+                "Evaluation-only job resumed with %d of its %d evaluation "
+                "tasks left: the metrics of the %d done before the relaunch "
+                "are lost, the results cover the %d left",
+                left, created, created - left, left)
+        if left:
+            self.evaluation_service.open_job(-1, left)
 
     def _open_journal(self):
         """Replay snapshot+WAL (ELASTICDL_MASTER_JOURNAL_DIR), restore the
@@ -342,6 +364,8 @@ class Master:
         if args.instance_backend == "none" or (
                 args.num_workers == 0 and args.num_ps == 0):
             return None
+        if args.instance_backend == "k8s":
+            return self._build_k8s_instance_manager(args)
         # Spawned workers and PS processes find the obs dir and the job
         # identity through the environment; a fixed metrics port is the
         # master's alone (local children bind ephemeral ports).
@@ -357,15 +381,49 @@ class Master:
             max_relaunches=args.max_relaunches,
         )
 
+    def _build_k8s_instance_manager(self, args):
+        from elasticdl_tpu_torch.master.k8s_instance_manager import (
+            K8sInstanceManager,
+        )
+
+        envs = {observability.JOB_NAME_ENV: args.job_name}
+        # The obs dir and the log level follow the master into the pods,
+        # so that every role's traces, events and logs land together. The
+        # JAX master also forwards its compile cache directory and its log
+        # format; the port compiles nothing ahead of time and logs in the
+        # plain format only.
+        for var in (observability.OBS_DIR_ENV, "ELASTICDL_LOG_LEVEL"):
+            if knobs.is_set(var):
+                envs[var] = knobs.raw(var)
+        return K8sInstanceManager(
+            args.namespace,
+            args.job_name,
+            args.image_name,
+            self._command_for,
+            num_workers=args.num_workers,
+            num_ps=args.num_ps,
+            task_dispatcher=self.task_d,
+            worker_resources=args.worker_resources,
+            ps_resources=args.ps_resources,
+            worker_priority=args.worker_pod_priority,
+            volumes=args.volume,
+            max_relaunches=args.max_relaunches,
+            envs=envs,
+            ps_service_port=PS_SERVICE_PORT,
+        )
+
     def _master_addr(self):
         host = os.environ.get("MY_POD_IP", "127.0.0.1")
         return f"{host}:{self.port}"
 
     def _ps_addr(self, ps_id):
-        # PS i listens on base+1+i on this host. With --master_port 0 the
-        # base is the ACTUALLY BOUND master port (serve() binds before any
-        # instance spawns), so two concurrent jobs on one host don't
-        # collide on a fixed base.
+        # Under k8s, PS i is its service's stable name. Else PS i listens
+        # on base+1+i on this host. With --master_port 0 the base is the
+        # ACTUALLY BOUND master port (serve() binds before any instance
+        # spawns), so two concurrent jobs on one host don't collide on a
+        # fixed base.
+        if self.args.instance_backend == "k8s":
+            return f"{self.args.job_name}-ps-{ps_id}:{PS_SERVICE_PORT}"
         base = self.args.master_port or self.port or 50001
         return f"127.0.0.1:{base + 1 + ps_id}"
 
@@ -465,6 +523,17 @@ class Master:
             if self.args.num_ps:
                 self.instance_manager.start_parameter_servers()
             self.instance_manager.start_workers()
+        if self.metrics_service is not None and hasattr(
+                self.instance_manager, "create_tensorboard_service"):
+            # The k8s manager's LoadBalancer service in front of this
+            # master pod.
+            try:
+                self.instance_manager.create_tensorboard_service()
+                logger.info("Created TensorBoard LoadBalancer service "
+                            "tensorboard-%s", self.args.job_name)
+            except Exception:
+                logger.warning("TensorBoard service creation failed",
+                               exc_info=True)
         return self
 
     def run(self, poll_seconds=None):

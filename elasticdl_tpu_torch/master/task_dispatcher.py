@@ -1099,6 +1099,15 @@ class TaskDispatcher:
     def add_tasks_done_callback(self, cb):
         self._tasks_done_callbacks.append(cb)
 
+    def pending_tasks(self, task_type):
+        """Tasks of `task_type` queued or in flight; a backup copy counts
+        with its primary, as only one of the two completes."""
+        with self._lock:
+            return sum(t.type == task_type for t in self._todo) + sum(
+                task.type == task_type and tid not in self._backup_ids
+                for tid, (_, task, _) in self._doing.items()
+            )
+
     def counts(self):
         stats = self.stats()
         return {"todo": stats["todo"], "doing": stats["doing"]}

@@ -1,9 +1,12 @@
 """The port stands alone: every module of elasticdl_tpu_torch (and
 chip_smoke.py) imports with jax, flax, optax, grpc, google.protobuf and
-ml_dtypes blocked (none is on the card's machine) and loads nothing of the
+ml_dtypes blocked (none is on the card's machine), and with the vendor
+SDKs kubernetes and odps blocked (the k8s backend and the ODPS reader and
+writer import them only where they are used), and loads nothing of the
 JAX package; the control-plane modules among them (the journal, the policy
 engine, the telemetry plane, the chaos seams, the socket transport, the
-process entry points and the instance manager) import without grpc."""
+process entry points, the instance managers and the `edl` client) import
+without grpc."""
 
 import os
 import pkgutil
@@ -19,7 +22,7 @@ PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
 _GUARD = """
 import importlib, sys
 for name in ("jax", "flax", "optax", "grpc", "google.protobuf",
-             "ml_dtypes"):
+             "ml_dtypes", "kubernetes", "odps"):
     sys.modules[name] = None
 for name in sys.argv[1:]:
     importlib.import_module(name)
@@ -64,7 +67,11 @@ def test_port_imports_with_jax_blocked():
                  "observability.dashboard",
                  "worker.prediction_outputs_processor", "common.rpc",
                  "master.instance_manager", "master.main", "ps.main",
-                 "worker.main", "chaos.process", "data.recordfile"):
+                 "worker.main", "chaos.process", "data.recordfile",
+                 "common.k8s_resource", "common.k8s_rest",
+                 "common.k8s_client", "master.k8s_instance_manager",
+                 "client", "client.main", "data.odps_reader",
+                 "data.odps_writer"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],
