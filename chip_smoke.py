@@ -193,11 +193,35 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    TensorBoard service, no process left and the relaunched pod's
    launches; prints the time from the kill to the relaunched pod's first
    accepted report beside proc_lm's worker recovery.
+17. allreduce: elastic AllReduce (gloo process groups; every gradient
+   bucket staged through pinned host memory). In this process: the
+   flagship on AllReduceTrainer in a one-process world takes 3 steps on
+   the main path's batches, losses and weights bitwise equal to
+   LocalTrainer's from the same seed; two trainers as threads form a
+   world of 2 (the join gate, the rendezvous, rank 0's state broadcast),
+   each on half of each batch of 4, on the flagship with float32
+   activations: bitwise equal to each other, the first step's averaged
+   gradients within 1e-4 of LocalTrainer's at batch 4 and the weights
+   after 3 steps within 1e-4 of its largest value (plus the documented
+   Adam term where a gradient is rounding noise); ms per step, the
+   all-reduce's ms per leg and bytes. Then the MNIST CNN: a joiner pulls
+   rank 0's state over the COLLECTIVE service, bitwise with its
+   BatchNorm statistics. proc_ar: master.main --multi_host with two
+   worker processes on 192 records in tasks of 16 (training only); after
+   the first lease of the world of 2 worker 1 is SIGKILLed and relaunched,
+   worker 0 regroups alone, is stopped after its first lease alone and
+   continued once worker 1 has registered, and the two form a world again
+   with the state sync. Checks records_done 192 (every record in one
+   completed lease, the others aborted), one relaunch, increasing
+   membership epochs, exact launches per rank process, the last world's
+   equal version and weights' digest, no process left; prints the
+   recovery times split and ms per step in each world.
 The PS, CTR and zoo phases launch none of the flash-attention kernels;
 their counts are reset before each and read after it. proc_lm's, the
 client's and the k8s pods' kernels run in their worker processes: each
 logs its counts at its exit, and the kernels line carries them as
-proc_lm_launches, client_launches and k8s_launches. Then each phase's
+proc_lm_launches, client_launches and k8s_launches; allreduce_launches has
+the allreduce phase's in-process part and its rank processes. Then each phase's
 seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
 {...}}.
 """
@@ -205,6 +229,7 @@ seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import logging
@@ -246,6 +271,9 @@ from elasticdl_tpu_torch.layers import moe as moe_layer
 from elasticdl_tpu_torch.layers.conv import BatchNorm, Conv
 from elasticdl_tpu_torch.master import journal as master_journal
 from elasticdl_tpu_torch.master.master import Master
+from elasticdl_tpu_torch.master.membership import MembershipManager
+from elasticdl_tpu_torch.master.servicer import MasterServicer
+from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.data.example import batch_examples
 from elasticdl_tpu_torch.models.census import dnn as census_dnn
 from elasticdl_tpu_torch.models.census import wide_deep as census_wide_deep
@@ -262,6 +290,7 @@ from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
 from elasticdl_tpu_torch.models.deepctr import wdl
 from elasticdl_tpu_torch.models.deepfm import deepfm_functional
 from elasticdl_tpu_torch.models.heart import heart_model
+from elasticdl_tpu_torch.models.mnist import mnist_model
 from elasticdl_tpu_torch.models.iris import iris_dnn
 from elasticdl_tpu_torch.models.mobilenetv2 import mobilenetv2
 from elasticdl_tpu_torch.models.resnet50 import resnet50
@@ -274,6 +303,7 @@ from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.ps import checkpoint as ps_checkpoint
 from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
 from elasticdl_tpu_torch.worker.main import build_worker
+from elasticdl_tpu_torch.worker.allreduce_trainer import AllReduceTrainer
 from elasticdl_tpu_torch.worker.master_client import MasterClient
 from elasticdl_tpu_torch.worker.ps_client import PSClient
 from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
@@ -4143,6 +4173,608 @@ def phase_k8s(results):
     return k8s
 
 
+# Elastic AllReduce (phase `allreduce`). ar_step, in this process: the
+# flagship on AllReduceTrainer in a one-process world against LocalTrainer
+# from the same weights (AR_STEPS steps on the main path's batches, bitwise),
+# then two trainers as threads forming a gloo world of 2, each on half of
+# the same batches of 4, against LocalTrainer at batch 4, then the MNIST CNN
+# pulled by a joiner over the COLLECTIVE service. proc_ar, across
+# processes: master.main with --multi_host and two worker processes on
+# AR_RECORDS records in tasks of AR_TASK; worker 1 is SIGKILLed after the
+# first lease of the world of 2, worker 0 goes on alone and is stopped
+# after its first lease of the world of 1 (so that work is left when the
+# relaunched worker 1 joins), and continued once worker 1 has registered.
+AR_STEPS = 3
+AR_DEVICE = "cuda"
+AR_MNIST_BATCH = 4
+AR_RECORDS = 192
+AR_TASK = 16
+AR_WORKERS = 2
+# The two ranks against LocalTrainer at batch 4: the reference phase's
+# bound, of each tensor's largest value, on the flagship with float32
+# activations (see _ar_two_ranks).
+AR_RTOL = 1e-4
+AR_TWO_RANK_ACTIVATIONS = "float32"
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _ArControl:
+    """The AllReduce part of the master service in this process: a
+    membership behind an in-process stub."""
+
+    def __init__(self):
+        self.membership = MembershipManager(coordinator_port=_free_port())
+        self.servicer = MasterServicer(TaskDispatcher({}), None,
+                                       self.membership)
+
+    def trainer(self, worker_id, make, **kw):
+        model, loss_fn, opt = make()
+        client = MasterClient(
+            rpc.InProcessStub(self.servicer, rpc.MASTER_SERVICE), worker_id,
+            worker_host="127.0.0.1")
+        return AllReduceTrainer(model, loss_fn, opt, client,
+                                device=AR_DEVICE, **kw)
+
+
+def _lm_spec(activation_dtype=None):
+    cfg = tlm.flagship_config(SEQ)
+    if activation_dtype:
+        cfg = dataclasses.replace(cfg, activation_dtype=activation_dtype)
+    return lambda: (tlm.custom_model(cfg), tlm.loss, tlm.optimizer())
+
+
+def _same_bits(a, b):
+    """Two trainers' weights, buffers and optimizer leaves bit for bit."""
+    sa, sb = a._model.state_dict(), b._model.state_dict()
+    return list(sa) == list(sb) and all(
+        torch.equal(sa[k], sb[k]) for k in sa) and all(
+        torch.equal(x, y) for x, y in zip(a.optimizer_state_leaves(),
+                                          b.optimizer_state_leaves()))
+
+
+def _in_threads(*fns):
+    """Each fn in a thread of its own; their results, or the first
+    error."""
+    out, errors = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _ar_one_process(tokens):
+    """AllReduceTrainer in a one-process world against LocalTrainer from
+    the same seed: losses and every weight and optimizer leaf bitwise."""
+    control = _ArControl()
+    ar = control.trainer(0, _lm_spec())
+    local = LocalTrainer(*_lm_spec()(), device=AR_DEVICE)
+    losses, step_ms = [], []
+    try:
+        for i in range(AR_STEPS):
+            rows = slice(i * BATCH, (i + 1) * BATCH)
+            x, y = tokens[rows, :-1], tokens[rows, 1:]
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            _, _, loss = ar.train_minibatch(x, y)
+            losses.append(loss.item())
+            step_ms.append(1e3 * (time.perf_counter() - start))
+            _, _, local_loss = local.train_minibatch(x, y)
+            if not torch.equal(loss, local_loss):
+                raise AssertionError(
+                    f"step {i}: loss {loss.item()} != LocalTrainer's "
+                    f"{local_loss.item()}")
+        bitwise = _same_bits(ar, local)
+        spec = ar.world_fingerprint
+    finally:
+        ar.close()
+    if not bitwise:
+        raise AssertionError("the one-process world's weights differ from "
+                             "LocalTrainer's")
+    return {"losses": losses, "step_ms": step_ms, "spec": spec,
+            "bitwise_with_local_trainer": bitwise}
+
+
+def _adam_bound(ref, grad1):
+    """Per element: AR_RTOL of the tensor's largest value, plus the
+    documented Adam term for an element whose gradient is rounding noise
+    (ROADMAP Queue 3: up to the learning rate per step either way),
+    lr * noise * eps / (|g| + eps)^2 per step with noise the gradient
+    tolerance AR_RTOL * max|g| and g the first step's gradient."""
+    spec = tlm.optimizer().hyperparams
+    lr, eps = spec["learning_rate"], spec["epsilon"]
+    noise = AR_RTOL * grad1.abs().max()
+    adam = torch.minimum(torch.full_like(grad1, 2 * lr),
+                         lr * noise * eps / (grad1.abs() + eps) ** 2)
+    return AR_RTOL * ref.abs().max() + AR_STEPS * adam
+
+
+def _ar_two_ranks(tokens):
+    """Two trainers as threads on the card, a gloo world of 2, each on
+    half of each batch of 4, against LocalTrainer at batch 4. The model is
+    the flagship with float32 activations: with bfloat16 ones each rank's
+    weight gradients are rounded to bfloat16 before the all-reduce, and
+    the sum of two rounded halves differs from the rounded whole by up to
+    a bfloat16 ulp (4e-3 of the largest gradient in the CPU rehearsal), so
+    no 1e-4 bound could hold there; _ar_two_ranks_bf16 holds the bfloat16
+    flagship's averaged gradients, the ones proc_ar trains with."""
+    control = _ArControl()
+    spec = _lm_spec(AR_TWO_RANK_ACTIVATIONS)
+    ranks = [control.trainer(i, spec, multi_host=True)
+             for i in range(AR_WORKERS)]
+    for t in ranks:
+        t._mc.report_liveness()
+    local = LocalTrainer(*spec(), device=AR_DEVICE)
+    half = BATCH // AR_WORKERS
+    out = {"losses": [], "local_losses": [], "step_ms": [], "comm": []}
+    grad_err = None
+    try:
+        # The world forms first: the join gate, the rendezvous and the
+        # state sync from rank 0 (every weight and Adam moment).
+        start = time.perf_counter()
+        _in_threads(*[(lambda t=t: t.init_variables_if_needed(
+            tokens[:half, :-1])) for t in ranks])
+        out["form_world_ms"] = 1e3 * (time.perf_counter() - start)
+        out["sync"] = ranks[1].world.stats.as_dict()
+        for i in range(AR_STEPS):
+            rows = tokens[i * BATCH:(i + 1) * BATCH]
+            for t in ranks:
+                t.world.stats.reset()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            losses = _in_threads(*[
+                (lambda t=t, r=r: t.train_minibatch(
+                    rows[r * half:(r + 1) * half, :-1],
+                    rows[r * half:(r + 1) * half, 1:])[2])
+                for r, t in enumerate(ranks)])
+            values = [loss.item() for loss in losses]
+            out["step_ms"].append(1e3 * (time.perf_counter() - start))
+            out["comm"].append(ranks[0].world.stats.as_dict())
+            if not torch.equal(losses[0], losses[1]):
+                raise AssertionError(f"step {i}: the ranks' losses differ")
+            _, _, local_loss = local.train_minibatch(rows[:, :-1],
+                                                     rows[:, 1:])
+            out["losses"].append(values[0])
+            out["local_losses"].append(local_loss.item())
+            if i == 0:
+                # The averaged gradients of the first step against the
+                # whole batch's; kept for the Adam bound below.
+                grad1 = {n: p.grad.detach().clone() for n, p in
+                         local._model.named_parameters()}
+                grad_err = max(
+                    float((p.grad - grad1[n]).abs().max()
+                          / grad1[n].abs().max().clamp_min(1e-30))
+                    for n, p in ranks[0]._model.named_parameters())
+        bitwise = _same_bits(ranks[0], ranks[1])
+        worst, beyond, plain = None, 0, 0.0
+        ref = dict(local._model.named_parameters())
+        for n, p in ranks[0]._model.named_parameters():
+            diff = (p.detach() - ref[n].detach()).abs()
+            rel = float(diff.max()
+                        / ref[n].detach().abs().max().clamp_min(1e-30))
+            if worst is None or rel > plain:
+                worst, plain = n, rel
+            beyond += int((diff > _adam_bound(ref[n].detach(),
+                                              grad1[n])).sum())
+        spec = ranks[0].world_fingerprint
+    finally:
+        for t in ranks:
+            t.close()
+    comm = {k: float(np.mean([c[k] for c in out["comm"]]))
+            for k in ("d2h_s", "gloo_s", "h2d_s", "bytes", "calls")}
+    result = {
+        **out, "spec": spec, "backend": "gloo",
+        "ranks_bitwise": bitwise,
+        "first_step_grad_max_rel_err": grad_err,
+        "param_max_rel_err": plain, "param_worst": worst,
+        "params_beyond_bound": beyond,
+        "allreduce_per_step": {
+            "d2h_ms": 1e3 * comm["d2h_s"], "gloo_ms": 1e3 * comm["gloo_s"],
+            "h2d_ms": 1e3 * comm["h2d_s"], "bytes": comm["bytes"],
+            "buckets": comm["calls"]},
+    }
+    checks = [
+        (bitwise, "the ranks' weights and optimizer leaves bitwise"),
+        (grad_err is not None and grad_err <= AR_RTOL,
+         "the first step's averaged gradients"),
+        (beyond == 0, "the ranks' weights against LocalTrainer at batch 4"),
+        (all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+             zip(out["losses"], out["local_losses"])), "the losses"),
+    ]
+    failed = [what for ok, what in checks if not ok]
+    if failed:
+        emit({"phase": "allreduce", "run": "two_ranks", **result})
+        raise AssertionError(f"two-rank world: {failed}")
+    return result
+
+
+def _ar_two_ranks_bf16(tokens):
+    """The bfloat16 flagship, as users and proc_ar train it, as two ranks
+    at batch 2 for one step. Each rank's step is LocalTrainer's at batch 2
+    (the one-process world shows it bit for bit), so the averaged
+    gradients and the loss must equal, bit for bit, the mean of two
+    LocalTrainers' on the two halves, summed and then divided by the world
+    size as the all-reduce does: a missing divide, or a bucket summed twice
+    or left out, breaks that. Against LocalTrainer at batch 4 the
+    gradients differ by bfloat16 noise (other GEMM shapes round
+    otherwise), reported and not bounded. The ranks' weights and optimizer
+    leaves bitwise."""
+    spec = _lm_spec()
+    half = BATCH // AR_WORKERS
+    rows = tokens[:BATCH]
+    parts = [(rows[r * half:(r + 1) * half, :-1],
+              rows[r * half:(r + 1) * half, 1:]) for r in range(AR_WORKERS)]
+
+    def local_step(x, y):
+        local = LocalTrainer(*spec(), device=AR_DEVICE)
+        _, _, loss = local.train_minibatch(x, y)
+        return loss, {n: p.grad.detach().clone()
+                      for n, p in local._model.named_parameters()}
+
+    mean_loss, mean = local_step(*parts[0])
+    for x, y in parts[1:]:
+        loss, grads = local_step(x, y)
+        mean_loss = mean_loss + loss
+        torch._foreach_add_(list(mean.values()), list(grads.values()))
+        del grads
+    mean_loss = mean_loss / AR_WORKERS
+    torch._foreach_div_(list(mean.values()), AR_WORKERS)
+    whole_loss, whole = local_step(rows[:, :-1], rows[:, 1:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    control = _ArControl()
+    ranks = [control.trainer(i, spec, multi_host=True)
+             for i in range(AR_WORKERS)]
+    for t in ranks:
+        t._mc.report_liveness()
+    try:
+        _in_threads(*[(lambda t=t: t.init_variables_if_needed(
+            parts[0][0])) for t in ranks])
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        losses = _in_threads(*[
+            (lambda t=t, r=r: t.train_minibatch(*parts[r])[2])
+            for r, t in enumerate(ranks)])
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - start)
+        got = dict(ranks[0]._model.named_parameters())
+        differ = [n for n in mean if not torch.equal(got[n].grad, mean[n])]
+        errs = {n: float((got[n].grad - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for n, g in whole.items()}
+        bitwise = _same_bits(ranks[0], ranks[1])
+    finally:
+        for t in ranks:
+            t.close()
+    worst = max(errs, key=errs.get)
+    result = {"activations": "bfloat16", "backend": "gloo",
+              "step_ms": step_ms, "loss": losses[0].item(),
+              "halves_mean_loss": mean_loss.item(),
+              "whole_batch_loss": whole_loss.item(),
+              "grads_differing_from_halves_mean": differ,
+              "whole_batch_grad_max_rel_err": errs[worst],
+              "whole_batch_grad_worst": worst, "ranks_bitwise": bitwise}
+    if differ or not (bitwise and torch.equal(losses[0], mean_loss)
+                      and torch.equal(losses[0], losses[1])):
+        emit({"phase": "allreduce", "run": "two_ranks_bf16", **result})
+        raise AssertionError("two-rank bfloat16 world: the averaged "
+                             "gradients or loss, or the ranks' bits")
+    return result
+
+
+def _ar_mnist_pull():
+    """Two one-process worlds of the MNIST CNN: a joiner pulls rank 0's
+    variables, BatchNorm statistics, optimizer leaves and version over the
+    COLLECTIVE service."""
+    rng = np.random.default_rng(0)
+    x = rng.random((AR_MNIST_BATCH, 28, 28), np.float32)
+    y = rng.integers(0, 10, AR_MNIST_BATCH).astype(np.int64)
+
+    def make():
+        return (mnist_model.custom_model(), mnist_model.loss,
+                mnist_model.optimizer())
+
+    control = _ArControl()
+    first = control.trainer(0, make)
+    joiner = None
+    try:
+        for _ in range(2):
+            first.train_minibatch(x, y)
+        joiner = control.trainer(1, make, seed=5)
+        start = time.perf_counter()
+        joiner.init_variables_if_needed(x)
+        pull_ms = 1e3 * (time.perf_counter() - start)
+        a, b = first.export_variables(), joiner.export_variables()
+        bitwise = (
+            a["version"] == b["version"] == 2
+            and all(np.array_equal(a["variables"][k], b["variables"][k])
+                    for k in a["variables"])
+            and set(a["state"]) == set(b["state"])
+            and all(np.array_equal(a["state"][k], b["state"][k])
+                    for k in a["state"])
+            and all(torch.equal(p, q) for p, q in
+                    zip(a["opt_state"], b["opt_state"])))
+        rank = joiner.rank
+    finally:
+        first.close()
+        if joiner is not None:
+            joiner.close()
+    if not (bitwise and rank == 1):
+        raise AssertionError("the joiner's pulled MNIST state differs")
+    return {"bitwise": bitwise, "batch_stats": sorted(a["state"]),
+            "init_and_pull_ms": pull_ms}
+
+
+_AR_MARKS = (
+    ("model_built", r"Initialized model"),
+    ("world_change", r"World change: epoch (-?\d+) -> (\d+) \(rank (\d+) "
+                     r"of (\d+)\)"),
+    ("joining", r"Joining world .* size=(\d+) rank=(\d+) epoch=(\d+)"),
+    ("synced", r"Collective state sync complete \(version (\d+), source "
+               r"rank 0, this rank (\d+)\)"),
+    ("step", r"Step \d+ \(lease (\d+)\) loss (\S+)"),
+    ("minted", r"Minted lease (\d+): epoch (\d+), world (\d+)"),
+    ("relaunching", r"Relaunching worker (\d+)"),
+)
+
+
+def _log_marks(text):
+    """[(wall time, mark, groups)] of the job log's lines that _AR_MARKS
+    name, in order (log times are the host's local clock, to the
+    millisecond)."""
+    out = []
+    for line in text.splitlines():
+        stamp = re.match(r"\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3})\]",
+                         line)
+        if not stamp:
+            continue
+        for name, pattern in _AR_MARKS:
+            found = re.search(pattern, line)
+            if found:
+                t = time.mktime(time.strptime(stamp.group(1),
+                                              "%Y-%m-%d %H:%M:%S"))
+                out.append((t + int(stamp.group(2)) / 1e3, name,
+                            found.groups()))
+                break
+    return out
+
+
+def _events_since(path, since, kind, **match):
+    if not os.path.exists(path):
+        return []
+    return [e for e in _jsonl(path) if e["kind"] == kind and e["ts"] > since
+            and all(e.get(k) == v for k, v in match.items())]
+
+
+def _ms_per_step_by_world(marks):
+    """Median ms per step of each world size, from the logged steps of
+    its leases: within a lease, the time from one rank's step to its next
+    (the ranks of a world step in lockstep, so a lease's step lines come
+    `world` at a time)."""
+    world_of = {int(g[0]): int(g[2]) for _, name, g in marks
+                if name == "minted"}
+    by_lease = {}
+    for t, name, g in marks:
+        if name == "step":
+            by_lease.setdefault(int(g[0]), []).append(t)
+    out = {}
+    for lease, times in by_lease.items():
+        world = world_of.get(lease, 1)
+        times = sorted(times)
+        out.setdefault(world, []).extend(
+            1e3 * (b - a) for a, b in zip(times, times[world:]))
+    return {f"world_{w}": float(np.median(v))
+            for w, v in sorted(out.items()) if v}
+
+
+def _proc_ar(root):
+    """The flagship as a --multi_host AllReduce job across processes with
+    a worker kill and rejoin; returns the times and the checks' inputs."""
+    from elasticdl_tpu_torch.chaos import process as chaos_process
+
+    cfg = tlm.flagship_config(SEQ)
+    paths, _ = _write_job_inputs(root, cfg, n_train=AR_RECORDS, n_valid=0)
+    obs = os.path.join(root, "metrics")
+    events = os.path.join(obs, "events.jsonl")
+    argv = ["--model_def", paths["model_def"],
+            "--distribution_strategy", "AllreduceStrategy", "--multi_host",
+            "--training_data", paths["train"],
+            "--records_per_task", str(AR_TASK), "--num_epochs", "1",
+            "--minibatch_size", str(BATCH),
+            "--log_loss_steps", "1", "--metrics_dir", obs,
+            "--job_name", "proc-ar", "--task_timeout_check_seconds", "1",
+            "--seed", "0", "--instance_backend", "local_process",
+            "--num_workers", str(AR_WORKERS), "--master_port", "0",
+            "--coordinator_port", str(_free_port())]
+    log = os.path.join(root, "master.log")
+    start = time.time()
+    master = _proc_master(argv, _proc_env(), log)
+    port = stopped = None
+    try:
+        port = _proc_port(log, master)
+        _proc_wait(lambda: _events_since(events, 0, "lease_complete",
+                                         world=AR_WORKERS),
+                   "the first lease of the world of 2", master)
+        worker_kill = time.time()
+        chaos_process.kill_role("worker", 1, port, timeout=PROC_TIMEOUT)
+        alone = _proc_wait(lambda: _events_since(
+            events, worker_kill, "lease_complete", world=1),
+            "worker 0's first lease alone", master)[0]["ts"]
+        # Worker 0 would finish the job alone before the relaunched worker
+        # 1 is up (a flagship process needs ~20 s): stop it until worker 1
+        # has registered, then continue it.
+        stopped = chaos_process.find_role_pid("worker", 0, port,
+                                              timeout=PROC_TIMEOUT)
+        chaos_process.deliver(stopped, signal.SIGSTOP)
+        stopped_at = time.time()
+        joined = _proc_wait(lambda: _events_since(
+            events, worker_kill, "membership_epoch", cause="join"),
+            "the relaunched worker 1's registration", master)[0]["ts"]
+        chaos_process.deliver(stopped, signal.SIGCONT)
+        continued = time.time()
+        stopped = None
+        rc = master.wait(timeout=PROC_TIMEOUT)
+        _proc_wait(lambda: not chaos_process.find_job_pids(port),
+                   "the workers' exit")
+        wall_s = time.time() - start
+    except BaseException:
+        if stopped is not None:
+            chaos_process.deliver(stopped, signal.SIGCONT)
+        _print_log_tails([log])
+        raise
+    finally:
+        _proc_teardown((master,), port)
+    left = chaos_process.find_job_pids(port)
+    text = open(log, errors="replace").read()
+    marks = _log_marks(text)
+    all_events = _jsonl(events)
+    relaunch = next(e["ts"] for e in all_events
+                    if e["kind"] == "pod_relaunch")
+    after = [(t, name, g) for t, name, g in marks if t > relaunch]
+    built = next(t for t, name, _ in after if name == "model_built")
+    gate = next(t for t, name, g in after
+                if name == "world_change" and g[2:] == ("1", "2"))
+    joining = next(t for t, name, g in after
+                   if name == "joining" and g[1] == "1")
+    synced = next(t for t, name, g in after
+                  if name == "synced" and g[1] == "1")
+    rejoined = next(e["ts"] for e in all_events
+                    if e["kind"] == "lease_complete" and e["ts"] > synced
+                    and e["world"] == AR_WORKERS)
+    minted = {e["lease_id"]: e for e in all_events
+              if e["kind"] == "lease_mint"}
+    completed = [e["lease_id"] for e in all_events
+                 if e["kind"] == "lease_complete"]
+    aborted = [e["lease_id"] for e in all_events
+               if e["kind"] == "lease_abort"]
+    trains = [m for m in _jsonl(os.path.join(obs, "metrics.jsonl"))
+              if m["group"] == "train"]
+    return {
+        "master_rc": rc, "wall_s": wall_s, "left": left,
+        "records_done": trains[-1]["records_done"] if trains else None,
+        "pod_relaunch": [e["instance"] for e in all_events
+                         if e["kind"] == "pod_relaunch"],
+        "membership_epochs": [e["epoch"] for e in all_events
+                              if e["kind"] == "membership_epoch"],
+        "regroups": [(e.get("role"), e["mode"], e["epoch"],
+                      e["world_size"]) for e in all_events
+                     if e["kind"] == "elastic_regroup"],
+        "leases": {"minted": len(minted), "completed": completed,
+                   "aborted": aborted,
+                   "completed_records": sum(minted[i]["records"]
+                                            for i in completed)},
+        "losses": [float(g[1]) for _, name, g in marks if name == "step"],
+        "ms_per_step": _ms_per_step_by_world(marks),
+        "worker_exits": _exit_lines(text, "Worker"),
+        "worker_kill_to_alone_lease_s": alone - worker_kill,
+        "worker_0_stopped_s": continued - stopped_at,
+        "worker_kill_to_relaunch_s": relaunch - worker_kill,
+        "relaunch_to_registered_s": joined - relaunch,
+        "relaunch_to_rejoined_lease_s": rejoined - relaunch,
+        "rejoin_split_s": {
+            "process_start_and_model": built - relaunch,
+            "to_join_gate": gate - built,
+            "join_gate": joining - gate,
+            "rendezvous_and_state_sync": synced - joining,
+            "to_first_lease_complete": rejoined - synced,
+        },
+    }
+
+
+def phase_allreduce(results):
+    """Elastic AllReduce on the card: in process (one-process world, a
+    gloo world of 2 as threads, the MNIST pull), then across processes
+    with a worker kill and rejoin."""
+    device = results["device"]
+    card = {"card": device["nvidia_smi"]}
+    cfg = tlm.flagship_config(SEQ)
+    tokens = synthetic_lm_tokens(4 * BATCH, SEQ, vocab=cfg.vocab,
+                                 branching=4, seed=0)
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    single = _ar_one_process(tokens)
+    emit({"phase": "allreduce", "run": "one_process_world", **card,
+          **single})
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = _ar_two_ranks(tokens)
+    emit({"phase": "allreduce", "run": "two_ranks", **card,
+          "proc_lm_ms_per_step_shared": results["processes"]["proc_lm"][
+              "ms_per_step_by_worker"], **two})
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_bf16 = _ar_two_ranks_bf16(tokens)
+    launches = dict(fa.launches)
+    emit({"phase": "allreduce", "run": "two_ranks_bf16", **card,
+          **two_bf16})
+    # 3 steps each of: the one-process world, its LocalTrainer, two ranks
+    # and their LocalTrainer; one step each of the bfloat16 ranks, the two
+    # LocalTrainers of their halves and the one of the whole batch; no
+    # evaluation.
+    steps = AR_STEPS * (2 + AR_WORKERS + 1) + 2 * AR_WORKERS + 1
+    expected = {n: cfg.n_layers * steps
+                for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}
+    if {k: v for k, v in launches.items() if v} != expected:
+        raise AssertionError(f"ar_step launches {launches}, expected "
+                             f"{expected}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pull = _ar_mnist_pull()
+    emit({"phase": "allreduce", "run": "mnist_pull", **card, **pull})
+    with tempfile.TemporaryDirectory() as root:
+        proc = _proc_ar(root)
+    emit({"phase": "allreduce", "run": "proc_ar", **card, **proc})
+    exits = proc["worker_exits"]
+    last = [v[-1] for v in exits.values()]
+    checks = [
+        (proc["master_rc"] == 0, "the master's exit code"),
+        (proc["records_done"] == AR_RECORDS, "records_done"),
+        (proc["leases"]["completed_records"] == AR_RECORDS
+         and proc["leases"]["minted"] == len(proc["leases"]["completed"])
+         + len(proc["leases"]["aborted"]),
+         "every record in one completed lease, the rest aborted"),
+        (proc["pod_relaunch"] == ["worker-1"], "worker 1 relaunched once"),
+        (proc["membership_epochs"] == sorted(set(
+            proc["membership_epochs"])), "membership epochs increasing"),
+        (not proc["left"], "no process left"),
+        (proc["losses"] and all(math.isfinite(x) for x in proc["losses"]),
+         "finite losses"),
+        (sorted(exits) == [f"worker-{i}" for i in range(AR_WORKERS)]
+         and all(len(v) == 1 for v in exits.values()),
+         "one exit line per worker id (worker 1's first process killed)"),
+        # A step cut by the peer's death ran its forward and backward
+        # before its all-reduce raised: its launches count, its step not.
+        (_launch_check(exits, lambda e: {
+            n: cfg.n_layers * (e["steps"] + e["failed_steps"])
+            for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}),
+         "each rank process's kernel launches"),
+        (len({(e["version"], e["digest"]) for e in last}) == 1
+         and last[0]["digest"], "the last world's version and digest"),
+    ]
+    failed = [what for ok, what in checks if not ok]
+    if failed:
+        raise AssertionError(f"allreduce phase: {failed}")
+    return {"launches": launches, "one_process_world": single,
+            "two_ranks": two, "two_ranks_bf16": two_bf16,
+            "mnist_pull": pull, "proc_ar": proc}
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
@@ -4154,7 +4786,8 @@ def main():
               ("zoo", phase_zoo),
               ("processes", lambda: phase_processes(results)),
               ("client", lambda: phase_client(results)),
-              ("k8s", lambda: phase_k8s(results))]
+              ("k8s", lambda: phase_k8s(results)),
+              ("allreduce", lambda: phase_allreduce(results))]
     results, seconds = {}, {}
     for name, fn in phases:
         # A finished phase's trainers sit in reference cycles until the
@@ -4214,6 +4847,15 @@ def main():
             pod: e["kernel_launches"].get(name, 0)
             for pod, v in results["k8s"]["worker_exits"].items()
             for e in v}
+        # Elastic AllReduce: the in-process part (one-process world, two
+        # ranks as threads and their LocalTrainers), then each rank
+        # process of proc_ar as it logged at its exit.
+        ar = results["allreduce"]
+        report[name]["allreduce_launches"] = {
+            "ar_step": ar["launches"].get(name, 0),
+            **{role: e["kernel_launches"].get(name, 0)
+               for role, v in ar["proc_ar"]["worker_exits"].items()
+               for e in v}}
     emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]

@@ -354,6 +354,16 @@ declare("ELASTICDL_TORCH_DEVICE", "str", "",
         "error); 'cpu' trains on the CPU, as the tests ask. Set in the "
         "master's environment, it reaches every worker it spawns.")
 
+# -- elastic AllReduce (worker/allreduce_trainer.py) --
+declare("ELASTICDL_JOIN_GATE_SECONDS", "float", 0.0,
+        "Join-gate wait budget at an elastic regroup; 0 (default) "
+        "auto-derives the budget (the port: 90 s, having no compile "
+        "tracker to scale it by).")
+declare("ELASTICDL_POLICY_HINT_POLL_SECONDS", "float", 2.0,
+        "How often an AllReduce worker polls the master's world-hint RPC; "
+        "0 disables polling. The port records the announced world (it has "
+        "no AOT speculator to hand it to).")
+
 # -- chaos (chaos/injection.py) --
 declare("ELASTICDL_CHAOS", "str", "",
         "JSON fault schedule injected into the rpc plane; set by drills, "

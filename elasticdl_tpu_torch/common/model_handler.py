@@ -11,7 +11,8 @@ every table too large for the device to the PS and derives the feed:
   path with "/" (`tok_emb`, `encoder/item_emb`). Placement tiers:
     <= threshold_bytes                        stays on the device (stock)
     (threshold, device_capacity_bytes]        stays on the device too (the
-        JAX package row-shards these over a mesh; parallel/ is not ported)
+        JAX package row-shards these over a mesh; parallel/sharded_embedding
+        is not ported)
     > max(threshold, device_capacity_bytes)   PS-resident
 - `derive_embedding_inputs(...)` runs one forward that records the ids
   each PS table is called with (layers/embedding.py's capture) and matches

@@ -168,7 +168,23 @@ MASTER_SERVICE = ServiceSpec(
         "report_telemetry": (
             pb.ReportTelemetryRequest, pb.ReportTelemetryResponse,
         ),
+        # Elastic AllReduce: membership (with the join gate), liveness,
+        # step leases and the world hint.
+        "get_comm_rank": (pb.GetCommRankRequest, pb.GetCommRankResponse),
+        "report_worker_liveness": (
+            pb.ReportWorkerLivenessRequest, pb.Empty,
+        ),
+        "lease_steps": (pb.LeaseStepsRequest, pb.LeaseStepsResponse),
+        "report_lease": (pb.ReportLeaseRequest, pb.Empty),
+        "get_world_hint": (pb.GetWorldHintRequest, pb.WorldHintResponse),
     },
+)
+
+# Every AllReduce worker serves its (variables, opt_state, version) here;
+# a regrouping rank pulls rank 0's (parallel/broadcast.py).
+COLLECTIVE_SERVICE = ServiceSpec(
+    name="elasticdl_tpu.Collective",
+    methods={"pull_model": (pb.PullDenseParametersRequest, pb.Model)},
 )
 
 
@@ -251,7 +267,14 @@ METHOD_POLICIES = {
     "report_task_results": RetryPolicy(deadline=30.0),
     "report_evaluation_metrics": RetryPolicy(deadline=60.0),
     "report_version": RetryPolicy(deadline=30.0),
+    "get_comm_rank": RetryPolicy(deadline=30.0),
+    "lease_steps": RetryPolicy(deadline=30.0),
+    "report_lease": RetryPolicy(deadline=30.0),
+    "report_worker_liveness": RetryPolicy(deadline=30.0),
     "get_job_status": RetryPolicy(deadline=15.0),
+    # Hint polls are periodic and read-only; a missed poll self-heals on
+    # the next interval, so don't burn retry budget.
+    "get_world_hint": RetryPolicy(deadline=10.0, max_attempts=2),
     # Telemetry pushes are periodic and self-healing: one connectivity
     # retry, and a timed-out push (which may have applied and bumped the
     # seq server side) must NOT replay.
@@ -274,6 +297,13 @@ METHOD_POLICIES = {
     # landed and counted toward the reassembly), with the same deadline.
     "push_gradients_packed": RetryPolicy(
         deadline=60.0, retryable_codes=_RETRYABLE_CONNECTIVITY
+    ),
+    # Collective service: a full model state pull during an elastic
+    # regroup. A deadline is NOT retried: a wedged rank 0 must surface
+    # after one budget, not five (broadcast.pull_state shares one budget
+    # between the readiness probe and the call).
+    "pull_model": RetryPolicy(
+        deadline=120.0, retryable_codes=_RETRYABLE_CONNECTIVITY
     ),
 }
 

@@ -6,11 +6,19 @@ service and the servicer; the resume from a PS checkpoint
 (`--checkpoint_dir_for_init`: records the checkpoint already trained on are
 not dispatched again).
 
+Under AllreduceStrategy the master keeps the membership of the workers'
+comm group (master/membership.py: epochs, ranks, the rotated rendezvous
+port from --coordinator_port, the join gate), and under --multi_host it
+leases training work to the whole world at once (master/step_lease.py).
+The instance managers and the watchdog drop a dead or silent worker from
+the membership, so the survivors regroup.
+
 The survivable control plane: with ELASTICDL_MASTER_JOURNAL_DIR set, the
 master replays the journal's snapshot and write-ahead log
-(master/journal.py) before it serves, restores the dispatcher's state and
-in-flight leases, bumps its incarnation and mirrors every mutation from
-then on. A master built over the journal of a dead one is its successor.
+(master/journal.py) before it serves, restores the dispatcher's state,
+in-flight leases and membership epoch, bumps its incarnation and mirrors
+every mutation from then on. A master built over the journal of a dead one
+is its successor.
 
 The constructor brings the master to serving, as the JAX master's
 __init__ and prepare() do before it binds its port: the heartbeat, the
@@ -67,8 +75,13 @@ from elasticdl_tpu_torch.master.instance_manager import (
     LocalProcessInstanceManager,
 )
 from elasticdl_tpu_torch.master.journal import open_master_journal
+from elasticdl_tpu_torch.master.membership import MembershipManager
 from elasticdl_tpu_torch.master.metrics_service import MetricsService
 from elasticdl_tpu_torch.master.servicer import MasterServicer
+from elasticdl_tpu_torch.master.step_lease import (
+    StepLeaseManager,
+    is_lease_owner,
+)
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.ps import checkpoint as ps_checkpoint
@@ -123,12 +136,10 @@ PS_SERVICE_PORT = 50002
 def _reject_unported(args):
     if args.distribution_strategy not in (
             DistributionStrategy.LOCAL,
-            DistributionStrategy.PARAMETER_SERVER):
-        raise NotImplementedError(
-            f"--distribution_strategy {args.distribution_strategy} is not "
-            "ported to elasticdl_tpu_torch yet; use "
-            f"{DistributionStrategy.LOCAL} or "
-            f"{DistributionStrategy.PARAMETER_SERVER}"
+            DistributionStrategy.PARAMETER_SERVER,
+            DistributionStrategy.ALLREDUCE):
+        raise ValueError(
+            f"unknown --distribution_strategy {args.distribution_strategy}"
         )
 
 
@@ -194,13 +205,25 @@ class Master:
             # Arm the final export task (a train-end callback task).
             self.task_d.enable_train_end_task()
         created = self.task_d.pending_tasks(pb.EVALUATION)
+        self.membership = (
+            MembershipManager(coordinator_port=args.coordinator_port)
+            if args.distribution_strategy == DistributionStrategy.ALLREDUCE
+            else None
+        )
         self._open_journal()
         if self.evaluation_service is not None and not training_shards:
             self._open_evaluation_only_job(created)
+        self.step_leases = (
+            StepLeaseManager(self.task_d, self.membership)
+            if self.membership is not None and args.multi_host
+            else None
+        )
         self.servicer = MasterServicer(
             self.task_d,
             self.evaluation_service,
+            self.membership,
             worker_liveness_timeout=args.worker_liveness_timeout_seconds,
+            step_lease_manager=self.step_leases,
         )
         self._server = None
         self.port = None
@@ -261,6 +284,8 @@ class Master:
             self.master_incarnation = state["incarnation"] + 1
             self.task_d.restore_state(state)
             self._recovered_leases = self.task_d.inflight_leases()
+            if self.membership is not None:
+                self.membership.restore_state(state)
             logger.warning(
                 "Master journal replayed: incarnation %d, records_done=%d, "
                 "%d in-flight leases restored, hint_seq=%d",
@@ -269,6 +294,9 @@ class Master:
             )
         self.task_d.attach_journal(self.journal)
         self.journal.add_state_provider(self.task_d.export_state)
+        if self.membership is not None:
+            self.membership.attach_journal(self.journal)
+            self.journal.add_state_provider(self.membership.export_state)
         self.journal.add_state_provider(
             lambda: {"incarnation": self.master_incarnation})
         self.journal.record({
@@ -337,6 +365,7 @@ class Master:
             metrics_port=self.obs.metrics_port if self.obs else 0,
             aggregator=self.aggregator,
             policy=self.policy,
+            world_hints=self.world_hints,
             master_incarnation=self.master_incarnation,
         )
 
@@ -378,6 +407,7 @@ class Master:
             num_workers=args.num_workers,
             num_ps=args.num_ps,
             task_dispatcher=self.task_d,
+            membership=self.membership,
             max_relaunches=args.max_relaunches,
         )
 
@@ -403,6 +433,7 @@ class Master:
             num_workers=args.num_workers,
             num_ps=args.num_ps,
             task_dispatcher=self.task_d,
+            membership=self.membership,
             worker_resources=args.worker_resources,
             ps_resources=args.ps_resources,
             worker_priority=args.worker_pod_priority,
@@ -604,8 +635,13 @@ class Master:
     def _run_watchdog(self):
         """Task-timeout + liveness watchdog: the tasks of a worker whose
         task runs over its timeout, or that has not called within the
-        liveness timeout, go back to the queue."""
-        slow = set(self.task_d.doing_tasks_over_timeout())
+        liveness timeout, go back to the queue, and it leaves the comm
+        group. Step leases' synthetic owners are not watched: a lease
+        lives as long as its membership epoch (step_lease.py aborts stale
+        ones), and recovering its tasks here would pull them out from
+        under a live world."""
+        slow = {wid for wid in self.task_d.doing_tasks_over_timeout()
+                if not is_lease_owner(wid)}
         deadline = time.time() - self.args.worker_liveness_timeout_seconds
         silent = {
             wid
@@ -620,6 +656,10 @@ class Master:
                 "task_timeout", worker=worker_id, reason=why)
             self.task_d.recover_tasks(worker_id)
             self.servicer.forget_worker(worker_id)
+            if self.membership is not None:
+                # Survivors regroup instead of blocking on the dead rank's
+                # next collective.
+                self.membership.remove_worker(worker_id)
 
     def _summary(self):
         """Aggregator summary with the policy plane merged in, so

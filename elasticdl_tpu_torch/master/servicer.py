@@ -1,5 +1,4 @@
-"""The master service (counterpart of elasticdl_tpu/master/servicer.py:24-210
-and :255-320).
+"""The master service (counterpart of elasticdl_tpu/master/servicer.py).
 
 Serves the worker-facing task protocol: task pulls (with WAIT when the
 queue is momentarily empty but the job is unfinished), batched pulls, task
@@ -7,11 +6,13 @@ results, evaluation metric reports, model version reports (the evaluation
 trigger), pushed telemetry and the job status, with the job context the
 master binds once it is prepared (bind_job_context: the instance manager's
 relaunches, the aggregator's stragglers and alerts, the policy's actions,
-the metrics port, the incarnation of a master replayed from its journal)
-and the liveness grace of a recovery (seed_liveness). Method names match
-rpc.MASTER_SERVICE; each takes (request, context) as a gRPC handler does.
-The comm-rank, step-lease, liveness, profile and world-hint methods come
-with the AllReduce slice and on-demand profiling.
+the world-hint board, the metrics port, the incarnation of a master
+replayed from its journal) and the liveness grace of a recovery
+(seed_liveness). Under AllReduce it also serves the membership (comm
+ranks with the join gate, liveness registration), and under --multi_host
+the step leases; the world hint is answered from the board. Method names
+match rpc.MASTER_SERVICE; each takes (request, context) as a gRPC handler
+does. On-demand profiling (start_profile) is not ported yet.
 """
 
 import threading
@@ -31,10 +32,14 @@ class MasterServicer:
         self,
         task_dispatcher,
         evaluation_service=None,
+        membership=None,
         worker_liveness_timeout=60.0,
+        step_lease_manager=None,
     ):
         self._task_d = task_dispatcher
         self._evaluation_service = evaluation_service
+        self._membership = membership
+        self._step_leases = step_lease_manager
         # Same threshold the master watchdog uses, so alive_workers in the
         # job status can't contradict actual liveness decisions.
         self._worker_liveness_timeout = worker_liveness_timeout
@@ -49,6 +54,7 @@ class MasterServicer:
         self._metrics_port = 0
         self._aggregator = None
         self._policy = None
+        self._world_hints = None
         # Monotonic master incarnation (journal-recovered masters bump it)
         # stamped into JobStatusResponse so clients and workers can tell a
         # restart from a stall. 1 = first (or journal-less) life.
@@ -60,15 +66,15 @@ class MasterServicer:
         metrics_port=0,
         aggregator=None,
         policy=None,
+        world_hints=None,
         master_incarnation=None,
     ):
-        """Late-bind job-status sources created after this servicer (the
-        JAX servicer's also takes the world-hint board, which the port
-        serves with the AllReduce slice)."""
+        """Late-bind job-status sources created after this servicer."""
         self._instance_manager = instance_manager
         self._metrics_port = metrics_port
         self._aggregator = aggregator
         self._policy = policy
+        self._world_hints = world_hints
         if master_incarnation is not None:
             self.master_incarnation = master_incarnation
 
@@ -165,6 +171,20 @@ class MasterServicer:
             )
         return pb.Empty()
 
+    def get_world_hint(self, request, context):
+        """The announced next worker world (policy scale events); workers
+        poll it between steps."""
+        self._touch(request.worker_id)
+        if self._world_hints is None:
+            return pb.WorldHintResponse()
+        hint = self._world_hints.current()
+        return pb.WorldHintResponse(
+            hint_seq=hint["hint_seq"],
+            target_world_size=hint["target_world_size"],
+            reason=hint["reason"],
+            age_seconds=hint["age_seconds"],
+        )
+
     def report_evaluation_metrics(self, request, context):
         self._touch(request.worker_id)
         if self._evaluation_service is not None and request.model_outputs:
@@ -190,6 +210,58 @@ class MasterServicer:
             self._evaluation_service.add_evaluation_task_if_needed(
                 request.model_version
             )
+        return pb.Empty()
+
+    def get_comm_rank(self, request, context):
+        if self._membership is None:
+            return pb.GetCommRankResponse(rank_id=-1)
+        (
+            rank,
+            world,
+            group_id,
+            coordinator,
+            coordinator_port,
+        ) = self._membership.get_comm_rank(request.worker_host)
+        world_ready = False
+        if request.ready_epoch_plus_one > 0:
+            world_ready = self._membership.arrive(
+                request.worker_host, request.ready_epoch_plus_one - 1
+            )
+        return pb.GetCommRankResponse(
+            rank_id=rank,
+            world_size=world,
+            rendezvous_id=group_id,
+            coordinator_addr=coordinator,
+            rendezvous_port=coordinator_port,
+            world_ready=world_ready,
+        )
+
+    def lease_steps(self, request, context):
+        self._touch(request.worker_id)
+        if self._step_leases is None:
+            raise ValueError(
+                "step leases are only served for the multi-host AllReduce "
+                "strategy"
+            )
+        return self._step_leases.lease_steps(
+            request.worker_id, request.worker_host, request.batch_size
+        )
+
+    def report_lease(self, request, context):
+        self._touch(request.worker_id)
+        if self._step_leases is not None:
+            self._step_leases.report_lease(
+                request.lease_id,
+                request.rank,
+                request.success,
+                request.err_message,
+            )
+        return pb.Empty()
+
+    def report_worker_liveness(self, request, context):
+        self._touch(request.worker_id)
+        if self._membership is not None and request.host:
+            self._membership.register(request.worker_id, request.host)
         return pb.Empty()
 
     def report_telemetry(self, request, context):
@@ -245,6 +317,8 @@ class MasterServicer:
         )
         if self._instance_manager is not None:
             res.relaunches = self._instance_manager.total_relaunches()
+        if self._membership is not None:
+            res.membership_epoch = self._membership.group_id
         if self._aggregator is not None:
             # Straggler flags + alert count from the telemetry
             # aggregator, so monitors see anomalies without scraping.

@@ -8,7 +8,8 @@ dense_linear; DNN_0 holding Dense_0, Dense_1, ...), so common/params.py
 maps wire names to them mechanically. flax's Dense defaults are kept
 (layers/init.py `init_flax_defaults`): lecun-normal kernels and zero
 biases. The JAX package's `shard_mesh` (tables row-sharded over a
-device mesh) belongs to parallel/, which is not ported.
+device mesh) belongs to parallel/sharded_embedding.py, which is not
+ported.
 """
 
 import numpy as np

@@ -4,7 +4,7 @@ second-order term + a DNN over [dense, field embeddings]. The wide [V, 1]
 and deep [V, D] tables live on the device (CTREmbeddings); deepfm_ps.py is
 the variant with the tables in the parameter server. The JAX package's
 custom_sharded_model / sharded_param_specs (tables row-sharded over a mesh)
-belong to parallel/, which is not ported.
+belong to parallel/sharded_embedding.py, which is not ported.
 """
 
 import torch

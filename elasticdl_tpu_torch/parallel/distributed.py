@@ -1,0 +1,238 @@
+"""One process group per membership epoch (counterpart of
+elasticdl_tpu/parallel/distributed.py).
+
+The JAX package re-initializes jax.distributed, a process-wide world,
+whenever the membership epoch moves. The port keeps the world in an object
+the trainer owns instead: `World.ensure_world` builds a
+`torch.distributed.ProcessGroupGloo` over a `PrefixStore("epoch<e>/",
+TCPStore(...))` whose server rank 0 hosts at the epoch's rotated
+coordinator port, and drops it again on the next regroup. Nothing calls
+`init_process_group`, so there is no global default group: an elastic
+teardown needs no `destroy_process_group`, and several worlds can live in
+one process (the tests run a world of ranks as threads).
+
+The collectives run on gloo (`collective_backend`): the card's machine has
+one GPU, and NCCL does not put two ranks on one GPU. A CUDA tensor is
+staged explicitly through a pinned host buffer around the gloo call
+(device-to-host, gloo, host-to-device), and the world counts the seconds
+and bytes of each leg. NCCL with one GPU per rank is later work (ROADMAP).
+
+Timeouts are the JAX module's: the rendezvous store waits at most
+INITIALIZATION_TIMEOUT_SECONDS, and the group's connection and every
+collective at most HEARTBEAT_TIMEOUT_SECONDS, so a survivor whose peer
+died mid-collective gets a RuntimeError (at once when the peer's socket
+closes, as a SIGKILL closes it) instead of gloo's default 30 minutes.
+Leaving a world waits on nobody, so the JAX module's shutdown-barrier
+timeout has no counterpart.
+"""
+
+import datetime
+import threading
+import time
+
+import torch
+
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger("parallel.distributed")
+
+INITIALIZATION_TIMEOUT_SECONDS = 120
+HEARTBEAT_TIMEOUT_SECONDS = 60
+
+# Collectives move flat buffers of at most this many bytes.
+BUCKET_BYTES = 256 << 20
+
+
+def collective_backend():
+    """The process-group backend: gloo for every device for now (the
+    card's machine has one GPU, and NCCL refuses two ranks on one GPU).
+    NCCL with one GPU per rank is ROADMAP work."""
+    return "gloo"
+
+
+def _buckets(tensors, max_bytes=BUCKET_BYTES):
+    """Consecutive runs of same-dtype tensors of at most max_bytes each (a
+    tensor larger than that is a bucket of its own)."""
+    bucket, size = [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if bucket and (t.dtype != bucket[0].dtype
+                       or size + nbytes > max_bytes):
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(t)
+        size += nbytes
+    if bucket:
+        yield bucket
+
+
+class CommStats:
+    """Seconds and bytes of the collectives since the last reset, split
+    into device-to-host, gloo and host-to-device legs."""
+
+    __slots__ = ("d2h_s", "gloo_s", "h2d_s", "bytes", "calls")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.d2h_s = self.gloo_s = self.h2d_s = 0.0
+        self.bytes = self.calls = 0
+
+    def as_dict(self):
+        return {name: getattr(self, name) for name in self.__slots__}
+
+
+class World:
+    """The process group of this rank's current membership epoch."""
+
+    def __init__(self, local_host="127.0.0.1"):
+        self._local_host = local_host
+        self._store = None
+        self._group = None
+        self._lock = threading.Lock()
+        self.coordinator = None
+        self.size = 1
+        self.rank = 0
+        self.epoch = -1
+        # Set when a collective of the current group failed (a peer died,
+        # or timed out): the group can no longer run one.
+        self.broken = False
+        self.stats = CommStats()
+        self._pinned = {}  # (dtype, numel) -> pinned host buffer
+
+    def is_live(self):
+        """True while this rank is a member of a live multi-rank group: a
+        world change then tears the group down (the fast regroup keys on
+        the negation)."""
+        return self._group is not None
+
+    def ensure_world(self, coordinator_addr, world_size, rank, epoch=None):
+        """(Re)join the world of the triple. A no-op only when already a
+        member of it AT THIS epoch: a survivor's (coordinator, size, rank)
+        can be unchanged across a swap (B dies, C joins) while the
+        newcomer still needs a fresh rendezvous. world_size <= 1 leaves
+        any group and runs alone."""
+        same = (
+            self.is_live()
+            and self.coordinator == coordinator_addr
+            and self.size == world_size
+            and self.rank == rank
+            and epoch is not None
+            and self.epoch == epoch
+        )
+        if same:
+            return
+        self.leave_world()
+        if world_size <= 1:
+            self.coordinator, self.size, self.rank = None, 1, 0
+            self.epoch = epoch
+            return
+        host, port = coordinator_addr.rsplit(":", 1)
+        logger.info(
+            "Joining world coordinator=%s size=%d rank=%d epoch=%s "
+            "backend=%s", coordinator_addr, world_size, rank, epoch,
+            collective_backend())
+        import torch.distributed as dist
+
+        timeout = datetime.timedelta(seconds=INITIALIZATION_TIMEOUT_SECONDS)
+        # Rank 0 serves the store; the others connect to it, retrying
+        # until the rendezvous timeout.
+        store = dist.TCPStore(host, int(port), world_size, rank == 0,
+                              timeout, wait_for_workers=False)
+        options = dist.ProcessGroupGloo._Options()
+        options._devices = [
+            dist.ProcessGroupGloo.create_device(hostname=self._local_host)]
+        # The store waits for the rendezvous; the group's own timeout
+        # bounds its connection and every collective.
+        options._timeout = datetime.timedelta(
+            seconds=HEARTBEAT_TIMEOUT_SECONDS)
+        group = dist.ProcessGroupGloo(
+            dist.PrefixStore(f"epoch{epoch}/", store), rank, world_size,
+            options)
+        with self._lock:
+            self._store, self._group = store, group
+            self.coordinator, self.size, self.rank = (
+                coordinator_addr, world_size, rank)
+            self.epoch = epoch
+
+    def leave_world(self):
+        """Drops the group (and, on rank 0, the store it serves). Nothing
+        waits on the peers: after a peer's death no shutdown barrier could
+        complete."""
+        with self._lock:
+            group, self._group, self._store = self._group, None, None
+            self.broken = False
+        if group is not None:
+            logger.info("Leaving world epoch %s (rank %d of %d)",
+                        self.epoch, self.rank, self.size)
+            del group
+
+    # ---------- collectives ----------
+
+    def _host_buffer(self, flat):
+        if flat.device.type != "cuda":
+            return flat
+        key = (flat.dtype, flat.numel())
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = torch.empty(flat.numel(), dtype=flat.dtype,
+                              pin_memory=True)
+            self._pinned[key] = buf
+        return buf
+
+    def _run(self, tensors, collective):
+        """Runs `collective(host_flat)` over every bucket of `tensors`,
+        staging CUDA buckets through pinned host buffers, and writes the
+        results back into the tensors."""
+        for bucket in _buckets(tensors):
+            flat = torch.cat([t.reshape(-1) for t in bucket]) \
+                if len(bucket) > 1 else bucket[0].reshape(-1)
+            host = self._host_buffer(flat)
+            staged = host is not flat
+            if staged:
+                t0 = time.perf_counter()
+                host.copy_(flat)
+                self.stats.d2h_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            try:
+                collective(host)
+            except RuntimeError:
+                self.broken = True
+                raise
+            self.stats.gloo_s += time.perf_counter() - t0
+            self.stats.bytes += host.numel() * host.element_size()
+            self.stats.calls += 1
+            t0 = time.perf_counter()
+            if staged:
+                flat.copy_(host)
+            offset = 0
+            for t in bucket:
+                n = t.numel()
+                src = flat[offset:offset + n].view_as(t)
+                if src.data_ptr() != t.data_ptr():
+                    t.copy_(src)
+                offset += n
+            if staged:
+                torch.cuda.current_stream(flat.device).synchronize()
+                self.stats.h2d_s += time.perf_counter() - t0
+
+    def all_reduce_sum_(self, tensors):
+        """Sums `tensors` across the world in place (every rank receives
+        the same bits)."""
+        import torch.distributed as dist
+
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = dist.ReduceOp.SUM
+        self._run(tensors,
+                  lambda host: self._group.allreduce([host], opts).wait())
+
+    def broadcast_(self, tensors, src=0):
+        """Overwrites `tensors` with rank `src`'s, in place."""
+        import torch.distributed as dist
+
+        opts = dist.BroadcastOptions()
+        opts.rootRank = src
+        opts.rootTensor = 0
+        self._run(tensors,
+                  lambda host: self._group.broadcast([host], opts).wait())

@@ -526,6 +526,89 @@ class ReportTaskResultsRequest(Message):
     FIELDS = (Field(1, "results", ReportTaskResultRequest, "repeated"),)
 
 
+
+# ---------- elastic AllReduce: membership, step leases, world hint ----------
+
+
+class GetCommRankRequest(Message):
+    FIELDS = (
+        Field(1, "worker_host", "string"),
+        Field(2, "ready_epoch_plus_one", "int32"),
+    )
+
+
+class GetCommRankResponse(Message):
+    FIELDS = (
+        Field(1, "rank_id", "int32"),
+        Field(2, "world_size", "int32"),
+        Field(3, "rendezvous_id", "int32"),
+        Field(4, "rendezvous_port", "int32"),
+        Field(5, "coordinator_addr", "string"),
+        Field(6, "world_ready", "bool"),
+    )
+
+
+class ReportWorkerLivenessRequest(Message):
+    FIELDS = (
+        Field(1, "worker_id", "int32"),
+        Field(2, "host", "string"),
+    )
+
+
+class LeaseStepsRequest(Message):
+    FIELDS = (
+        Field(1, "worker_id", "int32"),
+        Field(2, "worker_host", "string"),
+        Field(3, "batch_size", "int32"),
+    )
+
+
+class LeaseRange(Message):
+    FIELDS = (
+        Field(1, "shard_name", "string"),
+        Field(2, "start", "int64"),
+        Field(3, "end", "int64"),
+    )
+
+
+class LeaseStepsResponse(Message):
+    # The nested enum Status.
+    Status = EnumType("Status", [("OK", 0), ("WAIT", 1), ("FINISHED", 2)])
+    OK, WAIT, FINISHED = range(3)
+    FIELDS = (
+        Field(1, "status", "enum"),
+        Field(2, "lease_id", "int64"),
+        Field(3, "epoch", "int32"),
+        Field(4, "rank", "int32"),
+        Field(5, "world_size", "int32"),
+        Field(6, "n_steps", "int32"),
+        Field(7, "ranges", LeaseRange, "repeated"),
+    )
+
+
+class ReportLeaseRequest(Message):
+    FIELDS = (
+        Field(1, "lease_id", "int64"),
+        Field(2, "worker_id", "int32"),
+        Field(3, "rank", "int32"),
+        Field(4, "success", "bool"),
+        Field(5, "err_message", "string"),
+    )
+
+
+class GetWorldHintRequest(Message):
+    FIELDS = (Field(1, "worker_id", "int32"),)
+
+
+class WorldHintResponse(Message):
+    FIELDS = (
+        Field(1, "hint_seq", "int64"),
+        Field(2, "target_world_size", "int32"),
+        Field(3, "reason", "string"),
+        Field(4, "age_seconds", "float"),
+    )
+
+
 # ---------- the parameter server's messages ----------
 
 
@@ -668,7 +751,10 @@ MESSAGES = (
     Empty, Task, Tensor, Example, GetTaskRequest, ReportTaskResultRequest,
     ReportEvaluationMetricsRequest, ReportVersionRequest,
     GetJobStatusRequest, JobStatusResponse, TaskBatch,
-    ReportTaskResultsRequest, IndexedSlices, EmbeddingTableInfo, Model,
+    ReportTaskResultsRequest, GetCommRankRequest, GetCommRankResponse,
+    ReportWorkerLivenessRequest, LeaseStepsRequest, LeaseRange,
+    LeaseStepsResponse, ReportLeaseRequest, GetWorldHintRequest,
+    WorldHintResponse, IndexedSlices, EmbeddingTableInfo, Model,
     PullDenseParametersRequest, PullDenseParametersResponse,
     PullEmbeddingVectorsRequest, PullEmbeddingTableRequest,
     PushGradientsRequest, PushGradientsResponse, TensorSpan, SlicesSpan,

@@ -6,13 +6,17 @@ the model spec, the trainer, the callbacks and the Worker. `main` is the
 process: observability as role worker-<id>, a MasterClient on
 `--master_addr`, the PS shards on `--ps_addrs`, the Worker, the telemetry
 reporter, then the run, the close and an exit line with the process's
-steps, kernel launches and pushes. It trains on the device
+steps, kernel launches and pushes (under AllReduce also its model version,
+the sha256 digest of its weights, equal on every rank of a world, and its
+lease steps that raised, whose kernels ran). It
+trains on the device
 ELASTICDL_TORCH_DEVICE names (unset: the CUDA device, and a host without
 one ends the process with the device rule's error). A worker in the
 master's process uses build_worker on an in-process stub
 (master/master.py:Master.stub) and, under ParameterServerStrategy, the
-shards' in-process stubs (Master.ps_stubs). Arguments that ask for what is
-not ported raise NotImplementedError.
+shards' in-process stubs (Master.ps_stubs). Under AllreduceStrategy the
+trainer is AllReduceTrainer, and --multi_host trains through step leases.
+Arguments that ask for what is not ported raise NotImplementedError.
 """
 
 import json
@@ -30,6 +34,7 @@ from elasticdl_tpu_torch.data.reader import CompositeReader, create_data_reader
 from elasticdl_tpu_torch.observability.metrics import default_registry
 from elasticdl_tpu_torch.observability.push import TelemetryReporter
 from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.worker.allreduce_trainer import AllReduceTrainer
 from elasticdl_tpu_torch.worker.master_client import MasterClient
 from elasticdl_tpu_torch.worker.ps_client import PSClient
 from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
@@ -46,7 +51,8 @@ _JOB_TYPES = {
 }
 
 
-def build_trainer(args, spec, ps_stubs=None, device=None):
+def build_trainer(args, spec, ps_stubs=None, device=None,
+                  master_client=None):
     strategy = args.distribution_strategy
     if strategy == DistributionStrategy.PARAMETER_SERVER:
         if not ps_stubs:
@@ -69,11 +75,22 @@ def build_trainer(args, spec, ps_stubs=None, device=None):
             model_steps=args.get_model_steps,
             device=device,
         )
-    if strategy != DistributionStrategy.LOCAL:
-        raise NotImplementedError(
-            f"--distribution_strategy {strategy} is not ported to "
-            f"elasticdl_tpu_torch yet; use {DistributionStrategy.LOCAL} or "
-            f"{DistributionStrategy.PARAMETER_SERVER}"
+    if strategy == DistributionStrategy.ALLREDUCE:
+        if master_client is None:
+            raise ValueError("AllreduceStrategy needs the master client")
+        return AllReduceTrainer(
+            spec.build_model(),
+            spec.loss,
+            spec.build_optimizer_spec(),
+            master_client,
+            multi_host=args.multi_host,
+            seed=args.seed,
+            model_parallel_size=args.model_parallel_size,
+            zero1=args.zero1,
+            quantized_grads=args.quantized_grads,
+            pipeline_stages=args.pipeline_stages,
+            context_parallel_size=args.context_parallel_size,
+            device=device,
         )
     return LocalTrainer(
         spec.build_model(), spec.loss, spec.build_optimizer_spec(),
@@ -88,10 +105,6 @@ def build_worker(args, master_client, ps_stubs=None, device=None):
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir (the worker's device trace) is not ported yet"
-        )
-    if args.multi_host:
-        raise NotImplementedError(
-            "--multi_host (step-synchronized leases) is not ported yet"
         )
     if args.model_zoo:
         sys.path.insert(0, args.model_zoo)
@@ -112,7 +125,8 @@ def build_worker(args, master_client, ps_stubs=None, device=None):
         reader = CompositeReader([reader_factory(o) for o in origins])
     if args.prefetch_records > 0:
         reader = PrefetchReader(reader, buffer_records=args.prefetch_records)
-    trainer = build_trainer(args, spec, ps_stubs=ps_stubs, device=device)
+    trainer = build_trainer(args, spec, ps_stubs=ps_stubs, device=device,
+                            master_client=master_client)
     extra_callbacks = []
     if args.output:
         extra_callbacks.append(ExportModelCallback(args.output))
@@ -131,6 +145,12 @@ def build_worker(args, master_client, ps_stubs=None, device=None):
         job_type=job_type,
         log_loss_steps=args.log_loss_steps,
         extra_callbacks=extra_callbacks,
+        # Multi-host AllReduce trains through step-synchronized leases:
+        # every rank of a world must run the same number of steps.
+        lease_mode=(
+            args.distribution_strategy == DistributionStrategy.ALLREDUCE
+            and args.multi_host
+        ),
     )
 
 
@@ -162,10 +182,16 @@ def main(argv=None):
         obs.close()
         # The exit line, also on the way out of a failure, carries what
         # only this process can count: its steps, its flash-attention
-        # kernel launches and its telemetry pushes.
-        logger.info("Worker %d exiting: %s", args.worker_id, json.dumps({
-            "steps": worker.steps, "kernel_launches": dict(fa.launches),
-            "telemetry": reporter.stats()}, sort_keys=True))
+        # kernel launches and its telemetry pushes; an AllReduce worker
+        # adds its model version and weights' digest.
+        record = {"steps": worker.steps, "kernel_launches": dict(fa.launches),
+                  "telemetry": reporter.stats()}
+        if isinstance(worker.trainer, AllReduceTrainer):
+            record.update(version=worker.trainer.get_model_version(),
+                          digest=worker.trainer.state_digest(),
+                          failed_steps=worker.failed_steps)
+        logger.info("Worker %d exiting: %s", args.worker_id,
+                    json.dumps(record, sort_keys=True))
     return 0
 
 

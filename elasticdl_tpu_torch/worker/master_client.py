@@ -1,11 +1,12 @@
 """Worker-side wrapper over the Master service stub (counterpart of
-elasticdl_tpu/worker/master_client.py, for the methods the port's servicer
-has).
+elasticdl_tpu/worker/master_client.py).
 
 `master` is the master's address ("host:port"), over which the client
 builds a hardened channel (common/rpc.py), or a stub: an
 rpc.InProcessStub(servicer, rpc.MASTER_SERVICE) for a master in this
-process. Only the address form can `reconnect`.
+process. Only the address form can `reconnect`. `worker_host` is the
+"ip:port" this worker is reached on, its key in the AllReduce membership;
+the AllReduce trainer rewrites its port to its broadcast server's.
 """
 
 import threading
@@ -119,6 +120,56 @@ class MasterClient:
     def report_version(self, model_version):
         return self._stub.report_version(
             pb.ReportVersionRequest(model_version=model_version)
+        )
+
+    def get_comm_rank(self, ready_epoch=None):
+        """ready_epoch: declare this worker at the join gate for that
+        membership epoch (see the proto's GetCommRankRequest); the
+        response's world_ready says whether the whole world has
+        arrived."""
+        return self._stub.get_comm_rank(
+            pb.GetCommRankRequest(
+                worker_host=self.worker_host,
+                ready_epoch_plus_one=(
+                    0 if ready_epoch is None else ready_epoch + 1
+                ),
+            )
+        )
+
+    def report_liveness(self):
+        """Registers this worker's host in the membership (a no-op for a
+        host already registered under this id)."""
+        return self._stub.report_worker_liveness(
+            pb.ReportWorkerLivenessRequest(
+                worker_id=self._worker_id, host=self.worker_host
+            )
+        )
+
+    def lease_steps(self, batch_size):
+        return self._stub.lease_steps(
+            pb.LeaseStepsRequest(
+                worker_id=self._worker_id,
+                worker_host=self.worker_host,
+                batch_size=batch_size,
+            )
+        )
+
+    def report_lease(self, lease_id, rank, success, err_message=""):
+        return self._stub.report_lease(
+            pb.ReportLeaseRequest(
+                lease_id=lease_id,
+                worker_id=self._worker_id,
+                rank=rank,
+                success=success,
+                err_message=err_message,
+            )
+        )
+
+    def get_world_hint(self):
+        """The master's announced next world (policy scale events);
+        hint_seq 0 means none was ever announced."""
+        return self._stub.get_world_hint(
+            pb.GetWorldHintRequest(worker_id=self._worker_id)
         )
 
     def get_job_status(self):

@@ -3,11 +3,15 @@
 
 Job-type dispatch, per-minibatch retry (<= 64), evaluation tasks interleaved
 into training, prediction output processing, train-end callback task
-handling. The step-synchronized lease loop (multi-host AllReduce) and the
-device trace window (profile_dir) come with the AllReduce and observability
-slices; asking for either raises NotImplementedError.
+handling, and the step-synchronized lease loop of multi-host AllReduce
+(`lease_mode`): training is leased to the whole world at once, every rank
+runs the lease's n_steps minibatches, and a comm failure or a membership
+change abandons the lease, which the master requeues. The device trace
+window (profile_dir) comes with the observability slice; asking for it
+raises NotImplementedError.
 """
 
+import time
 import traceback
 
 from elasticdl_tpu_torch.common.constants import (
@@ -24,6 +28,10 @@ from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
 
 logger = get_logger("worker.worker")
+
+# Lease-loop poll interval while the master answers WAIT (tests set it
+# to 0).
+LEASE_WAIT_SECONDS = 0.5
 
 _REG = default_registry()
 _STEPS = _REG.counter(
@@ -57,11 +65,6 @@ class Worker:
         profile_dir="",
         lease_mode=False,
     ):
-        if lease_mode:
-            raise NotImplementedError(
-                "step-synchronized lease mode (multi-host AllReduce) is not "
-                "ported to elasticdl_tpu_torch yet"
-            )
         if profile_dir:
             raise NotImplementedError(
                 "the worker's device trace window (profile_dir) is not "
@@ -77,7 +80,13 @@ class Worker:
         self._log_loss_steps = log_loss_steps
         self._max_minibatch_retries = max_minibatch_retries
         self._metadata = data_reader.metadata
+        # Step-synchronized lease mode (multi-host AllReduce): training is
+        # driven by whole-world leases instead of independent task pulls.
+        self._lease_mode = lease_mode
         self._steps = 0
+        # Lease steps that raised (a peer's death surfaces in the step's
+        # all-reduce, after its forward and backward ran).
+        self._failed_steps = 0
         self._timing = Timing().bind_histogram(_PHASE_SECONDS)
         # Data-plane stages recorded off the worker loop (task acquire,
         # read/starve, decode) mirror into this Timing as input_<stage>
@@ -100,6 +109,10 @@ class Worker:
             JobType.TRAINING_ONLY,
             JobType.TRAINING_WITH_EVALUATION,
         ):
+            if self._lease_mode:
+                # Leases cover TRAINING work only; the regular loop
+                # afterwards drains evaluation and train-end tasks.
+                self._train_leases()
             self._train_and_evaluate()
         elif self._job_type == JobType.EVALUATION_ONLY:
             self._evaluate_only()
@@ -146,6 +159,136 @@ class Worker:
             else:
                 logger.warning("Skipping unexpected task %s", task)
                 self._tds.report_task(task.task_id)
+
+    def _train_leases(self):
+        """Step-synchronized lease loop (multi-host AllReduce): every rank
+        of the current membership epoch runs exactly lease.n_steps
+        minibatches, then the lease's tasks complete; a comm failure or a
+        membership change abandons the lease (the master requeues it). The
+        loop returns when training work is exhausted; evaluation and
+        train-end tasks drain through the regular task loop after."""
+        while True:
+            lease = self._mc.lease_steps(self._minibatch_size)
+            if lease.status == pb.LeaseStepsResponse.FINISHED:
+                logger.info(
+                    "Worker %d: training leases exhausted", self._worker_id
+                )
+                return
+            if lease.status == pb.LeaseStepsResponse.WAIT:
+                # Not in the group yet, peers still finishing the active
+                # lease, or no mintable work: announce ourselves, drain any
+                # pending evaluation work, and poll again.
+                self._mc.report_liveness()
+                if self._job_type == JobType.TRAINING_WITH_EVALUATION:
+                    self._drain_eval_tasks()
+                time.sleep(LEASE_WAIT_SECONDS)
+                continue
+            try:
+                records = self._read_lease_records(lease.ranges)
+            except Exception as e:
+                logger.error("Lease %d data read failed: %s",
+                             lease.lease_id, e)
+                self._mc.report_lease(
+                    lease.lease_id, lease.rank, False, str(e)
+                )
+                continue
+            if not records:
+                self._mc.report_lease(
+                    lease.lease_id, lease.rank, False, "empty lease ranges"
+                )
+                continue
+            B = self._minibatch_size
+            first = self._spec.feed(
+                records[:B], Modes.TRAINING, self._metadata
+            )
+            self._trainer.init_variables_if_needed(first[0])
+            self._trainer.init_world_if_needed()
+            if (
+                self._trainer.group_id != lease.epoch
+                or self._trainer.rank != lease.rank
+                or self._trainer.world_size != lease.world_size
+            ):
+                # The world moved between minting and joining; the master
+                # aborts this lease on its next epoch observation.
+                logger.info(
+                    "Worker %d: lease %d is for epoch %d but this worker "
+                    "is at epoch %d (rank %d/%d); refetching",
+                    self._worker_id,
+                    lease.lease_id,
+                    lease.epoch,
+                    self._trainer.group_id,
+                    self._trainer.rank,
+                    self._trainer.world_size,
+                )
+                continue
+            tracing.set_context(lease_epoch=lease.epoch)
+            running = False
+            try:
+                loss = None
+                dp = datapath.get()
+                for i in range(lease.n_steps):
+                    # Cycle this rank's records to fill every batch: all
+                    # ranks must run identically-shaped steps.
+                    with dp.stage("collate"):
+                        rows = [
+                            records[(i * B + j) % len(records)]
+                            for j in range(B)
+                        ]
+                    with dp.stage("decode"):
+                        features, labels = self._spec.feed(
+                            rows, Modes.TRAINING, self._metadata
+                        )
+                    running = True
+                    loss = self._trainer.train_lease_minibatch(
+                        features, labels
+                    )
+                    running = False
+                    self._steps += 1
+                    _STEPS.inc()
+                    if self._steps % self._log_loss_steps == 0:
+                        logger.info(
+                            "Step %d (lease %d) loss %.6f",
+                            self._steps,
+                            lease.lease_id,
+                            float(loss),
+                        )
+                # "Success" means the steps ran: wait for the device
+                # before reporting.
+                if loss is not None:
+                    float(loss)
+            except Exception as e:
+                self._failed_steps += running
+                logger.warning(
+                    "Lease %d failed mid-steps; re-checking world",
+                    lease.lease_id,
+                    exc_info=True,
+                )
+                old_epoch = self._trainer.group_id
+                try:
+                    self._trainer.init_world_if_needed(force=True)
+                except Exception:
+                    logger.warning(
+                        "World re-init failed; will retry on next lease",
+                        exc_info=True,
+                    )
+                if self._trainer.group_id == old_epoch:
+                    # Same membership epoch: a deterministic failure (bad
+                    # feed, ...), not an elastic event. Report it so the
+                    # master's retry ladder bounds it instead of re-minting
+                    # the same doomed lease forever.
+                    self._mc.report_lease(
+                        lease.lease_id, lease.rank, False, str(e)
+                    )
+                    time.sleep(LEASE_WAIT_SECONDS)
+                continue
+            self._mc.report_lease(lease.lease_id, lease.rank, True)
+            self._mc.report_version(self._trainer.get_model_version())
+
+    def _read_lease_records(self, ranges):
+        records = []
+        for r in ranges:
+            records.extend(self._tds.read_range(r))
+        return records
 
     def _evaluate_only(self):
         while True:
@@ -297,6 +440,10 @@ class Worker:
     @property
     def steps(self):
         return self._steps
+
+    @property
+    def failed_steps(self):
+        return self._failed_steps
 
     @property
     def trainer(self):

@@ -5,8 +5,8 @@ SDKs kubernetes and odps blocked (the k8s backend and the ODPS reader and
 writer import them only where they are used), and loads nothing of the
 JAX package; the control-plane modules among them (the journal, the policy
 engine, the telemetry plane, the chaos seams, the socket transport, the
-process entry points, the instance managers and the `edl` client) import
-without grpc."""
+process entry points, the instance managers, the `edl` client and the
+elastic AllReduce modules) import without grpc."""
 
 import os
 import pkgutil
@@ -71,7 +71,10 @@ def test_port_imports_with_jax_blocked():
                  "common.k8s_resource", "common.k8s_rest",
                  "common.k8s_client", "master.k8s_instance_manager",
                  "client", "client.main", "data.odps_reader",
-                 "data.odps_writer"):
+                 "data.odps_writer", "master.membership",
+                 "master.step_lease", "parallel", "parallel.mesh",
+                 "parallel.distributed", "parallel.broadcast",
+                 "worker.allreduce_trainer"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],

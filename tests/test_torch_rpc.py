@@ -40,6 +40,12 @@ METHOD_CASES = {
     "report_version": ("ReportVersionRequest", "Empty"),
     "get_job_status": ("GetJobStatusRequest", "JobStatusResponse"),
     "report_telemetry": ("ReportTelemetryRequest", "ReportTelemetryResponse"),
+    "get_comm_rank": ("GetCommRankRequest", "GetCommRankResponse"),
+    "report_worker_liveness": ("ReportWorkerLivenessRequest", "Empty"),
+    "lease_steps": ("LeaseStepsRequest", "LeaseStepsResponse"),
+    "report_lease": ("ReportLeaseRequest", "Empty"),
+    "get_world_hint": ("GetWorldHintRequest", "WorldHintResponse"),
+    "pull_model": ("PullDenseParametersRequest", "Model"),
     "push_model": ("Model", "Empty"),
     "push_embedding_table_infos": ("Model", "Empty"),
     "pull_dense_parameters": ("PullDenseParametersRequest",
@@ -77,7 +83,8 @@ class _Recorder:
         self.received = {}
 
     def __getattr__(self, method):
-        spec = {**rpc.MASTER_SERVICE.methods, **rpc.PSERVER_SERVICE.methods}
+        spec = {**rpc.MASTER_SERVICE.methods, **rpc.PSERVER_SERVICE.methods,
+                **rpc.COLLECTIVE_SERVICE.methods}
         _, resp_cls = spec[method]
 
         def handler(request, context):
@@ -155,8 +162,9 @@ def served():
 # ---------- the wire: bytes and status codes ----------
 
 
-@pytest.mark.parametrize("spec", [rpc.MASTER_SERVICE, rpc.PSERVER_SERVICE],
-                         ids=["master", "pserver"])
+@pytest.mark.parametrize("spec", [rpc.MASTER_SERVICE, rpc.PSERVER_SERVICE,
+                                  rpc.COLLECTIVE_SERVICE],
+                         ids=["master", "pserver", "collective"])
 def test_every_method_carries_pb2_bytes_across_the_socket(spec, served):
     recorder = _Recorder()
     stub = _stub_to(served(recorder, spec), spec)
@@ -168,8 +176,11 @@ def test_every_method_carries_pb2_bytes_across_the_socket(spec, served):
         assert response.SerializeToString() == _pb2_bytes(resp_case), method
         future = getattr(stub, method).future(request)
         assert future.result().SerializeToString() == _pb2_bytes(resp_case)
-    assert set(spec.methods) <= set(jax_rpc.MASTER_SERVICE.methods) | set(
-        jax_rpc.PSERVER_SERVICE.methods)
+    jax_spec = {"elasticdl_tpu.Master": jax_rpc.MASTER_SERVICE,
+                "elasticdl_tpu.Pserver": jax_rpc.PSERVER_SERVICE,
+                "elasticdl_tpu.Collective": jax_rpc.COLLECTIVE_SERVICE}[
+                    spec.name]
+    assert set(spec.methods) <= set(jax_spec.methods)
 
 
 def test_packed_push_round_trip(served):
@@ -331,7 +342,8 @@ def test_policies_equal_jax_for_every_spec_method(env, monkeypatch):
     jax_rpc.reload_config()
     try:
         methods = [f"/{spec.name}/{m}"
-                   for spec in (rpc.MASTER_SERVICE, rpc.PSERVER_SERVICE)
+                   for spec in (rpc.MASTER_SERVICE, rpc.PSERVER_SERVICE,
+                                rpc.COLLECTIVE_SERVICE)
                    for m in spec.methods]
         assert set(rpc.METHOD_POLICIES) == {
             m.rsplit("/", 1)[-1] for m in methods}

@@ -119,6 +119,43 @@ CASES = {
     "ReportTelemetryResponse": ("ReportTelemetryResponse", dict(
         accepted=2, need_full=["ps-1", "worker-3"])),
     "TelemetrySnapshot": ("TelemetrySnapshot", dict(role="master")),
+    "GetCommRankRequest": ("GetCommRankRequest", dict(
+        worker_host="10.0.0.2:40123", ready_epoch_plus_one=8)),
+    "GetCommRankRequest_empty": ("GetCommRankRequest", {}),
+    "GetCommRankResponse": ("GetCommRankResponse", dict(
+        rank_id=1, world_size=2, rendezvous_id=7, rendezvous_port=51007,
+        coordinator_addr="10.0.0.1:40000", world_ready=True)),
+    "GetCommRankResponse_not_admitted": ("GetCommRankResponse",
+                                         dict(rank_id=-1)),
+    "ReportWorkerLivenessRequest": ("ReportWorkerLivenessRequest", dict(
+        worker_id=3, host="127.0.0.1:5000")),
+    "ReportWorkerLivenessRequest_empty": ("ReportWorkerLivenessRequest", {}),
+    "LeaseStepsRequest": ("LeaseStepsRequest", dict(
+        worker_id=1, worker_host="h:1", batch_size=4)),
+    "LeaseStepsRequest_empty": ("LeaseStepsRequest", {}),
+    "LeaseRange": ("LeaseRange", dict(shard_name="train.edlr", start=16,
+                                      end=2**33)),
+    "LeaseRange_empty": ("LeaseRange", {}),
+    "LeaseStepsResponse": ("LeaseStepsResponse", dict(
+        status=pb.LeaseStepsResponse.OK, lease_id=2**35, epoch=4, rank=1,
+        world_size=2, n_steps=8, ranges=[
+            dict(shard_name="a", start=0, end=16),
+            dict(shard_name="b", start=16, end=32)])),
+    "LeaseStepsResponse_wait": ("LeaseStepsResponse", dict(
+        status=pb.LeaseStepsResponse.WAIT)),
+    "LeaseStepsResponse_finished": ("LeaseStepsResponse", dict(
+        status=pb.LeaseStepsResponse.FINISHED)),
+    "ReportLeaseRequest": ("ReportLeaseRequest", dict(
+        lease_id=9, worker_id=0, rank=1, success=True)),
+    "ReportLeaseRequest_failed": ("ReportLeaseRequest", dict(
+        lease_id=9, worker_id=1, rank=0, success=False,
+        err_message="Connection closed by peer é")),
+    "GetWorldHintRequest": ("GetWorldHintRequest", dict(worker_id=5)),
+    "GetWorldHintRequest_empty": ("GetWorldHintRequest", {}),
+    "WorldHintResponse": ("WorldHintResponse", dict(
+        hint_seq=3, target_world_size=4, reason="deadline_scale_up",
+        age_seconds=1.5)),
+    "WorldHintResponse_none": ("WorldHintResponse", {}),
     "JobStatusResponse_maps": ("JobStatusResponse", dict(
         records_done=64, last_eval_metrics={"token_ce": 1.5, "z": -0.0},
         worker_last_seen_ago={0: 0.25, -1: 3.0},
@@ -253,10 +290,15 @@ def test_schema_copy_matches_and_messages_follow_it():
 
     with open(ours) as f:
         text = re.sub(r"//[^\n]*", "", f.read())
+    # A message's nested enum (LeaseStepsResponse.Status) is a field type:
+    # its body leaves the message body, its name reads as an enum.
+    nested_enums = re.findall(r"\benum (\w+) \{[^}]*\}", text)
+    text = re.sub(r"\benum (\w+) \{[^}]*\}", "", text)
     scalar = {"int32": "int32", "int64": "int64", "uint64": "uint64",
               "bool": "bool",
               "float": "float", "string": "string", "bytes": "bytes",
-              "TaskType": "enum", "DataType": "enum"}
+              "TaskType": "enum", "DataType": "enum",
+              **{name: "enum" for name in nested_enums}}
     for cls in pb.MESSAGES:
         body = re.search(r"message %s \{([^}]*)\}" % cls.__name__, text)
         assert body, cls.__name__
