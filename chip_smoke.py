@@ -108,12 +108,12 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    share), then one batch at the same weights on the card and on the
    CPU: loss within 1e-5 relative, every gradient within 1e-5 of its
    largest value.
-12. lm_ps: the flagship LM (full width and depth, batch 4 x S 4096) as a
+12. lm_ps: the flagship LM (full width, 4 layers, batch 4 x S 4096) as a
    job through Master with ParameterServerStrategy and 2 shards, its model
    spec without embedding_inputs: tok_emb and pos_emb move to the PS and
    the ids feed is derived. One job on the float32 wire and one on the
    int8 wire, 4 steps each: records_done exact, every push accepted,
-   losses falling, exact flash-attention launch counts (12 forward
+   losses falling, exact flash-attention launch counts (4 forward
    launches come from the capture forward that derives the feed); the
    export loaded into a stock TransformerLM gives the PS trainer's logits
    bitwise; on the float32 job's first batch the loss and the tok_emb and
@@ -178,8 +178,8 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    `edl evaluate` of the MNIST CNN (the flagship's evaluation report is
    over the transport's cap): its metrics must land in metrics.jsonl.
    Checks each worker's launches exactly from its exit line (the train
-   worker 12 each of flash_fwd_lse, flash_dq, flash_dkv per step and no
-   flash_fwd; the predict worker 12 flash_fwd per minibatch and nothing
+   worker 4 each of flash_fwd_lse, flash_dq, flash_dkv per step and no
+   flash_fwd; the predict worker 4 flash_fwd per minibatch and nothing
    else); prints each command's wall time and its processes' timeline.
 16. k8s: `edl train --instance_backend k8s` of the flagship (48 records
    in tasks of 16, one worker pod, training only) against
@@ -216,20 +216,43 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    membership epochs, exact launches per rank process, the last world's
    equal version and weights' digest, no process left; prints the
    recovery times split and ms per step in each world.
+18. model_axes: the model and seq axes of AllReduceTrainer, its shards as
+   threads of this process sharing the card (ELASTICDL_LOCAL_DEVICES),
+   their collectives on gloo through pinned host buffers. float32 checks
+   at the flagship's widths and 4 layers, batch 4 x S 4096, one step
+   each against LocalTrainer from the same seed and batch: TP2, SP2
+   zigzag, SP2 ring, SP2 Ulysses, TP2 x SP2 zigzag (4 shards, heads split
+   over the model axis), and the Switch-MoE LM over two model shards of
+   2 experts each (EP2), its routing on each shard first, exactly; loss
+   and every gathered gradient within 1e-4 of the tensor's largest value,
+   each shard's launches exact (blocks visible per shard x layers). Then
+   the bfloat16 flagship (12 layers) timed under LocalTrainer, TP2 and
+   SP2 zigzag, 3 steps each: ms per step, the gloo legs' seconds and bytes
+   per axis, peak memory, the losses beside LocalTrainer's (reported, not
+   bounded), exact launches. Then a --multi_host --model_parallel_size 2
+   job through master.main, two worker processes of two model shards each
+   on the card (32 records in tasks of 16, the flagship at 4 layers):
+   records_done, each process's launches (2 shards x layers per step),
+   equal version and digest, no process left.
+The phases that repeat the flagship beyond the main path (proc_lm, client,
+k8s, allreduce, lm_ps) run it at its full width and PROC_LAYERS (4)
+layers.
 The PS, CTR and zoo phases launch none of the flash-attention kernels;
 their counts are reset before each and read after it. proc_lm's, the
 client's and the k8s pods' kernels run in their worker processes: each
 logs its counts at its exit, and the kernels line carries them as
 proc_lm_launches, client_launches and k8s_launches; allreduce_launches has
-the allreduce phase's in-process part and its rank processes. Then each phase's
-seconds, the {"kernels": [...]} line, and last {"ok": true, "device":
-{...}}.
+the allreduce phase's in-process part and its rank processes;
+model_axes_launches each shard's of the model_axes runs and each process's
+of its job. Then each phase's seconds, the {"kernels": [...]} line, and
+last {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import logging
@@ -364,15 +387,30 @@ JOB_RECORDS_PER_TASK = 16
 JOB_EVAL_STEPS = 8
 JOB_LOG_STEPS = 4
 MODEL_DEF = """\
+import dataclasses as _dc
+
 from elasticdl_tpu_torch.models.transformer import transformer_lm as _lm
 from elasticdl_tpu_torch.models.transformer.transformer_lm import (  # noqa
-    eval_metrics_fn, feed, loss, optimizer,
+    eval_metrics_fn, feed, loss, optimizer, param_specs,
 )
 
 
 def custom_model():
-    return _lm.custom_model(_lm.flagship_config({seq}))
+    return _lm.custom_model(_dc.replace(_lm.flagship_config({seq}),
+                                        n_layers={layers}))
 """
+# The phases that repeat the flagship beyond the main path (proc_lm,
+# client, k8s, allreduce, lm_ps) run it at full width and this depth: what
+# they check and time is processes, recovery, the transport and the
+# collectives, and the script's time limit is shared with the model_axes
+# phase.
+PROC_LAYERS = 4
+
+
+def proc_config():
+    """The flagship's widths at PROC_LAYERS layers."""
+    return dataclasses.replace(tlm.flagship_config(SEQ),
+                               n_layers=PROC_LAYERS)
 
 # The Switch-MoE LM at the flagship's widths with 4 experts in every second
 # block (moe_lm.flagship_config: 373,481,496 parameters, capacity 5120 per
@@ -1189,8 +1227,8 @@ def _write_job_inputs(root, cfg, n_train=JOB_TRAIN_RECORDS,
                       n_valid=JOB_VALID_RECORDS, model_def=MODEL_DEF,
                       seed=0):
     """Markov-token training and validation records and a model-def file
-    for an LM job; returns their paths and the first BATCH validation
-    rows."""
+    for an LM job (the flagship at cfg's depth); returns their paths and
+    the first BATCH validation rows."""
     tokens = synthetic_lm_tokens(n_train + n_valid, SEQ, vocab=cfg.vocab,
                                  branching=4, seed=seed)
     paths = {}
@@ -1202,7 +1240,7 @@ def _write_job_inputs(root, cfg, n_train=JOB_TRAIN_RECORDS,
                 writer.write(encode_example({"tokens": row}))
     paths["model_def"] = os.path.join(root, "lm_def.py")
     with open(paths["model_def"], "w") as f:
-        f.write(model_def.format(seq=SEQ))
+        f.write(model_def.format(seq=SEQ, layers=cfg.n_layers))
     return paths, tokens[n_train:n_train + BATCH]
 
 
@@ -2321,7 +2359,7 @@ def _write_lm_ps_inputs(root, cfg):
         for row in tokens:
             writer.write(encode_example({"tokens": row}))
     with open(paths["model_def"], "w") as f:
-        f.write(MODEL_DEF.format(seq=SEQ))
+        f.write(MODEL_DEF.format(seq=SEQ, layers=cfg.n_layers))
     return paths, tokens
 
 
@@ -2526,10 +2564,11 @@ def _lm_ps_job(cfg, paths, tokens, wire):
 
 
 def phase_lm_ps():
-    """The flagship LM (full width and depth) on ParameterServerStrategy
-    through the master, its tables moved to the PS automatically: a job
-    on the float32 wire and one on the int8 wire."""
-    cfg = tlm.flagship_config(SEQ)
+    """The flagship LM (full width, PROC_LAYERS layers) on
+    ParameterServerStrategy through the master, its tables moved to the
+    PS automatically: a job on the float32 wire and one on the int8
+    wire."""
+    cfg = proc_config()
     with tempfile.TemporaryDirectory() as root:
         paths, tokens = _write_lm_ps_inputs(root, cfg)
         results = {wire: _lm_ps_job(cfg, paths, tokens, wire)
@@ -3349,7 +3388,7 @@ def _proc_lm(root):
     kill; returns the recovery times and the checks' inputs."""
     from elasticdl_tpu_torch.chaos import process as chaos_process
 
-    cfg = tlm.flagship_config(SEQ)
+    cfg = proc_config()
     paths, _ = _write_job_inputs(root, cfg, n_valid=0)
     obs = os.path.join(root, "metrics")
     # A worker whose wait for work outlasts the finished successor's 2 s
@@ -3647,7 +3686,7 @@ def phase_processes(results):
     emit({"phase": "processes", "run": "proc_lm", **card,
           "workers_share_the_card": PROC_LM_WORKERS, **lm})
     exits = lm["worker_exits"]
-    layers = tlm.flagship_config(SEQ).n_layers
+    layers = PROC_LAYERS
     checks = [
         (lm["successor_rc"] == 0, "the successor's exit code"),
         (lm["records_done"] == JOB_TRAIN_RECORDS, "records_done"),
@@ -3790,7 +3829,7 @@ def _client_reference(ckpt, records):
     """The flagship's last-position logits on the prediction `records`, by
     this process on the card from the exported weights, minibatch by
     minibatch as the predict worker ran them."""
-    cfg = tlm.flagship_config(SEQ)
+    cfg = proc_config()
     trainer = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer())
     trainer.restore_on_init = ckpt
     rows = []
@@ -3820,13 +3859,13 @@ def phase_client(results):
     client on the card."""
     device = results["device"]
     card = {"card": device["nvidia_smi"]}
-    layers = tlm.flagship_config(SEQ).n_layers
+    layers = PROC_LAYERS
     env = _proc_env()
     logs = []
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         try:
-            cfg = tlm.flagship_config(SEQ)
+            cfg = proc_config()
             paths, _ = _write_job_inputs(root, cfg, n_train=CLIENT_TRAIN,
                                          n_valid=CLIENT_PREDICT)
             rf = RecordFile(paths["valid"])
@@ -3835,7 +3874,8 @@ def phase_client(results):
             out = os.path.join(root, "last_logits.npy")
             predict_def = os.path.join(root, "lm_predict_def.py")
             with open(predict_def, "w") as f:
-                f.write(CLIENT_PREDICT_DEF.format(seq=SEQ, out=out))
+                f.write(CLIENT_PREDICT_DEF.format(seq=SEQ, out=out,
+                                                  layers=PROC_LAYERS))
             ckpt = os.path.join(root, "flagship.npz")
             common = ["--distribution_strategy", "Local",
                       "--num_workers", "1", "--master_port", "0",
@@ -4048,7 +4088,7 @@ def phase_k8s(results):
 
     device = results["device"]
     card = {"card": device["nvidia_smi"]}
-    layers = tlm.flagship_config(SEQ).n_layers
+    layers = PROC_LAYERS
     torch.cuda.empty_cache()
     server = FakeK8sApiServer()
     kubelet = port = None
@@ -4057,7 +4097,7 @@ def phase_k8s(results):
     worker_pod = f"elasticdl-{K8S_JOB}-worker-0"
     with tempfile.TemporaryDirectory() as root:
         try:
-            paths, _ = _write_job_inputs(root, tlm.flagship_config(SEQ),
+            paths, _ = _write_job_inputs(root, proc_config(),
                                          n_train=K8S_RECORDS, n_valid=0)
             obs = os.path.join(root, "metrics")
             env = _proc_env(EDL_K8S_API_SERVER=server.endpoint,
@@ -4222,7 +4262,7 @@ class _ArControl:
 
 
 def _lm_spec(activation_dtype=None):
-    cfg = tlm.flagship_config(SEQ)
+    cfg = proc_config()
     if activation_dtype:
         cfg = dataclasses.replace(cfg, activation_dtype=activation_dtype)
     return lambda: (tlm.custom_model(cfg), tlm.loss, tlm.optimizer())
@@ -4588,7 +4628,7 @@ def _proc_ar(root):
     a worker kill and rejoin; returns the times and the checks' inputs."""
     from elasticdl_tpu_torch.chaos import process as chaos_process
 
-    cfg = tlm.flagship_config(SEQ)
+    cfg = proc_config()
     paths, _ = _write_job_inputs(root, cfg, n_train=AR_RECORDS, n_valid=0)
     obs = os.path.join(root, "metrics")
     events = os.path.join(obs, "events.jsonl")
@@ -4703,7 +4743,7 @@ def phase_allreduce(results):
     with a worker kill and rejoin."""
     device = results["device"]
     card = {"card": device["nvidia_smi"]}
-    cfg = tlm.flagship_config(SEQ)
+    cfg = proc_config()
     tokens = synthetic_lm_tokens(4 * BATCH, SEQ, vocab=cfg.vocab,
                                  branching=4, seed=0)
     torch.cuda.empty_cache()
@@ -4761,7 +4801,7 @@ def phase_allreduce(results):
         # A step cut by the peer's death ran its forward and backward
         # before its all-reduce raised: its launches count, its step not.
         (_launch_check(exits, lambda e: {
-            n: cfg.n_layers * (e["steps"] + e["failed_steps"])
+            n: PROC_LAYERS * (e["steps"] + e["failed_steps"])
             for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}),
          "each rank process's kernel launches"),
         (len({(e["version"], e["digest"]) for e in last}) == 1
@@ -4773,6 +4813,355 @@ def phase_allreduce(results):
     return {"launches": launches, "one_process_world": single,
             "two_ranks": two, "two_ranks_bf16": two_bf16,
             "mnist_pull": pull, "proc_ar": proc}
+
+
+# ---------- the model and seq axes: shards of one process on the card ----------
+
+# The bounded checks: one step of each configuration with float32
+# activations against LocalTrainer from the same seed and batch (the
+# flagship's widths at MA_CHECK_LAYERS layers); loss and every gathered
+# gradient within MA_RTOL of the tensor's largest value: f32 partial sums
+# in another order. (name, trainer options, shards per process).
+MA_CHECK_LAYERS = 4
+MA_RTOL = 1e-4
+MA_CHECKS = (
+    ("tp2", dict(model_parallel_size=2), 2),
+    ("sp2_zigzag", dict(context_parallel_size=2), 2),
+    ("sp2_ring", dict(context_parallel_size=2,
+                      context_parallel_impl="ring"), 2),
+    ("sp2_ulysses", dict(context_parallel_size=2,
+                         context_parallel_impl="ulysses"), 2),
+    ("tp2_sp2_zigzag", dict(model_parallel_size=2,
+                            context_parallel_size=2), 4),
+)
+# The timed runs: the bfloat16 flagship (full depth), MA_STEPS steps each.
+MA_TIMED = (("tp2", dict(model_parallel_size=2), 2),
+            ("sp2_zigzag", dict(context_parallel_size=2), 2))
+MA_STEPS = 3
+# One job through the entry points: two worker processes of two model
+# shards each sharing the card, the bfloat16 flagship at PROC_LAYERS.
+MA_JOB_RECORDS = 32
+MA_JOB_TASK = 16
+MA_JOB_WORKERS = 2
+
+
+def _ma_blocks(kw, seq_coord):
+    """Flash-attention blocks a shard runs per layer and step (each a
+    forward, a dQ and a dK/dV launch): one without a seq axis and under
+    Ulysses, 2N+1 half-blocks under zigzag, the blocks at or below the
+    diagonal under the causal ring."""
+    sp = kw.get("context_parallel_size", 1)
+    impl = kw.get("context_parallel_impl", "zigzag")
+    if sp == 1 or impl == "ulysses":
+        return 1
+    return 2 * sp + 1 if impl == "zigzag" else seq_coord + 1
+
+
+def _ma_trainer(kw, shards, cfg, spec=tlm):
+    """An AllReduceTrainer of one process with `shards` shards sharing the
+    card (ELASTICDL_LOCAL_DEVICES), its model spec's hooks bound to
+    cfg."""
+    hooks = {"param_specs_fn": spec.param_specs}
+    if spec is tlm:
+        hooks["context_parallel_model_fn"] = functools.partial(
+            tlm.context_parallel_model, config=cfg)
+    with _environ(ELASTICDL_LOCAL_DEVICES=str(shards)):
+        return _ArControl().trainer(
+            0, lambda: (spec.custom_model(cfg), spec.loss,
+                        spec.optimizer()), **hooks, **kw)
+
+
+def _flax_grads(model):
+    return {x.name: x.to_flax(x.param.grad).detach().clone()
+            for x in flax_leaves(model)}
+
+
+def _ma_errors(trainer, loss, ref_loss, ref_grads):
+    grads = _flax_grads(trainer._model)
+    errors = {n: float((grads[n] - g).abs().max() / g.abs().max().clamp_min(
+        1e-30)) for n, g in ref_grads.items()}
+    errors["loss"] = abs(float(loss) - ref_loss) / abs(ref_loss)
+    return errors
+
+
+def _ma_launch_check(trainer, kw, layers, steps):
+    """Each shard's launches against the schedule's count."""
+    want, got = [], []
+    for i, counts in enumerate(trainer.shard_launches):
+        blocks = _ma_blocks(kw, trainer.shards.layout.coords(i)["seq"])
+        want.append({n: blocks * layers * steps
+                     for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")})
+        got.append({k: v for k, v in counts.items() if v})
+    return got, want
+
+
+def _ma_f32_checks(x, y):
+    cfg = dataclasses.replace(tlm.flagship_config(SEQ),
+                              n_layers=MA_CHECK_LAYERS,
+                              activation_dtype="float32")
+    local = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer(),
+                         device=AR_DEVICE)
+    _, _, ref_loss = local.train_minibatch(x, y)
+    ref_loss = ref_loss.item()
+    ref_grads = _flax_grads(local._model)
+    del local
+    out = {}
+    for name, kw, shards in MA_CHECKS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = _ma_trainer(kw, shards, cfg)
+        try:
+            _, _, loss = trainer.train_minibatch(x, y)
+            torch.cuda.synchronize()
+            errors = _ma_errors(trainer, loss, ref_loss, ref_grads)
+            got, want = _ma_launch_check(trainer, kw, cfg.n_layers, 1)
+            out[name] = {"spec": trainer.world_fingerprint,
+                         "loss": loss.item(), "local_loss": ref_loss,
+                         "max_rel_err": max(errors.values()),
+                         "worst": max(errors, key=errors.get),
+                         "shard_launches": got}
+        finally:
+            trainer.close()
+        bad = {k: v for k, v in errors.items() if not v <= MA_RTOL}
+        if bad or got != want:
+            raise AssertionError(f"model_axes {name}: errors over "
+                                 f"{MA_RTOL} {bad}; launches {got}, "
+                                 f"expected {want}")
+    return out
+
+
+def _ma_moe_check(x, y):
+    """The Switch-MoE LM (flagship widths, MA_CHECK_LAYERS layers, float32)
+    over two model shards of 2 experts each: every MoE layer's routing on
+    each shard equal to LocalTrainer's (expert and keep, from each side's
+    own layer input), then the loss with its aux term and every gradient
+    within MA_RTOL."""
+    cfg = dataclasses.replace(moe_lm.flagship_config(SEQ),
+                              n_layers=MA_CHECK_LAYERS,
+                              activation_dtype="float32")
+
+    def capture(model, cls):
+        """Each `cls` layer's routing of its own input, as it runs."""
+        routes = []
+
+        def hook(mod, args):
+            with torch.no_grad():
+                routes.append(moe_layer.route(mod, args[0]))
+
+        for m in model.modules():
+            if isinstance(m, cls):
+                m.register_forward_pre_hook(hook)
+        return routes
+
+    local = LocalTrainer(moe_lm.custom_model(cfg), moe_lm.loss,
+                         moe_lm.optimizer(), device=AR_DEVICE)
+    local.init_variables_if_needed(x)
+    want_routes = capture(local._model, moe_layer.SwitchMoE)
+    _, _, ref_loss = local.train_minibatch(x, y)
+    ref_grads = _flax_grads(local._model)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = dict(model_parallel_size=2)
+    trainer = _ma_trainer(kw, 2, cfg, spec=moe_lm)
+    try:
+        trainer.init_variables_if_needed(x)
+        captured = [capture(m, moe_layer.ExpertParallelMoE)
+                    for m in trainer.shards.models]
+        _, _, loss = trainer.train_minibatch(x, y)
+        torch.cuda.synchronize()
+        routing = []
+        for shard, got_routes in enumerate(captured):
+            for layer, (got, want) in enumerate(zip(got_routes,
+                                                    want_routes)):
+                differ = ((got.expert != want.expert)
+                          | (got.keep != want.keep))
+                routing.append({"shard": shard, "layer": layer,
+                                "tokens": int(want.expert.numel()),
+                                "kept": int(want.keep.sum()),
+                                "tokens_differ": int(differ.sum())})
+        if any(r["tokens_differ"] for r in routing) or len(routing) != 2 * (
+                cfg.n_layers // cfg.moe_every):
+            raise AssertionError(f"model_axes moe_ep2 routing: {routing}")
+        errors = _ma_errors(trainer, loss, ref_loss.item(), ref_grads)
+        got, want = _ma_launch_check(trainer, kw, cfg.n_layers, 1)
+        result = {"spec": trainer.world_fingerprint, "routing": routing,
+                  "loss": loss.item(), "local_loss": ref_loss.item(),
+                  "max_rel_err": max(errors.values()),
+                  "worst": max(errors, key=errors.get),
+                  "shard_launches": got,
+                  "experts_per_shard": [m.w_in.shape[0] for m in
+                                        trainer.shards.models[0].modules()
+                                        if isinstance(
+                                            m, moe_layer.ExpertParallelMoE)]}
+    finally:
+        trainer.close()
+    bad = {k: v for k, v in errors.items() if not v <= MA_RTOL}
+    if bad or got != want:
+        raise AssertionError(f"model_axes moe_ep2: errors {bad}; launches "
+                             f"{got}, expected {want}")
+    return result
+
+
+def _ma_timed(tokens):
+    """The bfloat16 flagship: LocalTrainer, then each MA_TIMED world,
+    MA_STEPS steps each on the same batches: ms per step, the gloo legs per
+    axis, peak memory, the losses beside LocalTrainer's."""
+    cfg = tlm.flagship_config(SEQ)
+    batches = [(tokens[i * BATCH:(i + 1) * BATCH, :-1],
+                tokens[i * BATCH:(i + 1) * BATCH, 1:])
+               for i in range(MA_STEPS)]
+
+    def run(trainer, shards_check=None):
+        trainer.init_variables_if_needed(batches[0][0])
+        for stats in getattr(trainer, "axis_stats", {}).values():
+            stats.reset()
+        for counts in getattr(trainer, "shard_launches", []):
+            counts.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for x, y in batches:
+            start = time.perf_counter()
+            _, _, loss = trainer.train_minibatch(x, y)
+            losses.append(loss.item())
+            ms.append(1e3 * (time.perf_counter() - start))
+        return {"losses": losses, "ms_per_step": ms,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    local = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer(),
+                         device=AR_DEVICE)
+    out = {"local": run(local)}
+    del local
+    for name, kw, shards in MA_TIMED:
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = _ma_trainer(kw, shards, cfg)
+        try:
+            out[name] = run(trainer)
+            got, want = _ma_launch_check(trainer, kw, cfg.n_layers,
+                                         MA_STEPS)
+            out[name].update(
+                spec=trainer.world_fingerprint, shard_launches=got,
+                gloo={axis: s.as_dict()
+                      for axis, s in trainer.axis_stats.items()})
+        finally:
+            trainer.close()
+        if got != want:
+            raise AssertionError(f"model_axes timed {name}: launches {got}, "
+                                 f"expected {want}")
+    return out
+
+
+def _ma_job(root):
+    """--multi_host --model_parallel_size 2 through master.main with two
+    worker processes of two model shards each, all on the card."""
+    cfg = proc_config()
+    paths, _ = _write_job_inputs(root, cfg, n_train=MA_JOB_RECORDS,
+                                 n_valid=0)
+    obs = os.path.join(root, "metrics")
+    argv = ["--model_def", paths["model_def"],
+            "--distribution_strategy", "AllreduceStrategy", "--multi_host",
+            "--model_parallel_size", "2",
+            "--training_data", paths["train"],
+            "--records_per_task", str(MA_JOB_TASK), "--num_epochs", "1",
+            "--minibatch_size", str(BATCH), "--log_loss_steps", "1",
+            "--metrics_dir", obs, "--job_name", "model-axes",
+            "--seed", "0", "--instance_backend", "local_process",
+            "--num_workers", str(MA_JOB_WORKERS), "--master_port", "0",
+            "--coordinator_port", str(_free_port())]
+    log = os.path.join(root, "master.log")
+    start = time.time()
+    master = _proc_master(argv, _proc_env(ELASTICDL_LOCAL_DEVICES="2"), log)
+    port = None
+    try:
+        port = _proc_port(log, master)
+        rc = master.wait(timeout=PROC_TIMEOUT)
+        _proc_wait(lambda: not _job_pids(port), "the workers' exit")
+        wall_s = time.time() - start
+    except BaseException:
+        _print_log_tails([log])
+        raise
+    finally:
+        _proc_teardown((master,), port)
+    left = _job_pids(port)
+    text = open(log, errors="replace").read()
+    marks = _log_marks(text)
+    trains = [m for m in _jsonl(os.path.join(obs, "metrics.jsonl"))
+              if m["group"] == "train"]
+    exits = _exit_lines(text, "Worker")
+    return {"master_rc": rc, "wall_s": wall_s, "left": left,
+            "records_done": trains[-1]["records_done"] if trains else None,
+            "losses": [float(g[1]) for _, n, g in marks if n == "step"],
+            "ms_per_step": _ms_per_step_by_world(marks),
+            "worker_exits": exits}
+
+
+def _job_pids(port):
+    """The processes that still carry the job's master address."""
+    from elasticdl_tpu_torch.chaos import process as chaos_process
+
+    return chaos_process.find_job_pids(port)
+
+
+def phase_model_axes(results):
+    """The model and seq axes on the card: the float32 checks of TP2, SP2
+    (zigzag, ring, Ulysses), TP2 x SP2 and the MoE LM's EP2 against
+    LocalTrainer; the bfloat16 flagship timed under TP2 and SP2 zigzag;
+    then a two-process TP2 job through master.main."""
+    device = results["device"]
+    card = {"card": device["nvidia_smi"]}
+    tokens = synthetic_lm_tokens(MA_STEPS * BATCH, SEQ, vocab=32768,
+                                 branching=4, seed=0)
+    x, y = tokens[:BATCH, :-1], tokens[:BATCH, 1:]
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    start = time.perf_counter()
+    checks = _ma_f32_checks(x, y)
+    emit({"phase": "model_axes", "run": "f32_checks", **card,
+          "seconds": time.perf_counter() - start, "tolerance": MA_RTOL,
+          "layers": MA_CHECK_LAYERS, **checks})
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    moe = _ma_moe_check(x, y)
+    emit({"phase": "model_axes", "run": "moe_ep2", **card,
+          "seconds": time.perf_counter() - start, **moe})
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    timed = _ma_timed(tokens)
+    emit({"phase": "model_axes", "run": "timed_bf16", **card,
+          "seconds": time.perf_counter() - start, **timed})
+    with tempfile.TemporaryDirectory() as root:
+        job = _ma_job(root)
+    emit({"phase": "model_axes", "run": "tp2_job", **card, **job})
+    exits = job["worker_exits"]
+    last = [v[-1] for v in exits.values()]
+    per_step = {n: 2 * PROC_LAYERS
+                for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}
+    checks_ok = [
+        (job["master_rc"] == 0, "the master's exit code"),
+        (job["records_done"] == MA_JOB_RECORDS, "records_done"),
+        (not job["left"], "no process left"),
+        (job["losses"] and all(math.isfinite(v) for v in job["losses"]),
+         "finite losses"),
+        (sorted(exits) == [f"worker-{i}" for i in range(MA_JOB_WORKERS)],
+         "one exit line per worker"),
+        (_launch_check(exits, lambda e: {
+            n: c * (e["steps"] + e["failed_steps"])
+            for n, c in per_step.items()}),
+         "each process's launches: 2 shards x layers per step"),
+        (all(e["spec"].startswith("data=") and "model=2" in e["spec"]
+             for e in last), "TP2 worlds"),
+        (len({(e["version"], e["digest"]) for e in last}) == 1
+         and last[0]["digest"], "equal version and digest"),
+    ]
+    failed = [what for ok, what in checks_ok if not ok]
+    if failed:
+        raise AssertionError(f"model_axes tp2_job: {failed}")
+    return {"f32_checks": checks, "moe_ep2": moe, "timed_bf16": timed,
+            "tp2_job": job}
 
 
 def main():
@@ -4787,7 +5176,8 @@ def main():
               ("processes", lambda: phase_processes(results)),
               ("client", lambda: phase_client(results)),
               ("k8s", lambda: phase_k8s(results)),
-              ("allreduce", lambda: phase_allreduce(results))]
+              ("allreduce", lambda: phase_allreduce(results)),
+              ("model_axes", lambda: phase_model_axes(results))]
     results, seconds = {}, {}
     for name, fn in phases:
         # A finished phase's trainers sit in reference cycles until the
@@ -4855,6 +5245,19 @@ def main():
             "ar_step": ar["launches"].get(name, 0),
             **{role: e["kernel_launches"].get(name, 0)
                for role, v in ar["proc_ar"]["worker_exits"].items()
+               for e in v}}
+        # The model and seq axes: each shard of the f32 checks (one step),
+        # the timed bfloat16 runs (MA_STEPS steps) and the two-process TP2
+        # job's processes (all their shards).
+        ma = results["model_axes"]
+        report[name]["model_axes_launches"] = {
+            **{run: [c.get(name, 0) for c in r["shard_launches"]]
+               for run, r in {**ma["f32_checks"], "moe_ep2": ma["moe_ep2"],
+                              **{f"timed_{k}": v for k, v in
+                                 ma["timed_bf16"].items() if k != "local"}
+                              }.items()},
+            **{role: e["kernel_launches"].get(name, 0)
+               for role, v in ma["tp2_job"]["worker_exits"].items()
                for e in v}}
     emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})

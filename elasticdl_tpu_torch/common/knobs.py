@@ -363,6 +363,12 @@ declare("ELASTICDL_POLICY_HINT_POLL_SECONDS", "float", 2.0,
         "How often an AllReduce worker polls the master's world-hint RPC; "
         "0 disables polling. The port records the announced world (it has "
         "no AOT speculator to hand it to).")
+declare("ELASTICDL_LOCAL_DEVICES", "int", 0,
+        "Shards per AllReduce worker process (parallel/mesh.py): the "
+        "CUDA devices torch sees unless this says more; shard i runs on "
+        "cuda:(i mod count), so on one card the shards share it. The "
+        "counterpart of the XLA flag that gives the JAX tests 8 host "
+        "devices.")
 
 # -- chaos (chaos/injection.py) --
 declare("ELASTICDL_CHAOS", "str", "",

@@ -163,3 +163,68 @@ def switch_moe_plain(layer, x):
         "tec,ecd->td", (dispatch * r.gate[:, None, None]).to(dtype),
         expert_out)
     return combined.reshape(b, s, d).to(x.dtype), r.aux
+
+
+class ExpertParallelMoE(nn.Module):
+    """One model-axis shard of a SwitchMoE (expert parallelism, the
+    counterpart of elasticdl_tpu/layers/moe.py's moe_param_specs under
+    the model axis): it holds experts [rank * E / mp, (rank + 1) * E / mp)
+    and the replicated router. The tokens are replicated over the group:
+    every shard computes the same routing, capacity and drops, runs the
+    kept tokens of its own experts, and the combine is summed over the
+    group (each token has one expert, so the sum is exact). The tokens and
+    gates enter the shard's experts through copy_to, so the router and
+    everything before it get the whole gradient on every shard."""
+
+    def __init__(self, layer, group):
+        super().__init__()
+        if layer.num_experts % group.size:
+            raise ValueError(
+                f"num_experts {layer.num_experts} not divisible by the "
+                f"model axis ({group.size})")
+        self.num_experts = layer.num_experts
+        self.capacity_factor = layer.capacity_factor
+        self.compute_dtype = layer.compute_dtype
+        self.group = group
+        self.router = layer.router
+        local = layer.num_experts // group.size
+        self.first = group.rank * local
+        self.w_in = nn.Parameter(torch.empty(local, *layer.w_in.shape[1:]))
+        self.w_out = nn.Parameter(torch.empty(local, *layer.w_out.shape[1:]))
+
+    def forward(self, x):
+        from elasticdl_tpu_torch.parallel.collectives import (
+            copy_to,
+            reduce_from,
+        )
+
+        dtype = self.compute_dtype
+        b, s, d = x.shape
+        n_tokens = b * s
+        local = self.w_in.shape[0]
+        with torch.profiler.record_function(ROUTING_RANGE):
+            r = route(self, x)
+            n_slots = local * r.capacity
+            mine = r.keep & (r.expert >= self.first) & (
+                r.expert < self.first + local)
+            slot = torch.where(mine, r.slot - self.first * r.capacity,
+                               n_slots)
+            token_of_slot = torch.full(
+                (n_slots + 1,), n_tokens, dtype=torch.int64,
+                device=x.device).scatter_(
+                0, slot, torch.arange(n_tokens, device=x.device))[:n_slots]
+            tokens = copy_to(x, self.group).reshape(n_tokens, d)
+            expert_in = _to_slots(tokens.to(dtype), slot, n_slots)
+            gate = _to_slots(copy_to(r.gate, self.group), slot, n_slots)
+        with torch.profiler.record_function(EXPERTS_RANGE):
+            h = torch.bmm(expert_in.view(local, r.capacity, d),
+                          self.w_in.to(dtype))
+        h = F.gelu(h, approximate="tanh")
+        with torch.profiler.record_function(EXPERTS_RANGE):
+            expert_out = torch.bmm(h, self.w_out.to(dtype))
+        with torch.profiler.record_function(ROUTING_RANGE):
+            weighted = (expert_out.reshape(n_slots, d).float()
+                        * gate.to(dtype).float()[:, None]).to(dtype)
+            out = reduce_from(_to_slots(weighted, token_of_slot, n_tokens),
+                              self.group)
+        return out.reshape(b, s, d).to(x.dtype), r.aux

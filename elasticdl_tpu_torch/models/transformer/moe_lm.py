@@ -19,8 +19,8 @@ expert layer is MoEBlock_k/SwitchMoE_0 with its router (a Dense kernel) and
 the raw w_in/w_out params. The JAX model under remat names its blocks
 CheckpointBlock_i and CheckpointMoEBlock_i; the port keeps the plain names.
 
-`param_specs` (the DP x EP layout over a mesh) waits for the port's
-parallel layouts (ROADMAP Queue 1, Slice 6).
+`param_specs` lays the model out for DP x EP: the experts split over the
+model axis (layers/moe.py:ExpertParallelMoE), the rest replicated.
 """
 
 import dataclasses
@@ -180,9 +180,15 @@ def feed(records, mode, metadata):
 
 
 def param_specs(variables):
-    raise NotImplementedError(
-        "the MoE LM's DP x EP param_specs need the port's mesh layouts, "
-        "which wait for ROADMAP Queue 1, Slice 6 (parallel/*)")
+    """Model-spec hook for DP x EP (worker --model_parallel_size): over
+    {wire name: array}, the expert weights w_in/w_out split over the
+    "model" axis (parallel/tensor_parallel.py:moe_param_specs; each shard
+    holds num_experts / mp experts), everything else replicated."""
+    from elasticdl_tpu_torch.parallel.tensor_parallel import (
+        moe_param_specs,
+    )
+
+    return moe_param_specs(variables)
 
 
 def eval_metrics_fn():

@@ -24,10 +24,13 @@ kernels and embeddings, zeros for biases, ones for LayerNorm scales), but
 draw other numbers: parity with the JAX package needs imported weights.
 
 Model spec contract (common/model_utils.py): custom_model / loss /
-optimizer / feed / eval_metrics_fn.
+optimizer / feed / eval_metrics_fn, and the AllReduce trainer's hooks
+param_specs (tensor parallelism) and context_parallel_model (sequence
+parallelism).
 """
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -41,6 +44,7 @@ from elasticdl_tpu_torch.common.model_utils import Modes
 from elasticdl_tpu_torch.data.example import batch_examples
 from elasticdl_tpu_torch.ops import optimizers
 from elasticdl_tpu_torch.ops.flash_attention import flash_attention
+from elasticdl_tpu_torch.parallel import tensor_parallel as tp
 
 VOCAB = 256
 D_MODEL = 128
@@ -159,13 +163,14 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x):
         cfg = self.config
         b, s, _ = x.shape
-        qkv = self.qkv(x).view(b, s, 3, cfg.n_heads, -1)
+        # -1 heads: a tensor-parallel shard's qkv yields H / mp of them.
+        qkv = self.qkv(x).view(b, s, 3, -1, cfg.d_model // cfg.n_heads)
         # [B, S, 3, H, Dh] -> three [B, H, S, Dh]
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
         attend = cfg.attention or _default_attention
         # Softmax path in float32 for stability; back to compute dtype.
         out = attend(q.float(), k.float(), v.float()).to(x.dtype)
-        out = out.transpose(1, 2).reshape(b, s, cfg.d_model)
+        out = out.transpose(1, 2).reshape(b, s, -1)
         return self.proj(out)
 
 
@@ -204,17 +209,19 @@ class Embed(nn.Embedding):
 
 def embed_input(lm, tokens):
     """Token + positional embedding in the activation dtype. The positions
-    are the ids arange(S), as the JAX LM looks them up. Under automatic PS
-    placement both tables return the PS's float32 rows instead, and the
-    residual stream is float32, as in the JAX package."""
+    are the ids arange(S), as the JAX LM looks them up; a sequence-parallel
+    shard holds the block of S that starts at its `position_offset`. Under
+    automatic PS placement both tables return the PS's float32 rows
+    instead, and the residual stream is float32, as in the JAX package."""
     cfg = lm.config
+    offset = getattr(lm, "position_offset", 0)
     s = tokens.shape[1]
-    if s > cfg.max_len:
+    if offset + s > cfg.max_len:
         raise ValueError(
-            f"sequence length {s} exceeds max_len {cfg.max_len}"
+            f"sequence length {offset + s} exceeds max_len {cfg.max_len}"
         )
     x = lm.tok_emb(tokens)
-    pos = lm.pos_emb(torch.arange(s, device=tokens.device))
+    pos = lm.pos_emb(torch.arange(offset, offset + s, device=tokens.device))
     return x + pos[None]
 
 
@@ -282,7 +289,11 @@ def custom_model(config: LMConfig = None):
 
 
 def loss(labels, logits):
-    """Next-token CE; labels [B, S] int, logits [B, S, V]."""
+    """Next-token CE; labels [B, S] int, logits [B, S, V]. A
+    tensor-parallel shard's head hands over its vocabulary slice (a
+    VocabShard), and the CE is then taken vocab-parallel."""
+    if isinstance(logits, tp.VocabShard):
+        return tp.vocab_parallel_cross_entropy(logits, labels).mean()
     return F.cross_entropy(
         logits.reshape(-1, logits.shape[-1]).float(),
         labels.reshape(-1).long(),
@@ -291,6 +302,56 @@ def loss(labels, logits):
 
 def optimizer():
     return optimizers.adam(learning_rate=3e-4)
+
+
+def param_specs(variables):
+    """Model-spec hook for hybrid DP x TP (worker --model_parallel_size):
+    the Megatron layout over the "model" axis for {wire name: array} (the
+    flax-named state of common/params.py), everything else replicated."""
+    return tp.transformer_param_specs(variables)
+
+
+def context_parallel_model(group, head_axis=None, impl="zigzag",
+                           config=None):
+    """Model-spec hook for sequence/context parallelism (worker
+    --context_parallel_size): the LM with its attention bound to a seq
+    axis group (parallel/distributed.py:AxisGroup) — zigzag ring
+    (balanced causal ring, parallel/ring_attention.py), plain ring, or
+    Ulysses all-to-all (parallel/ulysses.py). The attention callable is
+    parameterless, so the param tree is IDENTICAL to the plain LM's:
+    elastic transitions between SP worlds and pure-DP worlds carry
+    (params, opt_state) untouched, and checkpoints are interchangeable.
+    head_axis names a tensor-parallel axis that also shards the heads
+    (ring only: each model shard runs its own ring over its heads) for the
+    3-D DP x TP x SP composition."""
+    cfg = config or LMConfig()
+    if impl == "zigzag":
+        from elasticdl_tpu_torch.parallel.ring_attention import (
+            zigzag_ring_attention,
+        )
+
+        attn = functools.partial(zigzag_ring_attention, group=group,
+                                 causal=True)
+    elif impl == "ring":
+        from elasticdl_tpu_torch.parallel.ring_attention import (
+            ring_attention,
+        )
+
+        attn = functools.partial(ring_attention, group=group, causal=True)
+    elif impl == "ulysses":
+        if head_axis is not None:
+            raise ValueError(
+                "ulysses re-shards heads itself (all-to-all) and cannot "
+                "also shard them over a tensor-parallel axis; use "
+                "impl='zigzag' for the 3-D composition"
+            )
+        from elasticdl_tpu_torch.parallel.ulysses import ulysses_attention
+
+        attn = functools.partial(ulysses_attention, group=group,
+                                 causal=True)
+    else:
+        raise ValueError(f"unknown context-parallel impl {impl!r}")
+    return custom_model(dataclasses.replace(cfg, attention=attn))
 
 
 def feed(records, mode, metadata):

@@ -24,10 +24,15 @@ delta = rowsum(dO * O). Differences from the TPU kernels:
 Dispatch is by the tensors' device: CUDA tensors always go to the kernels,
 CPU tensors to the plain versions. On CUDA an unsupported dtype, head size
 or layout raises; nothing falls back. Every kernel wrapper adds one to
-`launches[name]` where it launches its kernel, and nowhere else.
+`launches[name]` where it launches its kernel, and nowhere else; the
+shards of an AllReduce worker launch from their own threads, so the count
+takes a lock, and a thread inside `counting_into(counter)` adds its
+launches to that counter too (one per shard).
 """
 
 import collections
+import contextlib
+import threading
 
 import torch
 
@@ -43,8 +48,32 @@ launches = collections.Counter()
 KERNEL_NAMES = ("flash_fwd", "flash_fwd_lse", "flash_dq", "flash_dkv")
 
 
+_count_lock = threading.Lock()
+_thread = threading.local()
+
+
 def reset_launch_counts():
-    launches.clear()
+    with _count_lock:
+        launches.clear()
+
+
+def _count(name):
+    with _count_lock:
+        launches[name] += 1
+    extra = getattr(_thread, "counter", None)
+    if extra is not None:
+        extra[name] += 1
+
+
+@contextlib.contextmanager
+def counting_into(counter):
+    """Launches of this thread inside the block also go to `counter`."""
+    prior = getattr(_thread, "counter", None)
+    _thread.counter = counter
+    try:
+        yield counter
+    finally:
+        _thread.counter = prior
 
 
 # ---------- plain versions (the CPU path and the kernels' oracle) ----------
@@ -181,7 +210,7 @@ def flash_fwd(q, k, v, causal, emit_lse):
             out.data_ptr(), lse.data_ptr() if emit_lse else None,
             b * h, s, d, code, int(causal), d**-0.5, _stream(q),
         )
-    launches["flash_fwd_lse" if emit_lse else "flash_fwd"] += 1
+    _count("flash_fwd_lse" if emit_lse else "flash_fwd")
     return out, lse
 
 
@@ -197,7 +226,7 @@ def flash_dq(q, k, v, g, lse, delta, causal):
             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b * h, s, d, code, int(causal), d**-0.5, _stream(q),
         )
-    launches["flash_dq"] += 1
+    _count("flash_dq")
     return dq
 
 
@@ -215,7 +244,7 @@ def flash_dkv(q, k, v, g, lse, delta, causal):
             dv.data_ptr(), b * h, s, d, code, int(causal), d**-0.5,
             _stream(q),
         )
-    launches["flash_dkv"] += 1
+    _count("flash_dkv")
     return dk, dv
 
 
@@ -231,6 +260,9 @@ class FlashAttentionFunction(torch.autograd.Function):
         out, lse = flash_fwd(q, k, v, causal, emit_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
+        # The backward of a CUDA graph runs on the autograd engine's
+        # device thread: its launches go to the forward thread's counter.
+        ctx.counter = getattr(_thread, "counter", None)
         return out
 
     @staticmethod
@@ -238,8 +270,9 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.contiguous()
         delta = _delta(g, out)
-        dq = flash_dq(q, k, v, g, lse, delta, ctx.causal)
-        dk, dv = flash_dkv(q, k, v, g, lse, delta, ctx.causal)
+        with counting_into(ctx.counter):
+            dq = flash_dq(q, k, v, g, lse, delta, ctx.causal)
+            dk, dv = flash_dkv(q, k, v, g, lse, delta, ctx.causal)
         return dq, dk, dv, None
 
 

@@ -17,6 +17,11 @@ staged explicitly through a pinned host buffer around the gloo call
 (device-to-host, gloo, host-to-device), and the world counts the seconds
 and bytes of each leg. NCCL with one GPU per rank is later work (ROADMAP).
 
+The shards of one process (parallel/shards.py) talk over AxisGroups: one
+gloo group per model or seq group of the world's layout, over an
+in-process HashStore, built with the world and dropped with it
+(`join_axis_group`), staged and counted as above.
+
 Timeouts are the JAX module's: the rendezvous store waits at most
 INITIALIZATION_TIMEOUT_SECONDS, and the group's connection and every
 collective at most HEARTBEAT_TIMEOUT_SECONDS, so a survivor whose peer
@@ -68,19 +73,31 @@ def _buckets(tensors, max_bytes=BUCKET_BYTES):
 
 class CommStats:
     """Seconds and bytes of the collectives since the last reset, split
-    into device-to-host, gloo and host-to-device legs."""
+    into device-to-host, gloo and host-to-device legs. The shards of one
+    process add to one instance per axis from their threads (`add`)."""
 
-    __slots__ = ("d2h_s", "gloo_s", "h2d_s", "bytes", "calls")
+    __slots__ = ("d2h_s", "gloo_s", "h2d_s", "bytes", "calls", "_lock")
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self):
-        self.d2h_s = self.gloo_s = self.h2d_s = 0.0
-        self.bytes = self.calls = 0
+        with self._lock:
+            self.d2h_s = self.gloo_s = self.h2d_s = 0.0
+            self.bytes = self.calls = 0
+
+    def add(self, d2h_s, gloo_s, h2d_s, nbytes):
+        with self._lock:
+            self.d2h_s += d2h_s
+            self.gloo_s += gloo_s
+            self.h2d_s += h2d_s
+            self.bytes += nbytes
+            self.calls += 1
 
     def as_dict(self):
-        return {name: getattr(self, name) for name in self.__slots__}
+        return {name: getattr(self, name) for name in self.__slots__
+                if not name.startswith("_")}
 
 
 class World:
@@ -236,3 +253,177 @@ class World:
         opts.rootTensor = 0
         self._run(tensors,
                   lambda host: self._group.broadcast([host], opts).wait())
+
+
+# ---------- the intra-process axes: groups among one process's shards ----------
+
+
+def _op(name):
+    import torch.distributed as dist
+
+    return {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[name]
+
+
+class AxisGroup:
+    """One shard's member of a group along an intra-process axis (model or
+    seq): the shards of this process that differ only in their coordinate
+    on the axis, joined by a gloo group over the world's in-process
+    HashStore (`join_axis_group`). `rank` is the shard's coordinate on the
+    axis. A CUDA tensor is staged through pinned host buffers as `World`
+    stages it, and each call adds its legs to the axis's CommStats. A size-1
+    axis has no group, and its collectives return their input."""
+
+    def __init__(self, axis, rank, size, group=None, stats=None):
+        self.axis = axis
+        self.rank = int(rank)
+        self.size = int(size)
+        self._group = group
+        self.stats = stats if stats is not None else CommStats()
+        self._pinned = {}
+
+    def _host(self, t, slot):
+        """`t` on the host: itself on the CPU, else a copy in a pinned
+        buffer (one per shape, dtype and argument slot, reused)."""
+        if t.device.type != "cuda":
+            return t.contiguous()
+        key = (t.dtype, tuple(t.shape), slot)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._pinned[key] = buf
+        buf.copy_(t)
+        return buf
+
+    def _recv(self, like, slot, staged):
+        """A host buffer to receive into: pinned and reused (keyed by
+        shape, dtype and slot) when the result goes back to the card, a
+        fresh tensor on the CPU, where it is the result."""
+        if not staged:
+            return torch.empty_like(like)
+        key = (like.dtype, tuple(like.shape), "recv", slot)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self._pinned[key] = buf
+        return buf
+
+    def _timed(self, inputs, run, outputs_like):
+        """Stages `inputs` to the host, runs `run(host_inputs)` (the gloo
+        call, returning host outputs) and brings the outputs back to the
+        device of `outputs_like`, timing each leg."""
+        device = outputs_like.device
+        t0 = time.perf_counter()
+        host_in = [self._host(t, j) for j, t in enumerate(inputs)]
+        t1 = time.perf_counter()
+        host_out = run(host_in)
+        t2 = time.perf_counter()
+        out = [h.to(device) if device.type == "cuda" else h
+               for h in host_out]
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        t3 = time.perf_counter()
+        nbytes = sum(h.numel() * h.element_size() for h in host_in)
+        self.stats.add(t1 - t0, t2 - t1, t3 - t2, nbytes)
+        return out
+
+    def all_reduce(self, t, op="sum"):
+        """The sum (or max) of `t` over the group, a new tensor."""
+        if self.size == 1:
+            return t
+        import torch.distributed as dist
+
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = _op(op)
+
+        def run(host):
+            # On the CPU the host tensor is the caller's: reduce a copy.
+            buf = host[0].clone() if t.device.type != "cuda" else host[0]
+            self._group.allreduce([buf], opts).wait()
+            return [buf]
+
+        return self._timed([t], run, t)[0]
+
+    def all_gather(self, t, dim):
+        """The group's tensors concatenated along `dim`, in rank order."""
+        if self.size == 1:
+            return t
+
+        def run(host):
+            outs = [self._recv(host[0], j, t.device.type == "cuda")
+                    for j in range(self.size)]
+            self._group.allgather([outs], host).wait()
+            return outs
+
+        parts = self._timed([t.contiguous()], run, t)
+        return torch.cat(parts, dim=dim)
+
+    def all_to_all(self, t, split_dim, concat_dim):
+        """Chunk j of `t` along split_dim goes to rank j; the chunks
+        received are concatenated along concat_dim in rank order."""
+        if self.size == 1:
+            return t
+        chunks = torch.stack(t.chunk(self.size, dim=split_dim)).contiguous()
+
+        def run(host):
+            out = self._recv(host[0], 0, t.device.type == "cuda")
+            self._group.alltoall_base(out, host[0], [], []).wait()
+            return [out]
+
+        out = self._timed([chunks], run, t)[0]
+        return torch.cat(out.unbind(0), dim=concat_dim)
+
+    def exchange(self, tensors, dst, src, tag=0):
+        """Sends `tensors` to rank dst and returns those rank src sent
+        (a permutation step: every rank calls it with its own dst and
+        src). Sending to itself is a copy."""
+        if dst == self.rank:
+            if src != self.rank:
+                raise ValueError("exchange: send to self, receive from "
+                                 f"{src}")
+            return [t.clone(memory_format=torch.contiguous_format)
+                    for t in tensors]
+
+        def run(host):
+            staged = tensors[0].device.type == "cuda"
+            recv = [self._recv(h, j, staged) for j, h in enumerate(host)]
+            works = []
+            for j, (h, r) in enumerate(zip(host, recv)):
+                works.append(self._group.send([h], dst, tag * 16 + j))
+                works.append(self._group.recv([r], src, tag * 16 + j))
+            for w in works:
+                w.wait()
+            return recv
+
+        return self._timed([t.contiguous() for t in tensors], run,
+                           tensors[0])
+
+    def close(self):
+        """Drops the gloo group: members blocked in a collective with this
+        one fail at once (its sockets close)."""
+        self._group = None
+
+    def shift(self, tensors, tag=0):
+        """Ring step: send to rank + 1, receive from rank - 1."""
+        return self.exchange(tensors, (self.rank + 1) % self.size,
+                             (self.rank - 1) % self.size, tag)
+
+
+def join_axis_group(store, epoch, axis, key, rank, size, stats=None,
+                    local_host="127.0.0.1"):
+    """This shard's AxisGroup on `axis`: a ProcessGroupGloo over
+    PrefixStore("epoch<e>/<axis><key>/", store). Every member calls it at
+    once, from its own thread (gloo connects the members to each other).
+    Never the global default group: several worlds and groups live in one
+    process."""
+    if size <= 1:
+        return AxisGroup(axis, 0, 1, None, stats)
+    import torch.distributed as dist
+
+    options = dist.ProcessGroupGloo._Options()
+    options._devices = [
+        dist.ProcessGroupGloo.create_device(hostname=local_host)]
+    options._timeout = datetime.timedelta(seconds=HEARTBEAT_TIMEOUT_SECONDS)
+    prefix = f"epoch{epoch}/{axis}{'.'.join(map(str, key))}/"
+    group = dist.ProcessGroupGloo(
+        dist.PrefixStore(prefix, store), int(rank), int(size), options)
+    return AxisGroup(axis, rank, size, group, stats)

@@ -1,5 +1,7 @@
-"""Elastic data-parallel trainer (counterpart of
-elasticdl_tpu/worker/allreduce_trainer.py, data parallelism only).
+"""Elastic AllReduce trainer (counterpart of
+elasticdl_tpu/worker/allreduce_trainer.py): data parallelism across
+processes, and the intra-process model and seq axes of tensor, expert and
+sequence parallelism.
 
 Two modes, as in the JAX package:
 
@@ -30,14 +32,28 @@ tracker (the join gate's budget is ELASTICDL_JOIN_GATE_SECONDS, else 90 s),
 and no donated buffers (a failed collective leaves the trainer's state
 intact: the optimizer steps only after the all-reduce returned).
 
-Tensor, sequence and pipeline parallelism, ZeRO-1 and quantized gradients
-raise NotImplementedError (ROADMAP Queue 1 item 4, Slice 6), as does a
-model with BatchNorm buffers in a multi-process world: the JAX step takes
+Each world is resolved by the JAX package's ladder (parallel/mesh.py:
+resolve_world_spec) from the trainer's parallel config and the world's
+topology (processes x local shards, ELASTICDL_LOCAL_DEVICES), with the
+model spec's param_specs layout checked against the parameters' shapes;
+its notes are logged and its fingerprint is the JAX package's. When the
+world lays out more than one shard per process (a model axis from
+model_parallel_size and the param_specs hook, a seq axis from
+context_parallel_size and the context_parallel_model hook, or several
+data positions), the process runs them as threads (parallel/shards.py):
+the full state stays the trainer's, the shards compute the step's
+gradients, and the process's gradients cross processes as before. A
+world of one shard per process steps as above, unchanged.
+
+ZeRO-1, quantized gradients and the pipeline raise NotImplementedError
+(later slices, ROADMAP Queue 1 item 4), as does a model with BatchNorm
+buffers in a multi-process world or across shards: the JAX step takes
 BatchNorm's statistics over the global batch, and per-rank statistics
-would be another result. In a one-process world BatchNorm trains, and its
-statistics travel with the variables.
+would be another result. In a one-process, one-shard world BatchNorm
+trains, and its statistics travel with the variables.
 """
 
+import collections
 import contextlib
 import hashlib
 import threading
@@ -57,11 +73,25 @@ from elasticdl_tpu_torch.common.rpc import RpcError, StatusCode
 from elasticdl_tpu_torch.observability import emit_event
 from elasticdl_tpu_torch.observability.metrics import default_registry
 from elasticdl_tpu_torch.parallel import broadcast
-from elasticdl_tpu_torch.parallel.distributed import World
+from elasticdl_tpu_torch.parallel.distributed import CommStats, World
 from elasticdl_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+    ParallelConfig,
+    WorldTopology,
+    first_leaf,
+    local_device_count,
     pad_batch_to_multiple,
-    world_fingerprint,
+    resolve_world_spec,
 )
+from elasticdl_tpu_torch.parallel.shards import (
+    ProcessShards,
+    meta_copy,
+    meta_variables,
+    placeholder_group,
+)
+from elasticdl_tpu_torch.parallel.tensor_parallel import spec_violations
 from elasticdl_tpu_torch.worker.trainer import TorchTrainer
 
 logger = get_logger("worker.allreduce_trainer")
@@ -82,8 +112,16 @@ GATE_POLL_SECONDS = 0.25
 # collective errors surface as RuntimeError, master calls fail as RpcError.
 RETRYABLE_ERRORS = (RpcError, RuntimeError)
 
-UNPORTED = ("ROADMAP Queue 1 item 4 (Slice 6: tensor, sequence and "
-            "pipeline parallelism, ZeRO-1)")
+UNPORTED = {
+    "zero1": "the data-axis slice (ZeRO-1, quantized reduce, sharded "
+             "embedding, cross-rank BatchNorm), ROADMAP Queue 1 item 4",
+    "quantized_grads": "the data-axis slice (ZeRO-1, quantized reduce, "
+                       "sharded embedding, cross-rank BatchNorm), ROADMAP "
+                       "Queue 1 item 4",
+    "pipeline_stages": "the pipeline slice (pipeline.py, "
+                       "pipeline_interleaved.py, pipeline_schedule.py), "
+                       "ROADMAP Queue 1 item 4",
+}
 
 
 def join_gate_budget():
@@ -113,24 +151,48 @@ class AllReduceTrainer(TorchTrainer):
         multi_host=False,
         seed=0,
         model_parallel_size=1,
+        param_specs_fn=None,
         zero1=False,
         quantized_grads=False,
         pipeline_stages=1,
         context_parallel_size=1,
+        context_parallel_impl="zigzag",
+        context_parallel_model_fn=None,
         device=None,
     ):
         for flag, value, default in (
-                ("model_parallel_size", model_parallel_size, 1),
                 ("zero1", zero1, False),
                 ("quantized_grads", quantized_grads, False),
-                ("pipeline_stages", pipeline_stages, 1),
-                ("context_parallel_size", context_parallel_size, 1)):
+                ("pipeline_stages", pipeline_stages, 1)):
             if (value or default) != default:
                 raise NotImplementedError(
                     f"AllReduceTrainer {flag}={value} is not ported to "
-                    f"elasticdl_tpu_torch yet: {UNPORTED}")
+                    f"elasticdl_tpu_torch yet: {UNPORTED[flag]}")
         super().__init__(model, loss_fn, optimizer_spec, seed=seed,
                          device=device)
+        self._model_parallel_size = max(1, int(model_parallel_size or 1))
+        self._param_specs_fn = param_specs_fn
+        self._context_parallel_size = max(
+            1, int(context_parallel_size or 1))
+        self._context_parallel_impl = context_parallel_impl
+        self._context_parallel_model_fn = context_parallel_model_fn
+        if (self._context_parallel_size > 1
+                and context_parallel_model_fn is None):
+            logger.warning(
+                "context_parallel_size %d requested but the model spec "
+                "has no context_parallel_model hook; running without "
+                "sequence parallelism", self._context_parallel_size)
+            self._context_parallel_size = 1
+        # Shards per process (parallel/mesh.py); tests pin it.
+        self._local_devices = local_device_count()
+        # The resolved world and, where it lays out more than one shard
+        # per process, the shards; with the seconds and bytes of their
+        # model and seq groups.
+        self._spec = None
+        self._shards = None
+        self.axis_stats = {MODEL_AXIS: CommStats(), SEQ_AXIS: CommStats()}
+        # Each local shard's kernel launches, over every world it ran in.
+        self.shard_launches = []
         self._seed = seed
         self._mc = master_client
         self._multi_host = multi_host
@@ -182,6 +244,17 @@ class AllReduceTrainer(TorchTrainer):
     @property
     def world_fingerprint(self):
         return self._fingerprint
+
+    @property
+    def world_spec(self):
+        """The resolved WorldSpec of the current world (None before)."""
+        return self._spec
+
+    @property
+    def shards(self):
+        """This process's ProcessShards in the current world (None where
+        the world has one shard per process)."""
+        return self._shards
 
     # ---------- state ----------
 
@@ -288,7 +361,7 @@ class AllReduceTrainer(TorchTrainer):
             self._world.ensure_world(
                 f"{coordinator_ip}:{resp.rendezvous_port}",
                 resp.world_size, resp.rank_id, epoch=resp.rendezvous_id)
-        self._fingerprint = world_fingerprint(self._world.size)
+        self._form_shards(resp.rendezvous_id)
         if self._world.is_live():
             # A multi-process world syncs through a broadcast every member
             # runs right after the rendezvous.
@@ -303,6 +376,79 @@ class AllReduceTrainer(TorchTrainer):
             "elastic_regroup", mode="rebuild", epoch=resp.rendezvous_id,
             spec=self._fingerprint, world_size=resp.world_size,
         )
+
+    # ---------- the world spec and the shards ----------
+
+    def _parallel_config(self, sp_suspended=False):
+        return ParallelConfig(
+            model_parallel=self._model_parallel_size,
+            has_param_specs=self._param_specs_fn is not None,
+            context_parallel=self._context_parallel_size,
+            has_context_parallel_model=(
+                self._context_parallel_model_fn is not None),
+            sp_suspended=sp_suspended,
+        )
+
+    def _param_check(self, mp):
+        """The param_specs layout against the parameters' shapes: split
+        dims that do not divide by mp (as the JAX trainer's
+        _spec_violations checks them)."""
+        variables = meta_variables(meta_copy(self._model))
+        return spec_violations(
+            {name: tuple(v.shape) for name, v in variables.items()},
+            self._param_specs_fn(variables), mp)
+
+    def _resolve_spec(self, sp_suspended=False):
+        topo = WorldTopology.current(self._world.size, self._local_devices)
+        return resolve_world_spec(self._parallel_config(sp_suspended), topo,
+                                  param_check=self._param_check)
+
+    def _form_shards(self, epoch):
+        """Resolves this world's spec, logs its notes, and builds the
+        shards where it lays out more than one per process."""
+        spec = self._resolve_spec()
+        if spec.sp > 1:
+            # A hook rejection that depends on this world (ulysses under a
+            # model axis) drops the seq axis for this world only.
+            try:
+                self._context_parallel_model_fn(
+                    group=placeholder_group(SEQ_AXIS, spec.sp),
+                    head_axis=MODEL_AXIS if spec.tp > 1 else None,
+                    impl=self._context_parallel_impl)
+            except ValueError as e:
+                logger.warning(
+                    "context_parallel_model hook rejected this world's "
+                    "configuration (%s); running without sequence "
+                    "parallelism for this world", e)
+                spec = self._resolve_spec(sp_suspended=True)
+        for note in spec.notes:
+            logger.warning("%s", note)
+        if self._shards is not None:
+            self._shards.close()
+            self._shards = None
+        self._spec = spec
+        self._fingerprint = spec.fingerprint()
+        if spec.topology.local_devices > 1:
+            if any(True for _ in self._model.buffers()):
+                raise NotImplementedError(
+                    "a model with BatchNorm buffers across the shards of a "
+                    "process is not ported yet (cross-rank BatchNorm "
+                    "statistics, ROADMAP Queue 1 item 4)")
+            self._shards = ProcessShards(
+                self._model, spec, self._world.rank, self._device, epoch,
+                param_specs_fn=self._param_specs_fn,
+                context_parallel_model_fn=self._context_parallel_model_fn,
+                context_parallel_impl=self._context_parallel_impl,
+                axis_stats=self.axis_stats, launches=self._launches(
+                    spec.topology.local_devices),
+                local_host=self._world._local_host)
+        logger.info("World spec %s: %d shard(s) per process",
+                    self._fingerprint, spec.topology.local_devices)
+
+    def _launches(self, n):
+        while len(self.shard_launches) < n:
+            self.shard_launches.append(collections.Counter())
+        return self.shard_launches[:n]
 
     def _try_fast_regroup(self, resp):
         """Membership moved but no process group has to change (every
@@ -494,6 +640,8 @@ class AllReduceTrainer(TorchTrainer):
             yield
 
     def _run_step(self, features, labels):
+        if self._shards is not None:
+            return self._run_sharded_step(features, labels)
         world = self._world
         # One rank of a one-process world pads nothing, and its step is
         # the LocalTrainer step.
@@ -521,6 +669,35 @@ class AllReduceTrainer(TorchTrainer):
             self._version += 1
         return loss
 
+    def _run_sharded_step(self, features, labels):
+        """One step across this process's shards (parallel/shards.py): the
+        batch padded to a multiple of the world's data axis, as the JAX
+        step pads the global batch, and the loss over the real rows in a
+        one-process world, over the padded batch across processes."""
+        world, shards = self._world, self._shards
+        multiple = (shards.layout.size(DATA_AXIS) if world.is_live()
+                    else shards.layout.data_local)
+        features, real_n = pad_batch_to_multiple(features, multiple)
+        labels, _ = pad_batch_to_multiple(labels, multiple)
+        if world.is_live():
+            real_n = np.shape(first_leaf(labels))[0]
+        self._optimizer.zero_grad(set_to_none=True)
+        with self._step_rng():
+            loss = shards.step(self._loss_fn, features, labels, real_n)
+        if world.is_live():
+            grads = [p.grad for p in self._model.parameters()]
+            total = loss.reshape(1).clone()
+            world.all_reduce_sum_(grads + [total])
+            torch._foreach_div_(grads, world.size)
+            loss = total[0] / world.size
+        with self._state_lock:
+            self._optimizer.step()
+            self._version += 1
+        return loss
+
     def close(self):
+        if self._shards is not None:
+            self._shards.close()
+            self._shards = None
         self._broadcast_server.stop()
         self._world.leave_world()

@@ -15,7 +15,9 @@ one ends the process with the device rule's error). A worker in the
 master's process uses build_worker on an in-process stub
 (master/master.py:Master.stub) and, under ParameterServerStrategy, the
 shards' in-process stubs (Master.ps_stubs). Under AllreduceStrategy the
-trainer is AllReduceTrainer, and --multi_host trains through step leases.
+trainer is AllReduceTrainer (with the model spec's param_specs and
+context_parallel_model hooks for --model_parallel_size and
+--context_parallel_size), and --multi_host trains through step leases.
 Arguments that ask for what is not ported raise NotImplementedError.
 """
 
@@ -86,10 +88,14 @@ def build_trainer(args, spec, ps_stubs=None, device=None,
             multi_host=args.multi_host,
             seed=args.seed,
             model_parallel_size=args.model_parallel_size,
+            param_specs_fn=getattr(spec.module, "param_specs", None),
             zero1=args.zero1,
             quantized_grads=args.quantized_grads,
             pipeline_stages=args.pipeline_stages,
             context_parallel_size=args.context_parallel_size,
+            context_parallel_impl=args.context_parallel_impl,
+            context_parallel_model_fn=getattr(
+                spec.module, "context_parallel_model", None),
             device=device,
         )
     return LocalTrainer(
@@ -183,13 +189,18 @@ def main(argv=None):
         # The exit line, also on the way out of a failure, carries what
         # only this process can count: its steps, its flash-attention
         # kernel launches and its telemetry pushes; an AllReduce worker
-        # adds its model version and weights' digest.
+        # adds its model version, weights' digest, world spec and each
+        # shard's launches.
         record = {"steps": worker.steps, "kernel_launches": dict(fa.launches),
                   "telemetry": reporter.stats()}
         if isinstance(worker.trainer, AllReduceTrainer):
-            record.update(version=worker.trainer.get_model_version(),
-                          digest=worker.trainer.state_digest(),
-                          failed_steps=worker.failed_steps)
+            trainer = worker.trainer
+            record.update(version=trainer.get_model_version(),
+                          digest=trainer.state_digest(),
+                          failed_steps=worker.failed_steps,
+                          spec=trainer.world_fingerprint,
+                          shard_launches=[dict(c) for c in
+                                          trainer.shard_launches])
         logger.info("Worker %d exiting: %s", args.worker_id,
                     json.dumps(record, sort_keys=True))
     return 0

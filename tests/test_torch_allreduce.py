@@ -421,10 +421,11 @@ def test_batchnorm_in_a_multi_process_world_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(model_parallel_size=2), dict(zero1=True),
-    dict(quantized_grads=True), dict(pipeline_stages=2),
-    dict(context_parallel_size=2)], ids=lambda kw: next(iter(kw)))
+    dict(zero1=True), dict(quantized_grads=True), dict(pipeline_stages=2)],
+    ids=lambda kw: next(iter(kw)))
 def test_unported_parallelism_raises(kw):
+    """ZeRO-1, quantized gradients and the pipeline are later slices; the
+    model and seq axes are tests/test_torch_model_axes.py's."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         AllReduceTrainer(_Linear(), _linear_loss, toptim.sgd(0.1),
                          _Control().client(0), device="cpu", **kw)

@@ -5,8 +5,9 @@ SDKs kubernetes and odps blocked (the k8s backend and the ODPS reader and
 writer import them only where they are used), and loads nothing of the
 JAX package; the control-plane modules among them (the journal, the policy
 engine, the telemetry plane, the chaos seams, the socket transport, the
-process entry points, the instance managers, the `edl` client and the
-elastic AllReduce modules) import without grpc."""
+process entry points, the instance managers, the `edl` client, the
+elastic AllReduce modules and the model and seq axes) import without
+grpc."""
 
 import os
 import pkgutil
@@ -74,7 +75,9 @@ def test_port_imports_with_jax_blocked():
                  "data.odps_writer", "master.membership",
                  "master.step_lease", "parallel", "parallel.mesh",
                  "parallel.distributed", "parallel.broadcast",
-                 "worker.allreduce_trainer"):
+                 "worker.allreduce_trainer", "parallel.collectives",
+                 "parallel.tensor_parallel", "parallel.ring_attention",
+                 "parallel.ulysses", "parallel.shards"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],

@@ -6,6 +6,8 @@ it; there, skip the JAX-importing conftest:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu
 """
 
+import collections
+
 import pytest
 import torch
 
@@ -80,6 +82,47 @@ def test_autograd_matches_plain_autograd(cuda, causal):
         grads.append((out.detach(), x.grad))
     torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-4, rtol=0)
     torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("impl,causal,n", [
+    ("ring", False, 2), ("ring", True, 2), ("ring", True, 3),
+    ("zigzag", True, 2)])
+def test_ring_blocks_match_the_plain_merge(cuda, impl, causal, n):
+    """Ring and zigzag attention over a seq group of n members (threads,
+    gloo through pinned host buffers), every block on the kernels, against
+    the JAX module's blockwise fold (ring_attention_plain) under torch
+    autograd; each member launches the forward, dQ and dK/dV kernels once
+    per block it may see."""
+    from elasticdl_tpu_torch.parallel import ring_attention as ra
+    from elasticdl_tpu_torch.parallel.shards import run_group
+
+    q, k, v, g = _inputs((1, 2, 96 * n, 128), torch.float32)
+    fn = ra.ring_attention if impl == "ring" else ra.zigzag_ring_attention
+    s = q.shape[2] // n
+
+    def member(group):
+        r = group.rank
+        ts = [t[:, :, r * s:(r + 1) * s].clone().requires_grad_()
+              for t in (q, k, v)]
+        with fa.counting_into(collections.Counter()) as c:
+            out = fn(*ts, group, causal=causal)
+            out.backward(g[:, :, r * s:(r + 1) * s])
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in ts], dict(c)
+
+    results = run_group(n, member)
+    got = [torch.cat([res[0][i] for res in results], dim=2)
+           for i in range(4)]
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_out = ra.ring_attention_plain(*ts, n, causal)
+    want_out.backward(g)
+    for a, b in zip(got, [want_out.detach()] + [t.grad for t in ts]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    for r, (_, counts) in enumerate(results):
+        blocks = (2 * n + 1 if impl == "zigzag"
+                  else r + 1 if causal else n)
+        assert counts == {"flash_fwd_lse": blocks, "flash_dq": blocks,
+                          "flash_dkv": blocks}, (r, counts)
 
 
 def test_backward_kernels_are_deterministic(cuda):

@@ -310,8 +310,13 @@ def test_config_guards_names_and_flagship_count():
         moe_lm.MoELMConfig(moe_every=0)
     with pytest.raises(ValueError, match="num_experts"):
         moe_lm.MoELMConfig(num_experts=1)
-    with pytest.raises(NotImplementedError, match="Slice 6"):
-        moe_lm.param_specs({})
+    # DP x EP: the expert weights split over the model axis, the rest
+    # replicated.
+    assert moe_lm.param_specs({
+        "MoEBlock_0/SwitchMoE_0/w_in": np.zeros((4, 2, 3)),
+        "MoEBlock_0/SwitchMoE_0/router/kernel": np.zeros((2, 4))}) == {
+        "MoEBlock_0/SwitchMoE_0/w_in": ("model", None, None),
+        "MoEBlock_0/SwitchMoE_0/router/kernel": ()}
     # The flagship-width config: flax's names and shapes, abstractly.
     cfg = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=12,
                max_len=4096)
@@ -425,3 +430,72 @@ def test_moe_checkpoints_restore_across_packages(tmp_path):
         ours.train_minibatch(x, y)[2].item()
     np.testing.assert_array_equal(back.evaluate_minibatch(x),
                                   ours.evaluate_minibatch(x))
+
+
+# ---------- expert parallelism ----------
+
+
+EP_CFG = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, max_len=16,
+              num_experts=4, moe_every=2, activation_dtype="float32")
+
+
+def test_dp_ep_step_matches_jax_mesh():
+    """tests/test_moe_lm.py's DP x EP setup (its config, its seed-7 batch
+    of 8 x 16): the JAX step on the 8-device CPU mesh (data 4 x model 2,
+    the experts split by moe_lm.param_specs) against the port's
+    AllReduceTrainer over two model shards of one process, each holding 2
+    of the 4 experts, from the same weights. The routing runs over the
+    whole batch on both sides (GSPMD keeps the global computation), so the
+    loss, its aux term and every gradient agree within 1e-5 of the
+    largest value (float32 in another order)."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from elasticdl_tpu_torch.ops import optimizers as toptim
+    from elasticdl_tpu_torch.worker.allreduce_trainer import (
+        AllReduceTrainer,
+    )
+    from test_torch_allreduce import _Control
+
+    tokens = synthetic_lm_tokens(8, 16, vocab=64, branching=4, seed=7)
+    features, labels = tokens[:, :-1], tokens[:, 1:]
+    jmodel = jmoe_lm.custom_model(jmoe_lm.MoELMConfig(**EP_CFG))
+    variables = dict(_jit(lambda x: jmodel.init(
+        {"params": jax.random.PRNGKey(5)}, x, training=False), features))
+
+    def loss_fn(v, x, y):
+        out = jmodel.apply(v, x, training=True,
+                           rngs={"dropout": jax.random.PRNGKey(0)})
+        return jmoe_lm.loss(y, out)
+
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+    var_sh = jax.tree_util.tree_map(
+        lambda s: NamedSharding(mesh, s), jmoe_lm.param_specs(variables),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    batch_sh = NamedSharding(mesh, P("data", None))
+    args = (jax.device_put(variables, var_sh),
+            jax.device_put(features, batch_sh),
+            jax.device_put(labels, batch_sh))
+    want_loss, want = jax.jit(
+        jax.value_and_grad(loss_fn), in_shardings=(var_sh, batch_sh,
+                                                   batch_sh),
+        out_shardings=(NamedSharding(mesh, P()), var_sh)).lower(
+        *args).compile(compiler_options=FAST_COMPILE)(*args)
+
+    t = AllReduceTrainer(moe_lm.custom_model(moe_lm.MoELMConfig(**EP_CFG)),
+                         moe_lm.loss, toptim.sgd(0.1), _Control().client(0),
+                         device="cpu", model_parallel_size=2,
+                         param_specs_fn=moe_lm.param_specs)
+    t._local_devices = 2
+    try:
+        t.load_flax_params(_named(variables["params"]))
+        _, _, loss = t.train_minibatch(features, labels)
+        assert t.world_fingerprint == "data=1,model=2"
+        assert [m.w_in.shape[0] for m in t.shards.models[0].modules()
+                if hasattr(m, "first")] == [2]
+        _close(float(loss), float(want_loss), "loss", F32_OUT_RTOL)
+        grads = {x.name: x.to_flax(x.param.grad).detach().numpy()
+                 for x in flax_leaves(t._model)}
+        for name, g in _named(jax.device_get(want)["params"]).items():
+            _close(grads[name], g, name, F32_OUT_RTOL)
+    finally:
+        t.close()
