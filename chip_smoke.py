@@ -281,6 +281,7 @@ from elasticdl_tpu_torch.common import rpc, tensor_utils
 from elasticdl_tpu_torch.common.model_utils import Modes
 from elasticdl_tpu_torch.common.params import (
     flax_leaves,
+    load_flax,
     params_from_flax,
     params_to_flax,
     state_to_flax,
@@ -322,10 +323,17 @@ from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.ops import mma_peak
+from elasticdl_tpu_torch.parallel import distributed
+from elasticdl_tpu_torch.parallel.sharded_embedding import (
+    padded_vocab,
+    shard_table_rows,
+)
+from elasticdl_tpu_torch.parallel.shards import run_group
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.ps import checkpoint as ps_checkpoint
 from elasticdl_tpu_torch.ps.parameter_server import ParameterServer
 from elasticdl_tpu_torch.worker.main import build_worker
+from elasticdl_tpu_torch.worker import allreduce_trainer as art
 from elasticdl_tpu_torch.worker.allreduce_trainer import AllReduceTrainer
 from elasticdl_tpu_torch.worker.master_client import MasterClient
 from elasticdl_tpu_torch.worker.ps_client import PSClient
@@ -3172,6 +3180,7 @@ PROC_LM_KILL_WORKER_AT = 16
 PROC_LM_KILL_MASTER_AT = 40
 PROC_PS_KILL_SHARD_AT = 65536
 PROC_LM_PATIENCE_S = 30
+PROC_LM_PUSH_INTERVAL_S = 0.5
 PROC_TIMEOUT = 240
 # The transport on loopback: small calls and one 64 MiB push, in this
 # process; the native and Python record readers on READER_RECORDS records.
@@ -3395,9 +3404,14 @@ def _proc_lm(root):
     # linger rides the master's absence for the patience window before it
     # exits, so the window is cut from 120 s to PROC_LM_PATIENCE_S, well
     # over the master's outage.
+    # Worker 0 is stopped at PROC_LM_KILL_WORKER_AT records, some 3 s after
+    # its telemetry reporter starts: pushes every PROC_LM_PUSH_INTERVAL_S
+    # (the default's 2 s, jittered, can fall after the stop) so that each
+    # worker's telemetry reaches the master before the drill begins.
     env = _proc_env(
         ELASTICDL_MASTER_JOURNAL_DIR=os.path.join(root, "journal"),
-        ELASTICDL_MASTER_PATIENCE_SECONDS=str(PROC_LM_PATIENCE_S))
+        ELASTICDL_MASTER_PATIENCE_SECONDS=str(PROC_LM_PATIENCE_S),
+        ELASTICDL_TELEMETRY_PUSH_INTERVAL=str(PROC_LM_PUSH_INTERVAL_S))
     argv = ["--model_def", paths["model_def"],
             "--distribution_strategy", "Local",
             "--training_data", paths["train"],
@@ -5164,6 +5178,544 @@ def phase_model_axes(results):
             "tp2_job": job}
 
 
+
+# The data axis (parallel/zero1.py, quantized.py, sharded_embedding.py,
+# cross-rank BatchNorm): the flagship at full width and PROC_LAYERS layers
+# for the float32 checks, at full depth (bfloat16) for the timed runs.
+DA_CHECK_STEPS = 2
+DA_STEPS = 3
+DA_RTOL = 1e-4
+DA_STATS_RTOL = 1e-5
+DA_WIRE_RATIO = 0.27
+DA_CTR_BATCH = 16384
+DA_CTR_SHARDS = 2
+DA_CTR_WARMUP = 2
+DA_CTR_STEPS = 5
+DA_CTR_LOSS_RTOL = 1e-5
+DA_CTR_GRAD_RTOL = 1e-4
+DA_BN_BATCH = 128
+DA_BN_STEPS = 3
+DA_JOB_RECORDS = 32
+DA_JOB_TASK = 16
+DA_JOB_WORKERS = 2
+
+
+def _da_trainer(shards, cfg, **kw):
+    """An AllReduceTrainer of one process with `shards` data shards sharing
+    the card (ELASTICDL_LOCAL_DEVICES)."""
+    with _environ(ELASTICDL_LOCAL_DEVICES=str(shards)):
+        return _ArControl().trainer(0, lambda: (
+            tlm.custom_model(cfg), tlm.loss, tlm.optimizer()), **kw)
+
+
+def _da_steps(trainer, batches):
+    """Trains on `batches`; the losses and each step's ms (host clock, the
+    loss read back)."""
+    losses, ms = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _, _, loss = trainer.train_minibatch(x, y)
+        losses.append(loss.item())
+        ms.append(1e3 * (time.perf_counter() - start))
+    return losses, ms
+
+
+def _da_shard_launches(trainer, layers, steps):
+    """Each shard's launches against one each of the training three per
+    layer and step."""
+    got = [{k: v for k, v in c.items() if v} for c in trainer.shard_launches]
+    want = [{n: layers * steps for n in ("flash_fwd_lse", "flash_dq",
+                                         "flash_dkv")}
+            for _ in trainer.shard_launches]
+    return got, want
+
+
+def _da_batches(tokens, n):
+    return [(tokens[i * BATCH:(i + 1) * BATCH, :-1],
+             tokens[i * BATCH:(i + 1) * BATCH, 1:]) for i in range(n)]
+
+
+def _da_zero1_f32(tokens):
+    """The flagship (float32, PROC_LAYERS layers) in one process of two data
+    shards, DA_CHECK_STEPS Adam steps with and without zero1: the
+    parameters and the gathered optimizer leaves bitwise equal; each
+    shard's optimizer state against the replicated state's bytes."""
+    cfg = dataclasses.replace(proc_config(), activation_dtype="float32")
+    batches = _da_batches(tokens, DA_CHECK_STEPS)
+    out = {}
+    kept = {}
+    for name, kw in (("replicated", {}), ("zero1", {"zero1": True})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = _da_trainer(2, cfg, **kw)
+        try:
+            losses, ms = _da_steps(trainer, batches)
+            got, want = _da_shard_launches(trainer, cfg.n_layers,
+                                           DA_CHECK_STEPS)
+            out[name] = {"spec": trainer.world_fingerprint,
+                         "losses": losses, "ms_per_step": ms,
+                         "optimizer_state_bytes":
+                             trainer.optimizer_state_bytes(),
+                         "shard_launches": got}
+            if got != want:
+                raise AssertionError(f"data_axis zero1_f32 {name}: "
+                                     f"launches {got}, expected {want}")
+            params = [p.detach().clone() for p in trainer._model.parameters()]
+            leaves = [t.detach().clone() for t in
+                      trainer.optimizer_state_leaves()]
+            if not kept:
+                kept = {"params": params, "leaves": leaves}
+                continue
+            out["params_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(params, kept["params"]))
+            out["optimizer_leaves_bitwise"] = len(leaves) == len(
+                kept["leaves"]) and all(torch.equal(a.cpu(), b.cpu())
+                                        for a, b in zip(leaves,
+                                                        kept["leaves"]))
+            opt = trainer._optimizer
+            out["sharded_leaves"] = sum(len(parts) for parts in opt.parts)
+            out["halves"] = all(
+                p.shape[0] * 2 == leaf.to_flax(leaf.param).shape[0]
+                for parts in opt.parts for leaf, _, p in parts)
+        finally:
+            trainer.close()
+    if not (out["params_bitwise"] and out["optimizer_leaves_bitwise"]
+            and out["halves"] and out["sharded_leaves"]):
+        raise AssertionError(f"data_axis zero1_f32: {out}")
+    return out
+
+
+def _da_zero1_timed(tokens):
+    """The bfloat16 flagship (full depth) in one process of two data
+    shards, with and without zero1: DA_STEPS steps each."""
+    cfg = tlm.flagship_config(SEQ)
+    batches = _da_batches(tokens, DA_STEPS)
+    out = {}
+    for name, kw in (("replicated", {}), ("zero1", {"zero1": True})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = _da_trainer(2, cfg, **kw)
+        try:
+            trainer.init_variables_if_needed(batches[0][0])
+            for counts in trainer.shard_launches:
+                counts.clear()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = _da_steps(trainer, batches)
+            got, want = _da_shard_launches(trainer, cfg.n_layers, DA_STEPS)
+            out[name] = {"spec": trainer.world_fingerprint,
+                         "losses": losses, "ms_per_step": ms,
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2**30,
+                         "optimizer_state_bytes":
+                             trainer.optimizer_state_bytes(),
+                         "shard_launches": got}
+        finally:
+            trainer.close()
+        if got != want:
+            raise AssertionError(f"data_axis zero1_timed {name}: launches "
+                                 f"{got}, expected {want}")
+    return out
+
+
+def _da_world(cfg, **kw):
+    """Two trainers as threads on the card, a gloo world of 2."""
+    control = _ArControl()
+    ranks = [control.trainer(i, lambda: (
+        tlm.custom_model(cfg), tlm.loss, tlm.optimizer()), multi_host=True,
+        **kw) for i in range(AR_WORKERS)]
+    for t in ranks:
+        t._mc.report_liveness()
+    return ranks
+
+
+def _da_quantized_world(tokens, cfg, steps, check):
+    """A quantized world of two ranks as threads, each on half of each
+    batch: ms per step, the world's gloo legs and wire per step against the
+    f32 all-reduce's wire (the ring model on 4 bytes per parameter and the
+    loss), the ranks bitwise equal; with `check`, the first step's reduced
+    gradients against the exact mean of the two ranks' own (captured as
+    they enter the reduction), within two steps of each block's largest
+    member scale."""
+    captured = {}
+    plain = art.quantized_pmean
+
+    def capture(leaves, group, collectives="all_to_all"):
+        if check and len(captured) < group.size:
+            captured[group.rank] = torch.cat(
+                [t.reshape(-1).float() for t in leaves])
+        result = plain(leaves, group, collectives)
+        if check and group.rank == 0 and "out" not in captured:
+            captured["out"] = torch.cat([t.reshape(-1).float()
+                                         for t in result])
+        return result
+
+    ranks = _da_world(cfg, quantized_grads=True)
+    half = BATCH // AR_WORKERS
+    out = {"losses": [], "step_ms": [], "comm": []}
+    art.quantized_pmean = capture
+    try:
+        start = time.perf_counter()
+        _in_threads(*[(lambda t=t: t.init_variables_if_needed(
+            tokens[:half, :-1])) for t in ranks])
+        out["form_world_ms"] = 1e3 * (time.perf_counter() - start)
+        fa.reset_launch_counts()
+        for i in range(steps):
+            rows = tokens[i * BATCH:(i + 1) * BATCH]
+            for t in ranks:
+                t.world.stats.reset()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            losses = _in_threads(*[
+                (lambda t=t, r=r: t.train_minibatch(
+                    rows[r * half:(r + 1) * half, :-1],
+                    rows[r * half:(r + 1) * half, 1:])[2])
+                for r, t in enumerate(ranks)])
+            out["losses"].append([v.item() for v in losses])
+            out["step_ms"].append(1e3 * (time.perf_counter() - start))
+            out["comm"].append(ranks[0].world.stats.as_dict())
+            if not torch.equal(losses[0], losses[1]):
+                raise AssertionError(f"data_axis quantized step {i}: the "
+                                     "ranks' losses differ")
+        out["launches"] = dict(fa.launches)
+        out["ranks_bitwise"] = _same_bits(ranks[0], ranks[1])
+        out["spec"] = ranks[0].world_fingerprint
+        n_params = sum(p.numel() for p in ranks[0]._model.parameters())
+    finally:
+        art.quantized_pmean = plain
+        for t in ranks:
+            t.close()
+    f32_wire = distributed.wire_bytes("all_reduce", 4 * (n_params + 1), 2)
+    wire = float(np.mean([c["wire"] for c in out["comm"]]))
+    out.update(params=n_params, f32_wire_bytes=f32_wire,
+               wire_bytes_per_step=wire, wire_ratio=wire / f32_wire,
+               gloo_ms_per_step=1e3 * float(np.mean(
+                   [c["gloo_s"] for c in out["comm"]])))
+    want = {n: AR_WORKERS * cfg.n_layers * steps
+            for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}
+    failed = []
+    if {k: v for k, v in out["launches"].items() if v} != want:
+        failed.append(f"launches, expected {want}")
+    if not out["ranks_bitwise"]:
+        failed.append("the ranks bitwise")
+    if out["wire_ratio"] > DA_WIRE_RATIO:
+        failed.append("the wire ratio")
+    if check:
+        exact = (captured[0] + captured[1]) / 2
+        got = captured["out"]
+        n = AR_WORKERS
+        pad = -exact.numel() % n
+        blocks = lambda v: torch.cat([v, v.new_zeros(pad)]).reshape(n, -1)
+        scale = torch.maximum(blocks(captured[0]).abs().amax(1),
+                              blocks(captured[1]).abs().amax(1)) / 127.0
+        err = (blocks(got) - blocks(exact)).abs().amax(1)
+        out["block_error_in_steps"] = [float(e) for e in err / scale]
+        out["quantized"] = not torch.equal(got, exact)
+        if not all(float(e) <= 2 * float(s) for e, s in zip(err, scale)):
+            failed.append("the gradients within two steps of the scale")
+        if not out["quantized"]:
+            failed.append("the mean quantized")
+    if failed:
+        emit({"phase": "data_axis", "run": "quantized", **out})
+        raise AssertionError(f"data_axis quantized world: {failed}")
+    return out
+
+
+def _da_deepfm():
+    """DeepFM at its full id space (TOTAL_IDS, padded) with both tables
+    row-sharded over DA_CTR_SHARDS members (threads of one gloo group on
+    the card), batch DA_CTR_BATCH split over them: one forward and
+    backward against the replicated model from the same weights (loss
+    DA_CTR_LOSS_RTOL relative, every gradient DA_CTR_GRAD_RTOL of its
+    largest), then DA_CTR_WARMUP + DA_CTR_STEPS Adam steps (the dense
+    gradients all-reduced over the group): ms per step, gloo bytes."""
+    n = DA_CTR_SHARDS
+    vocab = padded_vocab(TOTAL_IDS, n)
+    batches = _ps_batches(1 + DA_CTR_WARMUP + DA_CTR_STEPS, DA_CTR_BATCH, 7)
+    with torch.device("meta"):
+        rep = deepfm.DeepFMCriteo(vocab=vocab)
+    rep.to_empty(device="cuda")
+    rep.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    features, labels = batches[0]
+    loss = deepfm.loss(labels, rep({k: torch.as_tensor(v).cuda()
+                                    for k, v in features.items()}))
+    loss.backward()
+    want = {x.name: x.to_flax(x.param.grad) for x in flax_leaves(rep)}
+    tables = {x.name: x.param.detach() for x in flax_leaves(rep)}
+    want_loss = loss.item()
+    del loss
+
+    def member(group):
+        model = deepfm.custom_sharded_model(group, vocab=vocab)
+        model.to_empty(device="cuda")
+        with torch.no_grad():
+            for x in flax_leaves(model):
+                full = tables[x.name]
+                if x.name.rsplit("/", 1)[-1] in ("wide", "deep"):
+                    full = shard_table_rows(full, group.size)[group.rank]
+                x.param.copy_(full)
+        b = DA_CTR_BATCH // group.size
+        rows = slice(group.rank * b, (group.rank + 1) * b)
+
+        def step(f, l):
+            feats = {k: torch.as_tensor(v[rows]).cuda()
+                     for k, v in f.items()}
+            model.zero_grad(set_to_none=True)
+            loss = deepfm.loss(l[rows], model(feats)) / group.size
+            loss.backward()
+            return loss.detach()
+
+        loss = step(features, labels)
+        grads = {x.name: x.to_flax(x.param.grad).clone()
+                 for x in flax_leaves(model)}
+        opt = deepfm.optimizer().to_torch(model.parameters())
+        dense = [p for name, p in model.named_parameters()
+                 if name.rsplit(".", 1)[-1] not in ("wide", "deep")]
+        group.stats.reset()
+        ms = []
+        for i, (f, l) in enumerate(batches[1:]):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            step(f, l)
+            flat = torch.cat([p.grad.reshape(-1) for p in dense])
+            flat = group.all_reduce(flat)
+            offset = 0
+            for p in dense:
+                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
+            opt.step()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - start))
+            if i + 1 == DA_CTR_WARMUP:
+                group.stats.reset()
+        return loss, grads, ms[DA_CTR_WARMUP:], group.stats.as_dict()
+
+    out = run_group(n, member, axis="data")
+    got_loss = float(sum(o[0].item() for o in out))
+    errors = {}
+    for name, ref in want.items():
+        parts = [o[1][name] for o in out]
+        got = (torch.cat(parts)[:ref.shape[0]]
+               if name.rsplit("/", 1)[-1] in ("wide", "deep")
+               else sum(parts))
+        errors[name] = float((got - ref).abs().max()
+                             / ref.abs().max().clamp_min(1e-30))
+    stats = out[0][3]
+    result = {"ids": TOTAL_IDS, "padded": vocab, "shards": n,
+              "rows_per_shard": vocab // n, "batch": DA_CTR_BATCH,
+              "loss": got_loss, "replicated_loss": want_loss,
+              "loss_rel_err": abs(got_loss - want_loss) / abs(want_loss),
+              "grad_max_rel_err": max(errors.values()),
+              "grad_worst": max(errors, key=errors.get),
+              "ms_per_step": out[0][2],
+              "gloo_per_step": {k: v / DA_CTR_STEPS for k, v in
+                                stats.items()}}
+    if (result["loss_rel_err"] > DA_CTR_LOSS_RTOL
+            or result["grad_max_rel_err"] > DA_CTR_GRAD_RTOL):
+        emit({"phase": "data_axis", "run": "deepfm_sharded", **result})
+        raise AssertionError("data_axis deepfm_sharded: beyond tolerance")
+    return result
+
+
+def _da_resnet_bn():
+    """ResNet-50 (float32) at batch DA_BN_BATCH over two data shards of one
+    process, held against LocalTrainer on the whole batch from the same
+    weights for one training step: the loss, and the running statistics
+    within DA_STATS_RTOL of their largest value; the gradients no farther
+    from a float64 copy's (on the card) than ZOO_CHECK_EXACT_RATIO times
+    LocalTrainer's own (the zoo's card-against-CPU rule: some 50
+    training-mode BatchNorms amplify rounding). Then DA_BN_STEPS steps: ms per step and the
+    statistics all-reduces per shard and step."""
+    images, labels = _zoo_images(DA_BN_BATCH, 60)
+
+    def make():
+        with torch.device("meta"):
+            return (resnet50.ResNet50(dtype="float32"), resnet50.loss,
+                    resnet50.optimizer())
+
+    local = LocalTrainer(*make(), device="cuda")
+    local.init_variables_if_needed(images)
+    named, state = params_to_flax(local._model), state_to_flax(local._model)
+    with torch.device("meta"):
+        exact = resnet50.ResNet50(dtype="float64")
+    exact.to_empty(device="cuda")
+    exact.double()
+    load_flax(exact, named, state)
+    _, exact_grads = _zoo_step(exact, images, labels, True)
+    del exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, local_loss = local.train_minibatch(images, labels)
+    local_grads = {x.name: x.to_flax(x.param.grad).double().cpu().numpy()
+                   for x in flax_leaves(local._model)}
+    local_stats = state_to_flax(local._model)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _environ(ELASTICDL_LOCAL_DEVICES="2"):
+        trainer = _ArControl().trainer(0, make)
+    try:
+        trainer.load_flax_params(named, state)
+        _, _, loss = trainer.train_minibatch(images, labels)
+        grads = {x.name: x.to_flax(x.param.grad).double().cpu().numpy()
+                 for x in flax_leaves(trainer._model)}
+        stats = state_to_flax(trainer._model)
+        for counts in trainer.axis_stats.values():
+            counts.reset()
+        losses, ms = _da_steps(trainer, [(images, labels)] * DA_BN_STEPS)
+        calls = trainer.axis_stats["data"].calls
+        layers = sum(isinstance(m, BatchNorm)
+                     for m in trainer._model.modules())
+        spec = trainer.world_fingerprint
+        gloo = trainer.axis_stats["data"].as_dict()
+    finally:
+        trainer.close()
+    shard_exact = _grad_err(grads, exact_grads)
+    local_exact = _grad_err(local_grads, exact_grads)
+    bound = max(DA_RTOL, ZOO_CHECK_EXACT_RATIO * local_exact[0])
+    stats_err = max(_rel_err(stats[k], local_stats[k]) for k in stats)
+    result = {"spec": spec, "batch": DA_BN_BATCH,
+              "loss": loss.item(), "local_loss": local_loss.item(),
+              "grads": {"shards_vs_local": _grad_err(grads, local_grads),
+                        "shards_vs_float64": shard_exact,
+                        "local_vs_float64": local_exact, "bound": bound},
+              "running_stats_max_rel_err": stats_err,
+              "losses": losses, "ms_per_step": ms,
+              "batchnorms": layers,
+              "stats_allreduces_per_shard_step": calls / (2 * DA_BN_STEPS),
+              "gloo": gloo}
+    failed = []
+    if abs(result["loss"] - result["local_loss"]) > DA_STATS_RTOL * abs(
+            result["local_loss"]):
+        failed.append("loss")
+    if shard_exact[0] > bound:
+        failed.append("gradients against float64")
+    if stats_err > DA_STATS_RTOL:
+        failed.append("running statistics")
+    if calls != 2 * layers * 2 * DA_BN_STEPS:
+        failed.append("statistics all-reduces: 2 per BatchNorm and shard")
+    if failed:
+        emit({"phase": "data_axis", "run": "resnet50_bn", **result})
+        raise AssertionError(f"data_axis resnet50_bn: {failed}")
+    return result
+
+
+def _da_job(root):
+    """--multi_host --zero1 --quantized_grads through master.main with two
+    worker processes of two data shards each, all on the card: a world of
+    data 2 x zero 2, the bfloat16 flagship at PROC_LAYERS."""
+    cfg = proc_config()
+    paths, _ = _write_job_inputs(root, cfg, n_train=DA_JOB_RECORDS,
+                                 n_valid=0)
+    obs = os.path.join(root, "metrics")
+    argv = ["--model_def", paths["model_def"],
+            "--distribution_strategy", "AllreduceStrategy", "--multi_host",
+            "--zero1", "--quantized_grads",
+            "--training_data", paths["train"],
+            "--records_per_task", str(DA_JOB_TASK), "--num_epochs", "1",
+            "--minibatch_size", str(BATCH), "--log_loss_steps", "1",
+            "--metrics_dir", obs, "--job_name", "data-axis",
+            "--seed", "0", "--instance_backend", "local_process",
+            "--num_workers", str(DA_JOB_WORKERS), "--master_port", "0",
+            "--coordinator_port", str(_free_port())]
+    log = os.path.join(root, "master.log")
+    start = time.time()
+    master = _proc_master(argv, _proc_env(ELASTICDL_LOCAL_DEVICES="2"), log)
+    port = None
+    try:
+        port = _proc_port(log, master)
+        rc = master.wait(timeout=PROC_TIMEOUT)
+        _proc_wait(lambda: not _job_pids(port), "the workers' exit")
+        wall_s = time.time() - start
+    except BaseException:
+        _print_log_tails([log])
+        raise
+    finally:
+        _proc_teardown((master,), port)
+    left = _job_pids(port)
+    text = open(log, errors="replace").read()
+    marks = _log_marks(text)
+    trains = [m for m in _jsonl(os.path.join(obs, "metrics.jsonl"))
+              if m["group"] == "train"]
+    exits = _exit_lines(text, "Worker")
+    return {"master_rc": rc, "wall_s": wall_s, "left": left,
+            "records_done": trains[-1]["records_done"] if trains else None,
+            "losses": [float(g[1]) for _, n, g in marks if n == "step"],
+            "ms_per_step": _ms_per_step_by_world(marks),
+            "world_specs": sorted(set(re.findall(
+                r"World spec (\S+):", text))),
+            "worker_exits": exits}
+
+
+def _start_splits(exits):
+    """{process: its start split} from the exit lines (seconds from exec
+    to the imports, the CUDA context, the master's first answer and the
+    model built)."""
+    return {role: {k: v for k, v in e["start"].items() if k != "exec"}
+            for role, records in exits.items() for e in records
+            if "start" in e}
+
+
+def phase_data_axis(results):
+    """The data axis on the card: ZeRO-1 bitwise (float32) and timed
+    (bfloat16); the quantized world of two ranks (float32 check, bfloat16
+    timed); DeepFM with its tables row-sharded; ResNet-50's BatchNorm over
+    two shards; then a two-process --zero1 --quantized_grads job."""
+    device = results["device"]
+    card = {"card": device["nvidia_smi"]}
+    tokens = synthetic_lm_tokens(DA_STEPS * BATCH, SEQ, vocab=32768,
+                                 branching=4, seed=0)
+    out = {}
+    runs = (("zero1_f32", lambda: _da_zero1_f32(tokens)),
+            ("zero1_bf16", lambda: _da_zero1_timed(tokens)),
+            ("quantized_f32", lambda: _da_quantized_world(
+                tokens, dataclasses.replace(proc_config(),
+                                            activation_dtype="float32"),
+                DA_CHECK_STEPS, check=True)),
+            ("quantized_bf16", lambda: _da_quantized_world(
+                tokens, tlm.flagship_config(SEQ), DA_STEPS, check=False)),
+            ("deepfm_sharded", _da_deepfm),
+            ("resnet50_bn", _da_resnet_bn))
+    for name, fn in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        out[name] = fn()
+        emit({"phase": "data_axis", "run": name, **card,
+              "seconds": time.perf_counter() - start, **out[name]})
+    with tempfile.TemporaryDirectory() as root:
+        job = _da_job(root)
+    job["start_splits"] = _start_splits(job["worker_exits"])
+    emit({"phase": "data_axis", "run": "zero1_quantized_job", **card,
+          **job})
+    exits = job["worker_exits"]
+    last = [v[-1] for v in exits.values()]
+    per_step = {n: 2 * PROC_LAYERS
+                for n in ("flash_fwd_lse", "flash_dq", "flash_dkv")}
+    checks_ok = [
+        (job["master_rc"] == 0, "the master's exit code"),
+        (job["records_done"] == DA_JOB_RECORDS, "records_done"),
+        (not job["left"], "no process left"),
+        (job["losses"] and all(math.isfinite(v) for v in job["losses"]),
+         "finite losses"),
+        (sorted(exits) == [f"worker-{i}" for i in range(DA_JOB_WORKERS)],
+         "one exit line per worker"),
+        (_launch_check(exits, lambda e: {
+            n: c * (e["steps"] + e["failed_steps"])
+            for n, c in per_step.items()}),
+         "each process's launches: 2 shards x layers per step"),
+        (all(e["spec"] == "data=2,zero=2|pg|p2" for e in last),
+         "data 2 x zero 2 worlds"),
+        (len({(e["version"], e["digest"]) for e in last}) == 1
+         and last[0]["digest"], "equal version and digest"),
+    ]
+    failed = [what for ok, what in checks_ok if not ok]
+    if failed:
+        raise AssertionError(f"data_axis zero1_quantized_job: {failed}")
+    out["zero1_quantized_job"] = job
+    return out
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
@@ -5177,7 +5729,8 @@ def main():
               ("client", lambda: phase_client(results)),
               ("k8s", lambda: phase_k8s(results)),
               ("allreduce", lambda: phase_allreduce(results)),
-              ("model_axes", lambda: phase_model_axes(results))]
+              ("model_axes", lambda: phase_model_axes(results)),
+              ("data_axis", lambda: phase_data_axis(results))]
     results, seconds = {}, {}
     for name, fn in phases:
         # A finished phase's trainers sit in reference cycles until the
@@ -5259,6 +5812,19 @@ def main():
             **{role: e["kernel_launches"].get(name, 0)
                for role, v in ma["tp2_job"]["worker_exits"].items()
                for e in v}}
+        # The data axis: each shard of the ZeRO-1 runs, the quantized
+        # worlds' two ranks together, and each process of its job.
+        da = results["data_axis"]
+        report[name]["data_axis_launches"] = {
+            **{f"{run}_{kind}": [c.get(name, 0) for c in r["shard_launches"]]
+               for run in ("zero1_f32", "zero1_bf16")
+               for kind, r in da[run].items()
+               if isinstance(r, dict) and "shard_launches" in r},
+            **{run: da[run]["launches"].get(name, 0)
+               for run in ("quantized_f32", "quantized_bf16")},
+            **{role: e["kernel_launches"].get(name, 0)
+               for role, v in da["zero1_quantized_job"][
+                   "worker_exits"].items() for e in v}}
     emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]

@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from elasticdl_tpu_torch.parallel.collectives import all_reduce_sum
+
 def same_pads(size, kernel, stride):
     """XLA's SAME padding of one spatial axis: (low, high)."""
     out = -(-size // stride)
@@ -97,7 +99,16 @@ class BatchNorm(nn.Module):
     """flax nn.BatchNorm over the channel axis of NCHW input, output in
     float32 (the models cast it back to their activation dtype). The
     training forward updates `mean` and `var` under no_grad; the gradient
-    flows through the batch statistics, as in flax."""
+    flows through the batch statistics, as in flax.
+
+    `stats_group` (set by `bind_batch_stats`) makes the statistics the
+    global batch's: E[x] and E[x^2] in f32 are averaged over the group's
+    members (equal batch shards) by a differentiable all-reduce
+    (parallel/collectives.py), so the backward sums too and every member's
+    running statistics come out equal. None (the default) takes them over
+    the module's own batch."""
+
+    stats_group = None
 
     def __init__(self, features, momentum=0.99, epsilon=1e-5,
                  zero_scale=False):
@@ -130,8 +141,15 @@ class BatchNorm(nn.Module):
             dims = (0, 2, 3)
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xs.mean(dims)
-            var = torch.clamp_min(torch.square(xs).mean(dims)
-                                  - torch.square(mean), 0.0)
+            group = self.stats_group
+            if group is not None and group.size > 1:
+                both = all_reduce_sum(torch.stack(
+                    [mean, torch.square(xs).mean(dims)]), group) / group.size
+                mean, mean_sq = both[0], both[1]
+                var = torch.clamp_min(mean_sq - torch.square(mean), 0.0)
+            else:
+                var = torch.clamp_min(torch.square(xs).mean(dims)
+                                      - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -141,3 +159,14 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
+
+
+def bind_batch_stats(model, group):
+    """Sets every BatchNorm of `model` to take its statistics over `group`
+    (None: over its own batch). Returns the number of BatchNorms."""
+    count = 0
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.stats_group = group
+            count += 1
+    return count

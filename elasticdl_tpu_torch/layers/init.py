@@ -1,6 +1,7 @@
 """flax's default initializers for the port's modules: lecun-normal
 kernels (`lecun_normal_`) and `init_flax_defaults`, which the zoo models and
-the CTR heads draw their weights from.
+the CTR heads draw their weights from; and `materialize`, which gives a
+model built on the meta device its storage.
 """
 
 import torch
@@ -53,3 +54,29 @@ def init_flax_defaults(module, generator):
             with torch.no_grad():
                 mod.weight.normal_(0.0, mod.embedding_dim**-0.5,
                                    generator=generator)
+
+
+def materialize(module, device):
+    """Module.to_empty(device) for a module built on the meta device:
+    uninitialized storage for every parameter and buffer, shared ones kept
+    shared. torch.empty from each shape, where to_empty's empty_like of a
+    meta tensor goes through torch._refs and imports sympy (4.2 s of a
+    worker's start on an H100 host, PERF.md)."""
+    made = {}
+
+    def empty(t):
+        if id(t) not in made:
+            made[id(t)] = torch.empty(t.shape, dtype=t.dtype, device=device)
+        return made[id(t)]
+
+    params = {}
+    for mod in module.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None:
+                if id(p) not in params:
+                    params[id(p)] = nn.Parameter(empty(p), p.requires_grad)
+                mod._parameters[name] = params[id(p)]
+        for name, b in list(mod._buffers.items()):
+            if b is not None:
+                mod._buffers[name] = empty(b)
+    return module

@@ -7,9 +7,10 @@ Submodules carry flax's names (CTREmbeddings_0 holding wide, deep and
 dense_linear; DNN_0 holding Dense_0, Dense_1, ...), so common/params.py
 maps wire names to them mechanically. flax's Dense defaults are kept
 (layers/init.py `init_flax_defaults`): lecun-normal kernels and zero
-biases. The JAX package's `shard_mesh` (tables row-sharded over a
-device mesh) belongs to parallel/sharded_embedding.py, which is not
-ported.
+biases. With a `shard_group` (the JAX package's `shard_mesh`) the tables'
+rows are sharded over the group's members and looked up by collectives
+(parallel/sharded_embedding.py): each member holds its block of the
+tables padded to padded_vocab, under the names `wide` and `deep`.
 """
 
 import numpy as np
@@ -22,6 +23,10 @@ from elasticdl_tpu_torch.layers.init import init_flax_defaults
 from elasticdl_tpu_torch.models.dac_ctr import feature_config as fc
 from elasticdl_tpu_torch.models.common import sigmoid_cross_entropy
 from elasticdl_tpu_torch.models.dac_ctr.transform import NUM_FIELDS, TOTAL_IDS
+from elasticdl_tpu_torch.parallel.sharded_embedding import (
+    padded_vocab,
+    sharded_embedding_lookup,
+)
 
 class CTREmbeddings(nn.Module):
     """wide [V, 1] and deep [V, D] tables over the shared offset id space,
@@ -29,12 +34,20 @@ class CTREmbeddings(nn.Module):
 
     Returns (linear_logits [B, F+1], field_embs [B, F, D], dense [B, 13]):
     what every head (wide&deep, FM, CIN, cross) consumes. One gather per
-    table serves all 39 fields."""
+    table serves all 39 fields.
 
-    def __init__(self, deep_dim=8, vocab=TOTAL_IDS):
+    shard_group: an AxisGroup (parallel/distributed.py) whose members hold
+    the tables' rows in blocks, the vocab padded to padded_vocab(vocab,
+    size); each member looks up its batch shard's ids by collectives."""
+
+    def __init__(self, deep_dim=8, vocab=TOTAL_IDS, shard_group=None):
         super().__init__()
-        self.wide = nn.Parameter(torch.empty(vocab, 1))
-        self.deep = nn.Parameter(torch.empty(vocab, deep_dim))
+        self.shard_group = shard_group
+        rows = vocab
+        if shard_group is not None:
+            rows = padded_vocab(vocab, shard_group.size) // shard_group.size
+        self.wide = nn.Parameter(torch.empty(rows, 1))
+        self.deep = nn.Parameter(torch.empty(rows, deep_dim))
         self.dense_linear = nn.Linear(fc.NUM_DENSE, 1, bias=False)
 
     def init_weights(self, generator):
@@ -48,8 +61,14 @@ class CTREmbeddings(nn.Module):
     def forward(self, features):
         ids = features["ids"].long()  # [B, F]
         dense = features["dense"].float()  # [B, 13]
-        linear = F.embedding(ids, self.wide)[..., 0]  # [B, F]
-        field_embs = F.embedding(ids, self.deep)  # [B, F, D]
+        if self.shard_group is not None:
+            linear = sharded_embedding_lookup(
+                self.wide, ids, self.shard_group)[..., 0]
+            field_embs = sharded_embedding_lookup(
+                self.deep, ids, self.shard_group)
+        else:
+            linear = F.embedding(ids, self.wide)[..., 0]  # [B, F]
+            field_embs = F.embedding(ids, self.deep)  # [B, F, D]
         dense_logit = self.dense_linear(dense)  # [B, 1]
         return torch.cat([linear, dense_logit], dim=1), field_embs, dense
 

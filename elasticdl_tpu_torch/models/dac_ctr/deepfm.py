@@ -2,9 +2,9 @@
 elasticdl_tpu/models/dac_ctr/deepfm.py): first-order logits + the FM
 second-order term + a DNN over [dense, field embeddings]. The wide [V, 1]
 and deep [V, D] tables live on the device (CTREmbeddings); deepfm_ps.py is
-the variant with the tables in the parameter server. The JAX package's
-custom_sharded_model / sharded_param_specs (tables row-sharded over a mesh)
-belong to parallel/sharded_embedding.py, which is not ported.
+the variant with the tables in the parameter server, and
+custom_sharded_model the one with the tables' rows sharded over a group
+(parallel/sharded_embedding.py), each member holding a block.
 """
 
 import torch
@@ -24,12 +24,16 @@ from elasticdl_tpu_torch.models.dac_ctr.transform import (  # noqa: F401
     feed,
 )
 from elasticdl_tpu_torch.ops import optimizers
+from elasticdl_tpu_torch.parallel.mesh import DATA_AXIS
+from elasticdl_tpu_torch.parallel.sharded_embedding import sharded_embed_spec
 
 
 class DeepFMCriteo(nn.Module):
-    def __init__(self, deep_dim=8, dnn_hidden_units=(16, 4), vocab=None):
+    def __init__(self, deep_dim=8, dnn_hidden_units=(16, 4), vocab=None,
+                 shard_group=None):
         super().__init__()
-        self.CTREmbeddings_0 = CTREmbeddings(deep_dim, vocab or TOTAL_IDS)
+        self.CTREmbeddings_0 = CTREmbeddings(deep_dim, vocab or TOTAL_IDS,
+                                             shard_group)
         self.DNN_0 = DNN(dnn_input_width(deep_dim), dnn_hidden_units)
         self.Dense_0 = nn.Linear(dnn_hidden_units[-1], 1, bias=False)
 
@@ -47,6 +51,23 @@ def custom_model():
     """The model on the meta device; the trainer materializes it."""
     with torch.device("meta"):
         return DeepFMCriteo()
+
+
+def custom_sharded_model(group, vocab=None):
+    """DeepFM whose wide and deep tables are row-sharded over `group` (an
+    AxisGroup): this member's model, on the meta device, holding its
+    block of each table."""
+    with torch.device("meta"):
+        return DeepFMCriteo(vocab=vocab, shard_group=group)
+
+
+def sharded_param_specs(names, axis=DATA_AXIS):
+    """Specs of custom_sharded_model's wire names (parallel/
+    tensor_parallel's form): the two tables row-sharded over `axis`,
+    everything else replicated."""
+    return {name: (sharded_embed_spec(axis) if name.rsplit("/", 1)[-1]
+                   in ("wide", "deep") else ())
+            for name in names}
 
 
 loss = ctr_loss

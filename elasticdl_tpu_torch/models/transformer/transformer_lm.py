@@ -200,7 +200,12 @@ class Embed(nn.Embedding):
     (common/model_handler.py) can move the table and hand in its rows."""
 
     def __init__(self, num_embeddings, features, dtype):
-        super().__init__(num_embeddings, features)
+        # An empty table: the model initializes it after materializing
+        # (init_lm_weights), and nn.Embedding's own normal_ on the meta
+        # device would import torch._dynamo (8.8 s of a worker's start on
+        # an H100 host, PERF.md).
+        super().__init__(num_embeddings, features,
+                         _weight=torch.empty(num_embeddings, features))
         self.compute_dtype = dtype
 
     def forward(self, ids):

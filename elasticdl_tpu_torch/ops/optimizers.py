@@ -2,14 +2,14 @@
 
 Same names, defaults and `to_flags()` as the JAX package's OptimizerSpec, so
 a spec means the same thing on either side of the wire. `to_torch(params)`
-builds the torch optimizer whose steps match the JAX package's
-`to_optax()` transform step for step:
+builds the optimizer whose steps match the JAX package's `to_optax()`
+transform step for step:
 
-- sgd and momentum/nesterov: torch.optim.SGD (dampening 0) keeps the same
-  trace as optax.sgd: t = g + momentum * t; update g + momentum * t under
-  nesterov.
-- adam: torch.optim.Adam equals optax.adam (bias-corrected moments, eps
-  outside the square root).
+- sgd and momentum/nesterov: SGD below keeps torch.optim.SGD's arithmetic
+  (dampening 0), the same trace as optax.sgd: t = g + momentum * t; update
+  g + momentum * t under nesterov.
+- adam: Adam below runs torch.optim.Adam's multi-tensor arithmetic, which
+  equals optax.adam (bias-corrected moments, eps outside the square root).
 - adam with amsgrad: AMSGrad below, as optax.amsgrad (scale_by_amsgrad):
   the max is taken of the bias-corrected second moment, where
   torch.optim.Adam(amsgrad=True) takes it before correction.
@@ -18,6 +18,13 @@ builds the torch optimizer whose steps match the JAX package's
   lr * g * rsqrt(acc + eps), where torch.optim.Adagrad starts at 0 and
   divides by sqrt(acc) + eps.
 
+The optimizers are the port's own (`Optimizer`: param_groups, state,
+zero_grad, step), not torch.optim's: torch.optim.Optimizer imports
+torch._dynamo when it is built, zeroed or stepped, and that import held
+a worker process's start 8.8 s on an H100 host (PERF.md), for a compiler
+the port never runs. SGD and Adam keep torch's foreach arithmetic (the
+same kernels on the card, the per-tensor ops on the CPU).
+
 `optax_state_leaves` and `load_optax_state_leaves` carry a torch
 optimizer's state in optax's form: the leaves of `to_optax().init(params)`
 in jax's flatten order, each moment in the flax layout of its parameter.
@@ -25,10 +32,112 @@ That is how worker checkpoints (common/save_utils.py) store it, so a
 checkpoint restores in either package.
 """
 
+import collections
+
 import torch
 
 
-class Adagrad(torch.optim.Optimizer):
+class Optimizer:
+    """What the port uses of torch.optim.Optimizer: one param group of
+    `defaults`, per-parameter `state`, `zero_grad` and `step`."""
+
+    def __init__(self, params, defaults):
+        self.defaults = dict(defaults)
+        self.state = collections.defaultdict(dict)
+        self.param_groups = [{**self.defaults, "params": list(params)}]
+
+    def zero_grad(self, set_to_none=True):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                if set_to_none:
+                    p.grad = None
+                else:
+                    p.grad.detach_()
+                    p.grad.zero_()
+
+    def _with_grads(self, group):
+        return [p for p in group["params"] if p.grad is not None]
+
+
+class SGD(Optimizer):
+    """torch.optim.SGD's multi-tensor step (dampening 0, no weight decay):
+    buf = momentum * buf + g (g itself at the first step), then
+    p -= lr * (g + momentum * buf under nesterov, else buf)."""
+
+    def __init__(self, params, lr, momentum=0.0, nesterov=False):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      nesterov=nesterov))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = self._with_grads(group)
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            momentum = group["momentum"]
+            if momentum != 0:
+                bufs = [self.state[p].get("momentum_buffer") for p in params]
+                if all(b is not None for b in bufs):
+                    torch._foreach_mul_(bufs, momentum)
+                    torch._foreach_add_(bufs, grads, alpha=1.0)
+                else:
+                    for i, p in enumerate(params):
+                        if bufs[i] is None:
+                            bufs[i] = grads[i].detach().clone()
+                            self.state[p]["momentum_buffer"] = bufs[i]
+                        else:
+                            bufs[i].mul_(momentum).add_(grads[i], alpha=1.0)
+                grads = (torch._foreach_add(grads, bufs, alpha=momentum)
+                         if group["nesterov"] else bufs)
+            torch._foreach_add_(params, grads, alpha=-group["lr"])
+
+
+class Adam(Optimizer):
+    """torch.optim.Adam's multi-tensor step (no weight decay, no
+    amsgrad): the moments by lerp and addcmul, the bias corrections from
+    the step count (a float32 CPU tensor per parameter, as torch keeps
+    it), p -= lr / bc1 * m / (sqrt(v) / sqrt(bc2) + eps)."""
+
+    def __init__(self, params, lr, betas, eps):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = self._with_grads(group)
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            grads = [p.grad for p in params]
+            states = [self.state[p] for p in params]
+            steps = [st["step"] for st in states]
+            exp_avgs = [st["exp_avg"] for st in states]
+            exp_avg_sqs = [st["exp_avg_sq"] for st in states]
+            torch._foreach_add_(steps, 1)
+            torch._foreach_lerp_(exp_avgs, grads, 1 - b1)
+            torch._foreach_mul_(exp_avg_sqs, b2)
+            torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - b2)
+            counts = [step.item() for step in steps]
+            step_size = [(group["lr"] / (1 - b1**n)) * -1 for n in counts]
+            bc2_sqrt = [(1 - b2**n) ** 0.5 for n in counts]
+            denom = torch._foreach_sqrt(exp_avg_sqs)
+            torch._foreach_div_(denom, bc2_sqrt)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_addcdiv_(params, exp_avgs, denom, step_size)
+
+
+class Adagrad(Optimizer):
     """optax.adagrad: acc += g^2; p -= lr * g * rsqrt(acc + eps), with
     the rescale 0 where acc is 0."""
 
@@ -58,7 +167,7 @@ class Adagrad(torch.optim.Optimizer):
         return loss
 
 
-class AMSGrad(torch.optim.Optimizer):
+class AMSGrad(Optimizer):
     """optax.amsgrad: Adam's bias-corrected moments m_hat, v_hat;
     v_max = max(v_max, v_hat); p -= lr * m_hat / (sqrt(v_max) + eps)."""
 
@@ -119,9 +228,10 @@ def optax_state_leaves(optimizer, spec, leaves):
     parameters' device; the count as a 0-d int32 tensor). `leaves` are the
     parameters as common/params.flax_leaves lists them."""
     out = []
+    state = optimizer.state  # read once: a ZeRO-1 optimizer gathers it
     for field in _optax_state_fields(spec):
         if field == "step":
-            steps = {int(optimizer.state.get(x.param, {}).get("step", 0))
+            steps = {int(state.get(x.param, {}).get("step", 0))
                      for x in leaves}
             if len(steps) > 1:
                 raise ValueError(f"parameters at different steps: {steps}")
@@ -129,7 +239,7 @@ def optax_state_leaves(optimizer, spec, leaves):
                                     dtype=torch.int32))
             continue
         for x in leaves:
-            value = optimizer.state.get(x.param, {}).get(field)
+            value = state.get(x.param, {}).get(field)
             if value is None:
                 value = _initial_state(spec, field, x.param.detach())
             out.append(x.to_flax(value))
@@ -152,7 +262,8 @@ def load_optax_state_leaves(optimizer, spec, leaves, values):
         if field == "step":
             count = int(next(it))
             for x in leaves:
-                # torch.optim.Adam keeps a float32 CPU tensor, AMSGrad an int.
+                # Adam keeps a float32 CPU tensor (as torch.optim.Adam
+                # does), AMSGrad an int.
                 state[x.param]["step"] = (
                     count if spec.hyperparams["amsgrad"]
                     else torch.tensor(float(count))
@@ -200,19 +311,19 @@ class OptimizerSpec:
     def learning_rate(self):
         return self.hyperparams["learning_rate"]
 
-    def to_torch(self, params) -> torch.optim.Optimizer:
+    def to_torch(self, params) -> Optimizer:
         h = self.hyperparams
         if self.name == "sgd":
-            return torch.optim.SGD(params, lr=h["learning_rate"])
+            return SGD(params, lr=h["learning_rate"])
         if self.name == "momentum":
-            return torch.optim.SGD(
+            return SGD(
                 params,
                 lr=h["learning_rate"],
                 momentum=h["momentum"],
                 nesterov=h["nesterov"],
             )
         if self.name == "adam":
-            cls = AMSGrad if h["amsgrad"] else torch.optim.Adam
+            cls = AMSGrad if h["amsgrad"] else Adam
             return cls(
                 params,
                 lr=h["learning_rate"],

@@ -11,7 +11,9 @@ writes them out as torch.autograd.Functions, in two conventions:
   replicated activation enters sharded weights, and `reduce_from`
   (all-reduce forward, identity backward) where partial sums leave them.
   Replicated parameters then get the whole gradient on every member.
-- The seq axis splits one loss into the members' parts, summed. There an
+- The seq and data axes split one loss into the members' parts, summed.
+  A sum every member uses (`all_reduce_sum`) then sums in both
+  directions. There an
   all-gather's transpose is a reduce-scatter and the reverse
   (`all_gather`, `reduce_scatter`), an all-to-all's is the opposite
   all-to-all (`all_to_all`) and a ring step's is the step backwards
@@ -102,6 +104,17 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def all_reduce_sum(x, group):
+    """All-reduce sum forward and backward: every member's loss depends on
+    the sum, so each member's part receives the sum of their gradients
+    (the data axis' convention: BatchNorm's statistics over the global
+    batch)."""
+    if group.size == 1:
+        return x
+    return with_backward(lambda t: group.all_reduce(t.contiguous()),
+                         lambda g: (group.all_reduce(g.contiguous()),), x)
 
 
 def all_gather(x, group, dim):

@@ -74,9 +74,13 @@ def _buckets(tensors, max_bytes=BUCKET_BYTES):
 class CommStats:
     """Seconds and bytes of the collectives since the last reset, split
     into device-to-host, gloo and host-to-device legs. The shards of one
-    process add to one instance per axis from their threads (`add`)."""
+    process add to one instance per axis from their threads (`add`).
+    `bytes` is what the calls hand to gloo; `wire` what one member sends
+    under the ring model (`wire_bytes`), the measure on which an int8
+    reduction and an f32 all-reduce compare."""
 
-    __slots__ = ("d2h_s", "gloo_s", "h2d_s", "bytes", "calls", "_lock")
+    __slots__ = ("d2h_s", "gloo_s", "h2d_s", "bytes", "wire", "calls",
+                 "_lock")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -85,19 +89,33 @@ class CommStats:
     def reset(self):
         with self._lock:
             self.d2h_s = self.gloo_s = self.h2d_s = 0.0
-            self.bytes = self.calls = 0
+            self.bytes = self.wire = self.calls = 0
 
-    def add(self, d2h_s, gloo_s, h2d_s, nbytes):
+    def add(self, d2h_s, gloo_s, h2d_s, nbytes, wire=0):
         with self._lock:
             self.d2h_s += d2h_s
             self.gloo_s += gloo_s
             self.h2d_s += h2d_s
             self.bytes += nbytes
+            self.wire += wire
             self.calls += 1
 
     def as_dict(self):
         return {name: getattr(self, name) for name in self.__slots__
                 if not name.startswith("_")}
+
+
+def wire_bytes(kind, nbytes, size):
+    """Bytes one member of `size` sends for a collective over `nbytes` of
+    its input, by the ring model: an all-reduce moves each byte out twice
+    (reduce-scatter, then all-gather: 2(n-1)/n), an all-to-all keeps 1/n
+    at home, an all-gather sends its input to n-1 members (ring-relayed),
+    a reduce-scatter (n-1)/n, a broadcast or a send its input once."""
+    n = max(1, int(size))
+    share = {"all_reduce": 2 * (n - 1) / n, "all_to_all": (n - 1) / n,
+             "reduce_scatter": (n - 1) / n, "all_gather": n - 1}.get(
+        kind, 1)
+    return int(nbytes * share)
 
 
 class World:
@@ -198,7 +216,7 @@ class World:
             self._pinned[key] = buf
         return buf
 
-    def _run(self, tensors, collective):
+    def _run(self, tensors, collective, kind):
         """Runs `collective(host_flat)` over every bucket of `tensors`,
         staging CUDA buckets through pinned host buffers, and writes the
         results back into the tensors."""
@@ -218,7 +236,9 @@ class World:
                 self.broken = True
                 raise
             self.stats.gloo_s += time.perf_counter() - t0
-            self.stats.bytes += host.numel() * host.element_size()
+            nbytes = host.numel() * host.element_size()
+            self.stats.bytes += nbytes
+            self.stats.wire += wire_bytes(kind, nbytes, self.size)
             self.stats.calls += 1
             t0 = time.perf_counter()
             if staged:
@@ -242,7 +262,8 @@ class World:
         opts = dist.AllreduceOptions()
         opts.reduceOp = dist.ReduceOp.SUM
         self._run(tensors,
-                  lambda host: self._group.allreduce([host], opts).wait())
+                  lambda host: self._group.allreduce([host], opts).wait(),
+                  "all_reduce")
 
     def broadcast_(self, tensors, src=0):
         """Overwrites `tensors` with rank `src`'s, in place."""
@@ -252,7 +273,37 @@ class World:
         opts.rootRank = src
         opts.rootTensor = 0
         self._run(tensors,
-                  lambda host: self._group.broadcast([host], opts).wait())
+                  lambda host: self._group.broadcast([host], opts).wait(),
+                  "broadcast")
+
+    def axis_group(self):
+        """The world's process group as an AxisGroup over the data axis:
+        this rank's member for the collectives that run once per process
+        (the quantized reduction, BatchNorm's statistics without shards),
+        staged and counted into the world's stats. A world of one gives a
+        group of one, whose collectives return their input."""
+        return AxisGroup("data", self.rank if self.is_live() else 0,
+                         self.size if self.is_live() else 1, self._group,
+                         self.stats, on_error=self._mark_broken)
+
+    def _mark_broken(self):
+        self.broken = True
+
+    def shard_store(self):
+        """A client of the epoch's rendezvous store, under the epoch's
+        prefix, for groups among the shards of every process (one client
+        per caller: each shard thread connects its own). None outside a
+        live world."""
+        if not self.is_live():
+            return None
+        import torch.distributed as dist
+
+        host, port = self.coordinator.rsplit(":", 1)
+        store = dist.TCPStore(
+            host, int(port), self.size, False,
+            datetime.timedelta(seconds=INITIALIZATION_TIMEOUT_SECONDS),
+            wait_for_workers=False)
+        return dist.PrefixStore(f"epoch{self.epoch}/", store)
 
 
 # ---------- the intra-process axes: groups among one process's shards ----------
@@ -273,13 +324,16 @@ class AxisGroup:
     stages it, and each call adds its legs to the axis's CommStats. A size-1
     axis has no group, and its collectives return their input."""
 
-    def __init__(self, axis, rank, size, group=None, stats=None):
+    def __init__(self, axis, rank, size, group=None, stats=None,
+                 on_error=None):
         self.axis = axis
         self.rank = int(rank)
         self.size = int(size)
         self._group = group
         self.stats = stats if stats is not None else CommStats()
         self._pinned = {}
+        # Called when a collective fails (the world marks itself broken).
+        self._on_error = on_error
 
     def _host(self, t, slot):
         """`t` on the host: itself on the CPU, else a copy in a pinned
@@ -307,7 +361,7 @@ class AxisGroup:
             self._pinned[key] = buf
         return buf
 
-    def _timed(self, inputs, run, outputs_like):
+    def _timed(self, inputs, run, outputs_like, kind):
         """Stages `inputs` to the host, runs `run(host_inputs)` (the gloo
         call, returning host outputs) and brings the outputs back to the
         device of `outputs_like`, timing each leg."""
@@ -315,7 +369,12 @@ class AxisGroup:
         t0 = time.perf_counter()
         host_in = [self._host(t, j) for j, t in enumerate(inputs)]
         t1 = time.perf_counter()
-        host_out = run(host_in)
+        try:
+            host_out = run(host_in)
+        except RuntimeError:
+            if self._on_error is not None:
+                self._on_error()
+            raise
         t2 = time.perf_counter()
         out = [h.to(device) if device.type == "cuda" else h
                for h in host_out]
@@ -323,7 +382,8 @@ class AxisGroup:
             torch.cuda.current_stream(device).synchronize()
         t3 = time.perf_counter()
         nbytes = sum(h.numel() * h.element_size() for h in host_in)
-        self.stats.add(t1 - t0, t2 - t1, t3 - t2, nbytes)
+        self.stats.add(t1 - t0, t2 - t1, t3 - t2, nbytes,
+                       wire_bytes(kind, nbytes, self.size))
         return out
 
     def all_reduce(self, t, op="sum"):
@@ -341,7 +401,7 @@ class AxisGroup:
             self._group.allreduce([buf], opts).wait()
             return [buf]
 
-        return self._timed([t], run, t)[0]
+        return self._timed([t], run, t, "all_reduce")[0]
 
     def all_gather(self, t, dim):
         """The group's tensors concatenated along `dim`, in rank order."""
@@ -354,8 +414,29 @@ class AxisGroup:
             self._group.allgather([outs], host).wait()
             return outs
 
-        parts = self._timed([t.contiguous()], run, t)
+        parts = self._timed([t.contiguous()], run, t, "all_gather")
         return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, t, dim):
+        """This member's chunk along `dim` of the group's sum of `t` (gloo's
+        reduce-scatter: (n-1)/n of t on the wire, where an all-reduce and a
+        slice move twice that)."""
+        if self.size == 1:
+            return t
+        import torch.distributed as dist
+
+        # On the CPU gloo gets copies, not views of the caller's tensor.
+        chunks = [c.contiguous() if t.device.type == "cuda"
+                  else c.clone(memory_format=torch.contiguous_format)
+                  for c in t.chunk(self.size, dim=dim)]
+
+        def run(host):
+            out = self._recv(host[0], 0, t.device.type == "cuda")
+            self._group.reduce_scatter(
+                [out], [list(host)], dist.ReduceScatterOptions()).wait()
+            return [out]
+
+        return self._timed(chunks, run, t, "reduce_scatter")[0]
 
     def all_to_all(self, t, split_dim, concat_dim):
         """Chunk j of `t` along split_dim goes to rank j; the chunks
@@ -369,7 +450,7 @@ class AxisGroup:
             self._group.alltoall_base(out, host[0], [], []).wait()
             return [out]
 
-        out = self._timed([chunks], run, t)[0]
+        out = self._timed([chunks], run, t, "all_to_all")[0]
         return torch.cat(out.unbind(0), dim=concat_dim)
 
     def exchange(self, tensors, dst, src, tag=0):
@@ -395,7 +476,7 @@ class AxisGroup:
             return recv
 
         return self._timed([t.contiguous() for t in tensors], run,
-                           tensors[0])
+                           tensors[0], "exchange")
 
     def close(self):
         """Drops the gloo group: members blocked in a collective with this

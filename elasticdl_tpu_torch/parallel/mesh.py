@@ -20,9 +20,9 @@ mesh axis it needs; the resolver composes them under one precedence policy
 DP) into a `WorldSpec`. The spec is a pure function of `(ParallelConfig,
 WorldTopology)`: given the same config, an N-device world always maps to
 the same axes, and its fingerprint is the JAX package's. The trainer keeps
-the fingerprint of the world it formed; ZeRO-1 and the pipeline are not
-ported yet and raise in the trainer before a world is resolved, but the
-resolver keeps their branches so that its answers stay the JAX package's.
+the fingerprint of the world it formed; the pipeline is not ported yet and
+raises in the trainer before a world is resolved, but the resolver keeps
+its branch so that its answers stay the JAX package's.
 """
 
 import math
@@ -409,17 +409,28 @@ class ShardLayout:
         return self.sizes.get(axis, 1)
 
     @property
+    def data_size(self):
+        """Data positions of the world: the batch shards over the data axis
+        and, in a ZeRO-1 world, the zero axis within it."""
+        return self.size(DATA_AXIS) * self.size(ZERO_AXIS)
+
+    @property
     def data_local(self):
         """Data positions inside one process."""
         return self.local_devices // (self.size(MODEL_AXIS)
                                       * self.size(SEQ_AXIS))
 
     def coords(self, i):
-        """{axis: coordinate} of local shard i (0 on absent axes)."""
+        """{axis: coordinate} of local shard i (0 on absent axes). The data
+        coordinate is the shard's data position: in a ZeRO-1 world (data x
+        zero) data * zero size + zero, as the batch shards over both."""
         g = self.process_rank * self.local_devices + i
         out = {DATA_AXIS: 0, MODEL_AXIS: 0, SEQ_AXIS: 0}
         for name in self._names:
             out[name] = (g // self._strides[name]) % self.sizes[name]
+        if ZERO_AXIS in self.sizes:
+            out[DATA_AXIS] = (out[DATA_AXIS] * self.sizes[ZERO_AXIS]
+                              + out.pop(ZERO_AXIS))
         return out
 
     def group_key(self, i, axis):

@@ -33,7 +33,18 @@ axis across processes, and steps its optimizer once.
 
 The model and seq groups are gloo groups among the shard threads over an
 in-process HashStore (parallel/distributed.py:join_axis_group), built with
-the world and dropped with it.
+the world and dropped with it. Where the step needs the data axis among
+shards (`data_group`: BatchNorm's statistics over the global batch, or the
+quantized reduction of a one-process world), each shard also joins a group
+of every data position of the world with its model and seq coordinates:
+over the in-process store in a one-process world, over the epoch's
+rendezvous store (`batch_store`, one client per shard) across processes.
+
+The model's buffers (BatchNorm's running statistics) go into the shards
+with the parameters, and `gather_buffers` brings them back: the first data
+position's where the statistics were the global batch's (every position
+holds the same), the mean over the data positions where each shard
+normalized with its own (the quantized step's).
 """
 
 import collections
@@ -45,6 +56,8 @@ import torch
 import torch.distributed
 
 from elasticdl_tpu_torch.common.params import flax_leaves
+from elasticdl_tpu_torch.layers.conv import bind_batch_stats
+from elasticdl_tpu_torch.layers.init import materialize
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.parallel import tensor_parallel as tp
 from elasticdl_tpu_torch.parallel.distributed import (
@@ -96,18 +109,24 @@ class ProcessShards:
     def __init__(self, model, spec, process_rank, device, epoch,
                  param_specs_fn=None, context_parallel_model_fn=None,
                  context_parallel_impl="zigzag", axis_stats=None,
-                 launches=None, local_host="127.0.0.1"):
+                 launches=None, local_host="127.0.0.1", data_group=False,
+                 batch_store=None, bind_stats=False):
         self.layout = ShardLayout(spec, process_rank)
         self.n = self.layout.local_devices
         self.mp = self.layout.size(MODEL_AXIS)
         self.sp = self.layout.size(SEQ_AXIS)
         self.impl = context_parallel_impl
         self._full_leaves = {x.name: x for x in flax_leaves(model)}
+        self._full_buffers = dict(model.named_buffers())
         self._template = meta_copy(model)
         self._specs = (param_specs_fn(meta_variables(self._template))
                        if self.mp > 1 else {})
-        self.axis_stats = axis_stats or {MODEL_AXIS: CommStats(),
-                                         SEQ_AXIS: CommStats()}
+        self.axis_stats = axis_stats or {}
+        for axis in (MODEL_AXIS, SEQ_AXIS, DATA_AXIS):
+            self.axis_stats.setdefault(axis, CommStats())
+        self._data_group = data_group
+        self._batch_store = batch_store
+        self._bind_stats = bind_stats
         # Each shard's kernel launches (its thread's).
         self.launches = launches or [collections.Counter()
                                      for _ in range(self.n)]
@@ -120,6 +139,7 @@ class ProcessShards:
             i, store, epoch, context_parallel_model_fn, local_host))
         self._leaves = [{x.name: x for x in flax_leaves(m)}
                         for m in self.models]
+        self._buffers = [dict(m.named_buffers()) for m in self.models]
 
     # ---------- building ----------
 
@@ -132,6 +152,12 @@ class ProcessShards:
                 store, epoch, axis, layout.group_key(i, axis),
                 coords[axis], layout.size(axis), self.axis_stats[axis],
                 local_host)
+        if self._data_group:
+            groups[DATA_AXIS] = join_axis_group(
+                self._batch_store() if self._batch_store else store, epoch,
+                DATA_AXIS, (coords[MODEL_AXIS], coords[SEQ_AXIS]),
+                coords[DATA_AXIS], layout.data_size,
+                self.axis_stats[DATA_AXIS], local_host)
         self.groups[i] = groups
         if self.sp > 1:
             model = cp_model_fn(
@@ -142,8 +168,10 @@ class ProcessShards:
             model = copy.deepcopy(self._template)
         if self.mp > 1:
             tp.parallelize(model, self._specs, groups[MODEL_AXIS])
-        model.to_empty(device=self.devices[i])
+        materialize(model, self.devices[i])
         model.train()
+        if self._bind_stats:
+            bind_batch_stats(model, groups[DATA_AXIS])
         return model
 
     def _run(self, fn):
@@ -170,7 +198,9 @@ class ProcessShards:
 
     @torch.no_grad()
     def _load_params(self, i):
-        """Copies the full model's parameters into shard i."""
+        """Copies the full model's parameters and buffers into shard i."""
+        for name, full in self._full_buffers.items():
+            self._buffers[i][name].copy_(full)
         m = self.layout.coords(i)[MODEL_AXIS]
         for name, leaf in self._leaves[i].items():
             full = self._full_leaves[name]
@@ -182,16 +212,25 @@ class ProcessShards:
                                   {name: spec}, self.mp)[m][name]
             leaf.param.copy_(torch_layout(leaf, part))
 
-    @torch.no_grad()
-    def gather_grads(self):
-        """Sets the full model's gradients: the model slices joined, then
-        the sum over the data positions and seq blocks of this process."""
+    def _positions(self):
+        """[{model coordinate: local shard}] per (data position, seq block)
+        of this process, in order."""
         by_position = {}
         for i in range(self.n):
             c = self.layout.coords(i)
             by_position.setdefault((c[DATA_AXIS], c[SEQ_AXIS]), {})[
                 c[MODEL_AXIS]] = i
-        positions = [by_position[k] for k in sorted(by_position)]
+        return [by_position[k] for k in sorted(by_position)]
+
+    @torch.no_grad()
+    def gather_grads(self, first_only=False):
+        """Sets the full model's gradients: the model slices joined, then
+        the sum over the data positions and seq blocks of this process (the
+        first position's alone with `first_only`: the data axis was reduced
+        among the shards)."""
+        positions = self._positions()
+        if first_only:
+            positions = positions[:1]
         for name, full in self._full_leaves.items():
             spec = self._specs.get(name, ())
             total = None
@@ -253,10 +292,32 @@ class ProcessShards:
             x = x[:, seq * n:(seq + 1) * n]
         return x
 
-    def step(self, loss_fn, features, labels, real_n):
+    @torch.no_grad()
+    def gather_buffers(self, mean=False):
+        """Sets the full model's buffers from the shards: the first data
+        position's, or the mean over this process's data positions."""
+        if not self._full_buffers:
+            return
+        firsts = [shards[0] for shards in self._positions()]
+        for name, full in self._full_buffers.items():
+            if not mean:
+                full.copy_(self._buffers[firsts[0]][name])
+                continue
+            total = None
+            for i in firsts:
+                value = self._buffers[i][name].to(full.device)
+                total = value if total is None else total + value
+            full.copy_(total / len(firsts))
+
+    def step(self, loss_fn, features, labels, real_n, unweighted=False,
+             after_backward=None):
         """Every shard's forward and backward, the gradients gathered into
         the full model. Returns the loss (0-d, on the full model's
-        device)."""
+        device). `unweighted`: each shard's backward runs on its own mean
+        loss (the quantized step reduces the gradients by a mean over the
+        data axis); `after_backward(i, leaves, groups)` then runs in shard
+        i's thread, and the gradients are taken from the first data
+        position."""
         pieces = self.split(features, labels, real_n)
 
         def shard_step(i):
@@ -276,11 +337,14 @@ class ProcessShards:
                 loss = loss_fn(_rows(labs, real), _rows(outputs, real))
             else:
                 loss = loss_fn(labs, outputs)
-            (loss * weight).backward()
+            (loss if unweighted else loss * weight).backward()
+            if after_backward is not None:
+                after_backward(i, list(self._leaves[i].values()),
+                               self.groups[i])
             return (loss * weight).detach()
 
         losses = self._run(shard_step)
-        self.gather_grads()
+        self.gather_grads(first_only=unweighted)
         device = next(iter(self._full_leaves.values())).param.device
         total = None
         for i, loss in enumerate(losses):

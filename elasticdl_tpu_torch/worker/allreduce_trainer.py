@@ -45,16 +45,28 @@ the full state stays the trainer's, the shards compute the step's
 gradients, and the process's gradients cross processes as before. A
 world of one shard per process steps as above, unchanged.
 
-ZeRO-1, quantized gradients and the pipeline raise NotImplementedError
-(later slices, ROADMAP Queue 1 item 4), as does a model with BatchNorm
-buffers in a multi-process world or across shards: the JAX step takes
-BatchNorm's statistics over the global batch, and per-rank statistics
-would be another result. In a one-process, one-shard world BatchNorm
-trains, and its statistics travel with the variables.
+The data axis (parallel/zero1.py, parallel/quantized.py): with zero1 the
+optimizer state is row-sharded over the shards of a process in a pure-DP
+world (over its data positions in a one-process world, over the zero axis
+the resolver lays out across processes), each shard updating its rows and
+writing them back into the full parameters; with one shard per process it
+does not shard, and under TP or while the seq axis is active it is ignored
+or suspended, as in JAX. With quantized_grads the data axis' mean of the
+gradients is int8 on the wire: among the shards of a one-process world
+(the all_to_all form, or psum_lanes per model shard under TP), across the
+processes of a multi-process world after an exact f32 sum of the process's
+own data positions (the zero leg); the loss is then taken over the whole
+padded batch. BatchNorm takes its statistics over the global batch in the
+plain step (a differentiable all-reduce over every data position of the
+world, layers/conv.py), and each data shard's own in the quantized step,
+whose new running statistics are then averaged, as the JAX step does. The
+pipeline raises NotImplementedError (a later slice, ROADMAP Queue 1 item
+4).
 """
 
 import collections
 import contextlib
+import functools
 import hashlib
 import threading
 import time
@@ -66,10 +78,12 @@ from elasticdl_tpu_torch.common import knobs
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.params import (
     STATE_COLLECTION,
+    flax_leaves,
     params_to_flax,
     state_to_flax,
 )
 from elasticdl_tpu_torch.common.rpc import RpcError, StatusCode
+from elasticdl_tpu_torch.layers.conv import bind_batch_stats
 from elasticdl_tpu_torch.observability import emit_event
 from elasticdl_tpu_torch.observability.metrics import default_registry
 from elasticdl_tpu_torch.parallel import broadcast
@@ -91,7 +105,9 @@ from elasticdl_tpu_torch.parallel.shards import (
     meta_variables,
     placeholder_group,
 )
+from elasticdl_tpu_torch.parallel.quantized import quantized_pmean
 from elasticdl_tpu_torch.parallel.tensor_parallel import spec_violations
+from elasticdl_tpu_torch.parallel.zero1 import ShardedOptimizer
 from elasticdl_tpu_torch.worker.trainer import TorchTrainer
 
 logger = get_logger("worker.allreduce_trainer")
@@ -113,11 +129,6 @@ GATE_POLL_SECONDS = 0.25
 RETRYABLE_ERRORS = (RpcError, RuntimeError)
 
 UNPORTED = {
-    "zero1": "the data-axis slice (ZeRO-1, quantized reduce, sharded "
-             "embedding, cross-rank BatchNorm), ROADMAP Queue 1 item 4",
-    "quantized_grads": "the data-axis slice (ZeRO-1, quantized reduce, "
-                       "sharded embedding, cross-rank BatchNorm), ROADMAP "
-                       "Queue 1 item 4",
     "pipeline_stages": "the pipeline slice (pipeline.py, "
                        "pipeline_interleaved.py, pipeline_schedule.py), "
                        "ROADMAP Queue 1 item 4",
@@ -160,14 +171,11 @@ class AllReduceTrainer(TorchTrainer):
         context_parallel_model_fn=None,
         device=None,
     ):
-        for flag, value, default in (
-                ("zero1", zero1, False),
-                ("quantized_grads", quantized_grads, False),
-                ("pipeline_stages", pipeline_stages, 1)):
-            if (value or default) != default:
-                raise NotImplementedError(
-                    f"AllReduceTrainer {flag}={value} is not ported to "
-                    f"elasticdl_tpu_torch yet: {UNPORTED[flag]}")
+        if (pipeline_stages or 1) != 1:
+            raise NotImplementedError(
+                f"AllReduceTrainer pipeline_stages={pipeline_stages} is not "
+                f"ported to elasticdl_tpu_torch yet: "
+                f"{UNPORTED['pipeline_stages']}")
         super().__init__(model, loss_fn, optimizer_spec, seed=seed,
                          device=device)
         self._model_parallel_size = max(1, int(model_parallel_size or 1))
@@ -183,6 +191,24 @@ class AllReduceTrainer(TorchTrainer):
                 "has no context_parallel_model hook; running without "
                 "sequence parallelism", self._context_parallel_size)
             self._context_parallel_size = 1
+        # zero1 and quantized_grads are suspended while the seq axis is
+        # active and apply again in worlds that cannot host it; zero1 is
+        # ignored under TP (the JAX trainer's rules and warnings).
+        self._zero1 = bool(zero1)
+        self._quantized_grads = bool(quantized_grads)
+        if self._context_parallel_size > 1:
+            for flag, on in (("zero1", zero1),
+                             ("quantized_grads", quantized_grads)):
+                if on:
+                    logger.warning(
+                        "%s is suspended while the seq axis is active; it "
+                        "applies again in worlds that cannot host sequence "
+                        "parallelism", flag)
+        if zero1 and self._model_parallel_size > 1:
+            logger.warning(
+                "zero1 is ignored when tensor parallelism is active (the "
+                "optimizer layout follows the param layout); per-chip "
+                "optimizer memory will NOT drop")
         # Shards per process (parallel/mesh.py); tests pin it.
         self._local_devices = local_device_count()
         # The resolved world and, where it lays out more than one shard
@@ -190,7 +216,8 @@ class AllReduceTrainer(TorchTrainer):
         # model and seq groups.
         self._spec = None
         self._shards = None
-        self.axis_stats = {MODEL_AXIS: CommStats(), SEQ_AXIS: CommStats()}
+        self.axis_stats = {MODEL_AXIS: CommStats(), SEQ_AXIS: CommStats(),
+                           DATA_AXIS: CommStats()}
         # Each local shard's kernel launches, over every world it ran in.
         self.shard_launches = []
         self._seed = seed
@@ -260,9 +287,25 @@ class AllReduceTrainer(TorchTrainer):
 
     def restore_variables(self, exported):
         # The broadcast server reads the state from its threads; a restore
-        # swaps all of it, under the same lock.
+        # swaps all of it, under the same lock, and reshards the optimizer
+        # for the current world.
         with self._state_lock:
             super().restore_variables(exported)
+            self._place_optimizer()
+
+    def optimizer_state_bytes(self):
+        """{"shards": [bytes of each shard's optimizer state], "replicated":
+        bytes of the state every shard would share}: under ZeRO-1 the
+        shards' slices and the replicated leaves' state, else no shard and
+        the whole state."""
+        if isinstance(self._optimizer, ShardedOptimizer):
+            return self._optimizer.state_bytes()
+        if self._optimizer is None:
+            return {"shards": [], "replicated": 0}
+        return {"shards": [], "replicated": sum(
+            v.numel() * v.element_size()
+            for st in self._optimizer.state.values() for v in st.values()
+            if torch.is_tensor(v) and v.dim())}
 
     def _host_state(self):
         """(variables, opt_state, version) as host copies, in the form
@@ -351,12 +394,6 @@ class AllReduceTrainer(TorchTrainer):
         if not force and self._try_fast_regroup(resp):
             return
         if self._multi_host:
-            if resp.world_size > 1 and any(
-                    True for _ in self._model.buffers()):
-                raise NotImplementedError(
-                    "a model with BatchNorm buffers in a multi-process "
-                    "AllReduce world is not ported yet (cross-rank "
-                    "BatchNorm statistics, ROADMAP Queue 1 item 4)")
             coordinator_ip = resp.coordinator_addr.rsplit(":", 1)[0]
             self._world.ensure_world(
                 f"{coordinator_ip}:{resp.rendezvous_port}",
@@ -383,6 +420,7 @@ class AllReduceTrainer(TorchTrainer):
         return ParallelConfig(
             model_parallel=self._model_parallel_size,
             has_param_specs=self._param_specs_fn is not None,
+            zero1=self._zero1,
             context_parallel=self._context_parallel_size,
             has_context_parallel_model=(
                 self._context_parallel_model_fn is not None),
@@ -428,12 +466,14 @@ class AllReduceTrainer(TorchTrainer):
             self._shards = None
         self._spec = spec
         self._fingerprint = spec.fingerprint()
+        live = self._world.is_live()
+        quantized = self._quantized_active()
+        # BatchNorm's statistics: the global batch's in the plain step, each
+        # data shard's own in the quantized one.
+        cross_bn = not quantized and any(
+            True for _ in self._model.buffers())
+        bind_batch_stats(self._model, None)
         if spec.topology.local_devices > 1:
-            if any(True for _ in self._model.buffers()):
-                raise NotImplementedError(
-                    "a model with BatchNorm buffers across the shards of a "
-                    "process is not ported yet (cross-rank BatchNorm "
-                    "statistics, ROADMAP Queue 1 item 4)")
             self._shards = ProcessShards(
                 self._model, spec, self._world.rank, self._device, epoch,
                 param_specs_fn=self._param_specs_fn,
@@ -441,9 +481,55 @@ class AllReduceTrainer(TorchTrainer):
                 context_parallel_impl=self._context_parallel_impl,
                 axis_stats=self.axis_stats, launches=self._launches(
                     spec.topology.local_devices),
-                local_host=self._world._local_host)
+                local_host=self._world._local_host,
+                data_group=cross_bn or (quantized and not live),
+                batch_store=self._world.shard_store if live else None,
+                bind_stats=cross_bn)
+        elif cross_bn and live:
+            bind_batch_stats(self._model, self._world.axis_group())
+        self._place_optimizer()
         logger.info("World spec %s: %d shard(s) per process",
                     self._fingerprint, spec.topology.local_devices)
+
+    def _quantized_active(self):
+        """quantized_grads in this world: suspended while the seq axis is
+        active."""
+        return self._quantized_grads and (self._spec is None
+                                          or self._spec.sp == 1)
+
+    def _zero_shards(self):
+        """The shards ZeRO-1 splits the optimizer state over in this world
+        (0: it does not): every shard of the process in a pure-DP world
+        with more than one."""
+        spec = self._spec
+        if not self._zero1 or spec is None or spec.tp > 1 or spec.sp > 1:
+            return 0
+        if spec.topology.local_devices <= 1:
+            if spec.topology.n_processes > 1:
+                logger.warning(
+                    "zero1 has no effect in this world: each process holds "
+                    "one device, so there is no intra-process axis to shard "
+                    "optimizer state over")
+            return 0
+        return spec.topology.local_devices
+
+    def _place_optimizer(self):
+        """The optimizer in this world's layout: row-sharded over the
+        shards (ZeRO-1), else over the full parameters; a change of layout
+        gathers the full state first and reshards it after."""
+        if self._optimizer is None:
+            return
+        n = self._zero_shards()
+        current = self._optimizer
+        if isinstance(current, ShardedOptimizer):
+            if n == current.n:
+                return
+            current = current.to_full(list(self._model.parameters()))
+        if n > 1:
+            current = ShardedOptimizer.from_full(
+                current, self._optimizer_spec, flax_leaves(self._model), n,
+                self._shards.devices)
+        self._optimizer = current
 
     def _launches(self, n):
         while len(self.shard_launches) < n:
@@ -643,6 +729,7 @@ class AllReduceTrainer(TorchTrainer):
         if self._shards is not None:
             return self._run_sharded_step(features, labels)
         world = self._world
+        quantized = self._quantized_active()
         # One rank of a one-process world pads nothing, and its step is
         # the LocalTrainer step.
         features, _ = pad_batch_to_multiple(features, world.size)
@@ -654,12 +741,18 @@ class AllReduceTrainer(TorchTrainer):
             self._optimizer.zero_grad(set_to_none=True)
             loss.backward()
         loss = loss.detach()
-        if world.is_live():
-            params = list(self._model.parameters())
-            for p in params:
+        if world.is_live() or quantized:
+            for p in self._model.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in params]
+        if quantized:
+            # A world of one still rounds, as the JAX step does.
+            _quantized_mean(flax_leaves(self._model), world.axis_group(),
+                            "all_to_all")
+            loss = self._world_mean_loss(loss)
+            self._mean_buffers_over_world()
+        elif world.is_live():
+            grads = [p.grad for p in self._model.parameters()]
             total = loss.reshape(1).clone()
             world.all_reduce_sum_(grads + [total])
             torch._foreach_div_(grads, world.size)
@@ -671,20 +764,39 @@ class AllReduceTrainer(TorchTrainer):
 
     def _run_sharded_step(self, features, labels):
         """One step across this process's shards (parallel/shards.py): the
-        batch padded to a multiple of the world's data axis, as the JAX
+        batch padded to a multiple of the world's data positions, as the JAX
         step pads the global batch, and the loss over the real rows in a
-        one-process world, over the padded batch across processes."""
+        one-process world, over the padded batch across processes and in
+        the quantized step."""
         world, shards = self._world, self._shards
-        multiple = (shards.layout.size(DATA_AXIS) if world.is_live()
+        live = world.is_live()
+        quantized = self._quantized_active()
+        form = "psum_lanes" if shards.mp > 1 else "all_to_all"
+        multiple = (shards.layout.data_size if live
                     else shards.layout.data_local)
         features, real_n = pad_batch_to_multiple(features, multiple)
         labels, _ = pad_batch_to_multiple(labels, multiple)
-        if world.is_live():
+        if live or quantized:
             real_n = np.shape(first_leaf(labels))[0]
+        # The quantized data leg inside the process: each shard's gradients
+        # of its own mean loss, reduced among the shards in their threads.
+        in_process_q = quantized and not live
         self._optimizer.zero_grad(set_to_none=True)
         with self._step_rng():
-            loss = shards.step(self._loss_fn, features, labels, real_n)
-        if world.is_live():
+            loss = shards.step(
+                self._loss_fn, features, labels, real_n,
+                unweighted=in_process_q,
+                after_backward=(functools.partial(_quantize_shard, form=form)
+                                if in_process_q else None))
+        shards.gather_buffers(mean=quantized)
+        if live and quantized:
+            # The process's data positions summed exactly (the zero leg),
+            # then the data axis across processes in int8.
+            _quantized_mean(flax_leaves(self._model), world.axis_group(),
+                            form)
+            loss = self._world_mean_loss(loss)
+            self._mean_buffers_over_world()
+        elif live:
             grads = [p.grad for p in self._model.parameters()]
             total = loss.reshape(1).clone()
             world.all_reduce_sum_(grads + [total])
@@ -695,9 +807,45 @@ class AllReduceTrainer(TorchTrainer):
             self._version += 1
         return loss
 
+    def _world_mean_loss(self, loss):
+        """The loss averaged over the world's processes (exact f32)."""
+        if not self._world.is_live():
+            return loss
+        total = loss.reshape(1).clone()
+        self._world.all_reduce_sum_([total])
+        return total[0] / self._world.size
+
+    def _mean_buffers_over_world(self):
+        """The quantized step's BatchNorm running statistics: each process's
+        averaged over the world (the JAX step's pmean of the new state)."""
+        buffers = list(self._model.buffers())
+        if buffers and self._world.is_live():
+            self._world.all_reduce_sum_(buffers)
+            torch._foreach_div_(buffers, self._world.size)
+
     def close(self):
         if self._shards is not None:
             self._shards.close()
             self._shards = None
         self._broadcast_server.stop()
         self._world.leave_world()
+
+
+def _quantized_mean(leaves, group, form):
+    """The gradients of `leaves` (FlaxLeafs, every gradient set) replaced
+    by their int8-wire mean over `group`, flattened in the JAX tree's order
+    and layout (parallel/quantized.py)."""
+    grads = [x.to_flax(x.param.grad) for x in leaves]
+    reduced = quantized_pmean(grads, group, form)
+    with torch.no_grad():
+        for grad, value in zip(grads, reduced):
+            grad.copy_(value)
+
+
+def _quantize_shard(i, leaves, groups, form):
+    """In shard i's thread after its backward: its gradients' mean over
+    its data-axis group."""
+    for x in leaves:
+        if x.param.grad is None:
+            x.param.grad = torch.zeros_like(x.param)
+    _quantized_mean(leaves, groups[DATA_AXIS], form)

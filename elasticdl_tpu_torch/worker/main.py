@@ -8,7 +8,9 @@ process: observability as role worker-<id>, a MasterClient on
 reporter, then the run, the close and an exit line with the process's
 steps, kernel launches and pushes (under AllReduce also its model version,
 the sha256 digest of its weights, equal on every rank of a world, and its
-lease steps that raised, whose kernels ran). It
+lease steps that raised, whose kernels ran), and the split of its start:
+seconds from the process's exec to its imports done, its CUDA context,
+the master's first answer and its model built. It
 trains on the device
 ELASTICDL_TORCH_DEVICE names (unset: the CUDA device, and a host without
 one ends the process with the device rule's error). A worker in the
@@ -22,12 +24,17 @@ Arguments that ask for what is not ported raise NotImplementedError.
 """
 
 import json
+import os
 import sys
+import time
+
+import torch
 
 from elasticdl_tpu_torch import observability
 from elasticdl_tpu_torch.common import knobs
 from elasticdl_tpu_torch.common.args import validate_args, worker_parser
 from elasticdl_tpu_torch.common.constants import DistributionStrategy, JobType
+from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import get_model_spec
 from elasticdl_tpu_torch.common.save_utils import ExportModelCallback
@@ -160,15 +167,35 @@ def build_worker(args, master_client, ps_stubs=None, device=None):
     )
 
 
+def _exec_time():
+    """time.time() at this process's exec: its start time in /proc (Linux;
+    clock ticks since boot) against the boot clock, else now."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        age = (time.clock_gettime(time.CLOCK_BOOTTIME)
+               - ticks / os.sysconf("SC_CLK_TCK"))
+        return time.time() - age
+    except (OSError, ValueError, IndexError, AttributeError):
+        return time.time()
+
+
 def main(argv=None):
+    imported = time.time()
     args = worker_parser().parse_args(argv)
     validate_args(args)
     role = f"worker-{args.worker_id}"
     obs = observability.setup(role=role, job=args.job_name)
+    device = knobs.get_str("ELASTICDL_TORCH_DEVICE") or None
+    resolved = resolve_device(device)
+    if resolved.type == "cuda":
+        # The CUDA context now, so that the start split tells it apart
+        # from the model's build.
+        torch.zeros((), device=resolved).item()
+    cuda_ready = time.time()
     mc = MasterClient(args.master_addr, args.worker_id,
                       worker_host=args.worker_host)
     ps = args.ps_addrs.split(",") if args.ps_addrs else None
-    device = knobs.get_str("ELASTICDL_TORCH_DEVICE") or None
     worker = build_worker(args, mc, ps_stubs=ps, device=device)
     # Push-based telemetry every ELASTICDL_TELEMETRY_PUSH_INTERVAL seconds
     # (0 turns it off); while the pushes stay fresh the master's aggregator
@@ -191,8 +218,20 @@ def main(argv=None):
         # kernel launches and its telemetry pushes; an AllReduce worker
         # adds its model version, weights' digest, world spec and each
         # shard's launches.
+        exec_at = _exec_time()
+
+        def since_exec(t):
+            return None if t is None else round(t - exec_at, 3)
+
         record = {"steps": worker.steps, "kernel_launches": dict(fa.launches),
-                  "telemetry": reporter.stats()}
+                  "telemetry": reporter.stats(),
+                  "start": {"exec": round(exec_at, 3),
+                            "imports_s": since_exec(imported),
+                            "cuda_s": since_exec(cuda_ready),
+                            "first_answer_s": since_exec(
+                                mc.first_answer_at),
+                            "model_s": since_exec(getattr(
+                                worker.trainer, "built_at", None))}}
         if isinstance(worker.trainer, AllReduceTrainer):
             trainer = worker.trainer
             record.update(version=trainer.get_model_version(),

@@ -10,6 +10,7 @@ the AllReduce trainer rewrites its port to its broadcast server's.
 """
 
 import threading
+import time
 
 import numpy as np
 
@@ -17,17 +18,40 @@ from elasticdl_tpu_torch.common import rpc, tensor_utils
 from elasticdl_tpu_torch.proto import messages as pb
 
 
+class _Answered:
+    """A stub whose calls note the time the master first answered one."""
+
+    def __init__(self, stub, client):
+        self._stub = stub
+        self._client = client
+
+    def __getattr__(self, name):
+        fn = getattr(self._stub, name)
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if self._client.first_answer_at is None:
+                self._client.first_answer_at = time.time()
+            return out
+
+        return call
+
+
 class MasterClient:
     def __init__(self, master, worker_id, worker_host=""):
         self._addr = None
         self._channel = None
         self._reconnect_lock = threading.Lock()
+        # time.time() of the master's first answer (a worker process's
+        # start split, worker/main.py).
+        self.first_answer_at = None
         if isinstance(master, str):
             self._addr = master
             self._channel = rpc.build_channel(master)
-            self._stub = rpc.Stub(self._channel, rpc.MASTER_SERVICE)
+            self._stub = _Answered(
+                rpc.Stub(self._channel, rpc.MASTER_SERVICE), self)
         else:
-            self._stub = master
+            self._stub = _Answered(master, self)
         self._worker_id = worker_id
         self.worker_host = worker_host
 
@@ -45,7 +69,8 @@ class MasterClient:
                 return False
             old = self._channel
             self._channel = rpc.build_channel(self._addr, ready_timeout=0)
-            self._stub = rpc.Stub(self._channel, rpc.MASTER_SERVICE)
+            self._stub = _Answered(
+                rpc.Stub(self._channel, rpc.MASTER_SERVICE), self)
             old.close()
             return True
 

@@ -14,6 +14,7 @@ use_running_average do), and the optimizer state as optax's state leaves
 (ops/optimizers.optax_state_leaves).
 """
 
+import time
 from abc import ABC, abstractmethod
 
 import numpy as np
@@ -28,6 +29,7 @@ from elasticdl_tpu_torch.common.params import (
     state_to_flax,
 )
 from elasticdl_tpu_torch.common.save_utils import restore_trainer_checkpoint
+from elasticdl_tpu_torch.layers.init import materialize
 from elasticdl_tpu_torch.ops.optimizers import (
     load_optax_state_leaves,
     optax_state_leaves,
@@ -80,6 +82,8 @@ class TorchTrainer(Trainer):
         self._generator.manual_seed(seed)
         self._optimizer = None
         self._version = 0
+        # time.time() when the model was built on its device (None before).
+        self.built_at = None
         # Checkpoint path to restore from right after lazy init (worker-side
         # resume for strategies whose state lives in the worker).
         self.restore_on_init = None
@@ -91,7 +95,7 @@ class TorchTrainer(Trainer):
         the seed if it has no storage yet: init_weights sets the buffers too,
         which to_empty leaves uninitialized) and builds the optimizer."""
         if any(p.is_meta for p in self._model.parameters()):
-            self._model.to_empty(device=self._device)
+            materialize(self._model, self._device)
             self._model.init_weights(self._generator)
         else:
             self._model.to(self._device)
@@ -99,6 +103,7 @@ class TorchTrainer(Trainer):
             self._model.parameters()
         )
         n_params = sum(p.numel() for p in self._model.parameters())
+        self.built_at = time.time()
         logger.info("Initialized model with %d parameters", n_params)
 
     def init_variables_if_needed(self, features):

@@ -28,6 +28,7 @@ from elasticdl_tpu.worker.allreduce_trainer import (
 from elasticdl_tpu.worker.master_client import MasterClient as JaxClient
 from elasticdl_tpu_torch.common import args as edl_args
 from elasticdl_tpu_torch.common import rpc
+from elasticdl_tpu_torch.common.params import params_to_flax, state_to_flax
 from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
 from elasticdl_tpu_torch.data.recordfile import RecordFileWriter
 from elasticdl_tpu_torch.master.master import Master
@@ -406,27 +407,54 @@ def test_collective_pull_carries_batchnorm_state():
 
 
 def test_batchnorm_in_a_multi_process_world_raises(monkeypatch):
-    monkeypatch.setenv("ELASTICDL_JOIN_GATE_SECONDS", "0.01")
+    """(The name is from before cross-rank BatchNorm.) The MNIST CNN in a
+    world of two ranks as threads, each on half of a batch of 8: its
+    BatchNorm statistics are the whole batch's, so two steps land within
+    1e-5 of LocalTrainer's on the whole batch (parameters and running
+    statistics), and the ranks stay bitwise equal."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 28, 28)).astype(np.float32)
+    y = rng.integers(0, 10, 8).astype(np.int64)
+    make = lambda: (mnist_model.custom_model(), mnist_model.loss,  # noqa
+                    mnist_model.optimizer())
+    local = LocalTrainer(*make(), device="cpu")
+    local.init_variables_if_needed(x)
+    named, state = params_to_flax(local._model), state_to_flax(local._model)
     control = _Control()
-    t0, mc0 = _port_trainer(control, 0, lambda: (
-        mnist_model.custom_model(), mnist_model.loss,
-        mnist_model.optimizer()), multi_host=True)
-    control.membership.register(1, "10.0.0.1:1")
-    mc0.report_liveness()
+    ranks = []
+    for i in range(2):
+        t, mc = _port_trainer(control, i, make, multi_host=True)
+        t.load_flax_params(named, state)
+        ranks.append(t)
+    for t in ranks:
+        t._mc.report_liveness()
     try:
-        with pytest.raises(NotImplementedError, match="BatchNorm"):
-            t0.init_variables_if_needed(np.zeros((1, 28, 28), np.float32))
+        for _ in range(2):
+            local.train_minibatch(x, y)
+            _in_threads(lambda: ranks[0].train_minibatch(x[:4], y[:4]),
+                        lambda: ranks[1].train_minibatch(x[4:], y[4:]))
+        assert ranks[0].world_fingerprint == "data=2|p2"
+        _assert_state_equal(_state(ranks[0]), _state(ranks[1]))
+        for ours, theirs in ((params_to_flax(ranks[0]._model),
+                              params_to_flax(local._model)),
+                             (state_to_flax(ranks[0]._model),
+                              state_to_flax(local._model))):
+            for k, v in theirs.items():
+                np.testing.assert_allclose(ours[k], v, rtol=1e-5,
+                                           atol=1e-5 * np.abs(v).max(),
+                                           err_msg=k)
     finally:
-        t0.close()
+        for t in ranks:
+            t.close()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(zero1=True), dict(quantized_grads=True), dict(pipeline_stages=2)],
-    ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [dict(pipeline_stages=2)],
+                         ids=lambda kw: next(iter(kw)))
 def test_unported_parallelism_raises(kw):
-    """ZeRO-1, quantized gradients and the pipeline are later slices; the
-    model and seq axes are tests/test_torch_model_axes.py's."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    """The pipeline is a later slice; the model and seq axes are
+    tests/test_torch_model_axes.py's, the data axis
+    tests/test_torch_data_axis.py's."""
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
         AllReduceTrainer(_Linear(), _linear_loss, toptim.sgd(0.1),
                          _Control().client(0), device="cpu", **kw)
 

@@ -6,8 +6,8 @@ writer import them only where they are used), and loads nothing of the
 JAX package; the control-plane modules among them (the journal, the policy
 engine, the telemetry plane, the chaos seams, the socket transport, the
 process entry points, the instance managers, the `edl` client, the
-elastic AllReduce modules and the model and seq axes) import without
-grpc."""
+elastic AllReduce modules, the model and seq axes and the data axis)
+import without grpc."""
 
 import os
 import pkgutil
@@ -77,7 +77,8 @@ def test_port_imports_with_jax_blocked():
                  "parallel.distributed", "parallel.broadcast",
                  "worker.allreduce_trainer", "parallel.collectives",
                  "parallel.tensor_parallel", "parallel.ring_attention",
-                 "parallel.ulysses", "parallel.shards"):
+                 "parallel.ulysses", "parallel.shards", "parallel.zero1",
+                 "parallel.quantized", "parallel.sharded_embedding"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],
@@ -86,6 +87,40 @@ def test_port_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["ok", str(len(modules) + 1)]
+
+
+_NO_DYNAMO = """
+import importlib.abc, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name == "torch._dynamo":
+            raise ImportError("torch._dynamo imported")
+sys.meta_path.insert(0, Refuse())
+from elasticdl_tpu_torch.data.gen.synthetic import synthetic_lm_tokens
+from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
+from elasticdl_tpu_torch.ops import optimizers
+from elasticdl_tpu_torch.worker.trainer import LocalTrainer
+cfg = tlm.LMConfig(vocab=64, d_model=32, n_heads=2, n_layers=1, max_len=16)
+tokens = synthetic_lm_tokens(4, 16, vocab=64, branching=4, seed=0)
+for spec in (optimizers.adam(), optimizers.momentum(), optimizers.sgd(),
+             optimizers.adagrad(), optimizers.adam(amsgrad=True)):
+    trainer = LocalTrainer(tlm.custom_model(cfg), tlm.loss, spec,
+                           device="cpu")
+    trainer.train_minibatch(tokens[:, :-1], tokens[:, 1:])
+print("ok")
+"""
+
+
+def test_a_training_step_imports_no_dynamo():
+    """Building the LM on the meta device, materializing it and a step of
+    every optimizer import no torch._dynamo: the import held a worker
+    process's start 8.8 s on an H100 host (PERF.md), for a compiler the
+    port never runs."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_DYNAMO], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
 
 
 def test_no_jax_package_import_strings():

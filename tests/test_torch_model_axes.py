@@ -3,12 +3,11 @@ parallel/shards.py): a TP2 world of one process through the master's lease
 loop; a regroup TP2 x 2 processes -> TP2 x 1 -> pure DP that carries the
 state bitwise; the gradients of model-replicated parameters equal across
 the model group; the loss as the mean over the batch's real tokens; and
-BatchNorm across shards raising. Processes and shards are threads of this
-process (ELASTICDL_LOCAL_DEVICES's role is played by the trainer's
-_local_devices)."""
+BatchNorm across shards taking the whole batch's statistics. Processes and
+shards are threads of this process (ELASTICDL_LOCAL_DEVICES's role is
+played by the trainer's _local_devices)."""
 
 import numpy as np
-import pytest
 import torch
 
 from elasticdl_tpu_torch.common import args as edl_args
@@ -197,17 +196,39 @@ def test_loss_is_the_mean_over_the_real_tokens():
 
 
 def test_batchnorm_across_shards_raises():
+    """(The name is from before cross-rank BatchNorm.) The MNIST CNN over
+    two data shards of one process: the statistics are the whole batch's,
+    so a step equals LocalTrainer's on the whole batch within 1e-5
+    (parameters and running statistics)."""
     control = _Control()
+    from elasticdl_tpu_torch.common.params import state_to_flax
     from elasticdl_tpu_torch.worker.allreduce_trainer import (
         AllReduceTrainer,
     )
 
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4, 28, 28)).astype(np.float32)
+    y = rng.integers(0, 10, 4).astype(np.int64)
+    local = LocalTrainer(mnist_model.custom_model(), mnist_model.loss,
+                         mnist_model.optimizer(), device="cpu")
+    local.init_variables_if_needed(x)
+    named, state = params_to_flax(local._model), state_to_flax(local._model)
     t = AllReduceTrainer(mnist_model.custom_model(), mnist_model.loss,
                          mnist_model.optimizer(), control.client(0),
                          device="cpu")
     t._local_devices = 2
     try:
-        with pytest.raises(NotImplementedError, match="BatchNorm"):
-            t.init_variables_if_needed(np.zeros((2, 28, 28), np.float32))
+        t.load_flax_params(named, state)
+        local.train_minibatch(x, y)
+        t.train_minibatch(x, y)
+        assert t.world_fingerprint == "data=2"
+        for ours, theirs in ((params_to_flax(t._model),
+                              params_to_flax(local._model)),
+                             (state_to_flax(t._model),
+                              state_to_flax(local._model))):
+            for k, v in theirs.items():
+                np.testing.assert_allclose(ours[k], v, rtol=1e-5,
+                                           atol=1e-5 * np.abs(v).max(),
+                                           err_msg=k)
     finally:
         t.close()

@@ -167,6 +167,36 @@ def test_optimizer_steps_match_optax(name, kwargs):
 
 
 @pytest.mark.parametrize(
+    "name,kwargs,reference",
+    [
+        ("sgd", {}, lambda ps: torch.optim.SGD(ps, lr=0.1)),
+        ("momentum", {}, lambda ps: torch.optim.SGD(ps, lr=0.1,
+                                                    momentum=0.9)),
+        ("momentum", {"nesterov": True}, lambda ps: torch.optim.SGD(
+            ps, lr=0.1, momentum=0.9, nesterov=True)),
+        ("adam", {}, lambda ps: torch.optim.Adam(ps, lr=0.001)),
+    ],
+)
+def test_sgd_and_adam_keep_torch_optims_arithmetic(name, kwargs, reference):
+    """The port's own SGD and Adam (ops/optimizers.py, which import no
+    torch._dynamo) step bit for bit as torch.optim's, over several tensors
+    and steps, one parameter without a gradient."""
+    gen = torch.Generator().manual_seed(0)
+    ours = [torch.nn.Parameter(torch.randn(5, 3, generator=gen))
+            for _ in range(3)]
+    theirs = [torch.nn.Parameter(p.detach().clone()) for p in ours]
+    opt = toptim.OptimizerSpec(name, **kwargs).to_torch(ours)
+    ref = reference(theirs)
+    for _ in range(4):
+        for a, b in zip(ours[:2], theirs[:2]):
+            g = torch.randn(5, 3, generator=gen)
+            a.grad, b.grad = g.clone(), g.clone()
+        opt.step()
+        ref.step()
+    assert all(torch.equal(a, b) for a, b in zip(ours, theirs))
+
+
+@pytest.mark.parametrize(
     "name,kwargs",
     [
         ("sgd", {}),
