@@ -59,7 +59,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    and their top-2 margins are printed and the phase fails; then logits,
    loss with its aux term and every gradient within 1e-4 of the largest.
    Then the flagship-width model on LocalTrainer (batch 4 x S 4096,
-   Markov tokens, Adam): 2 warm-up and 5 timed steps (ms per step,
+   Markov tokens, Adam): 2 warm-up and 3 timed steps (ms per step,
    tokens/s, peak memory), one evaluation, exact launch counts of all four
    kernels, one profiled step by kernel group with the MoE routing
    (router, cumsum, gather and scatter, forward and backward) and the
@@ -74,7 +74,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    id batches uniform over the id space. First one batch at the same
    weights on the card and on the CPU: loss, dense gradients and row
    gradients within 1e-5 of the largest value. Then five runs of 4 warm-up
-   and 8 timed steps, one after the other: float32 and int8 wires inline,
+   and 4 timed steps, one after the other: float32 and int8 wires inline,
    then float32 wire pipelined (push thread, lookahead pulls, row cache),
    bfloat16 wire pipelined, int8 wire pipelined (int8: dense gradients in
    int8 blocks with error feedback, bfloat16 rows); each prints
@@ -123,7 +123,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    busy share over one profiled step, and the process's peak RSS.
 13. zoo: the image and tabular zoo. ResNet-50 (batch 128) and MobileNetV2
    (batch 256) at 224x224, bf16 convs and f32 BatchNorm, on LocalTrainer:
-   3 warm-up and 10 timed steps each (ms per step, img/s, peak memory, the
+   2 warm-up and 5 timed steps each (ms per step, img/s, peak memory, the
    step's model FLOPs over the bf16 data-sheet peak, losses falling), one
    profiled step by kernel group. ResNet-50 as a job through the master
    on 1024 training and 256 validation records of f32 images (tasks of
@@ -134,7 +134,7 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    BatchNorm statistics on the worker: the first batch (cudnn
    deterministic) against a direct LocalTrainer step at the same weights
    (loss 1e-5, dense gradients 1e-4 of the largest, batch_stats 1e-5),
-   then 2 warm-up and 4 timed steps (ms per step, phase split, bytes
+   then 2 warm-up and 2 timed steps (ms per step, phase split, bytes
    pushed, one profiled step's busy share), every push accepted, the
    batch_stats moved. Both models in f32 at batch
    2 on the card against the CPU (see _zoo_card_vs_cpu for the bounds).
@@ -227,13 +227,36 @@ Phases, one JSON line each; any failure exits nonzero before the final line:
    and every gathered gradient within 1e-4 of the tensor's largest value,
    each shard's launches exact (blocks visible per shard x layers). Then
    the bfloat16 flagship (12 layers) timed under LocalTrainer, TP2 and
-   SP2 zigzag, 3 steps each: ms per step, the gloo legs' seconds and bytes
+   SP2 zigzag, one step each: ms per step, the gloo legs' seconds and bytes
    per axis, peak memory, the losses beside LocalTrainer's (reported, not
    bounded), exact launches. Then a --multi_host --model_parallel_size 2
    job through master.main, two worker processes of two model shards each
    on the card (32 records in tasks of 16, the flagship at 4 layers):
    records_done, each process's launches (2 shards x layers per step),
    equal version and digest, no process left.
+19. data_axis: ZeRO-1, the quantized world of two ranks, DeepFM with its
+   tables row-sharded, ResNet-50's BatchNorm over two shards, and a
+   two-process --zero1 --quantized_grads job (see phase_data_axis).
+20. pipeline: the stage axis of AllReduceTrainer (parallel/pipeline.py),
+   two stage shards as threads of this process sharing the card, their
+   hops on gloo. float32 checks at the flagship's widths and 4 layers,
+   batch 4 x S 4096, one step each of GPipe (2 microbatches), 1F1B (2)
+   and interleaved 1F1B (2 virtual stages, 4 microbatches) against
+   LocalTrainer on the same weights moved into the staged tree through
+   common/params.py: loss within 1e-5, every gradient within 1e-4 of its
+   largest value, each stage's launches exact. The bfloat16 flagship (12
+   layers) timed under LocalTrainer and each schedule at 4 microbatches,
+   3 steps each: ms per step, the stage axis' gloo legs and bytes per
+   step, peak memory, the losses beside LocalTrainer's, exact launches.
+   The named remat policies on LocalTrainer (bfloat16, 12 layers), one
+   forward and backward each on the same weights: every gradient bitwise
+   or within 1e-6 of its largest value against remat off, peak memory and
+   launches. Then a --multi_host --pipeline_stages 2 --pipeline_schedule
+   1f1b job through master.main, two worker processes of two stage shards
+   each (32 records in tasks of 16, the flagship at 4 layers): records,
+   the world spec data=2,stage=2|pg|p2, "Initialized pipelined model" in
+   each worker, each process's launches, equal version and digest, no
+   process left.
 The phases that repeat the flagship beyond the main path (proc_lm, client,
 k8s, allreduce, lm_ps) run it at its full width and PROC_LAYERS (4)
 layers.
@@ -243,11 +266,13 @@ client's and the k8s pods' kernels run in their worker processes: each
 logs its counts at its exit, and the kernels line carries them as
 proc_lm_launches, client_launches and k8s_launches; allreduce_launches has
 the allreduce phase's in-process part and its rank processes;
-model_axes_launches each shard's of the model_axes runs and each process's
-of its job. Then each phase's seconds, the {"kernels": [...]} line, and
-last {"ok": true, "device": {...}}.
+model_axes_launches, data_axis_launches and pipeline_launches each
+shard's of those phases' runs and each process's of their jobs. Then each
+phase's seconds, the {"kernels": [...]} line, and last {"ok": true,
+"device": {...}}.
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -282,8 +307,10 @@ from elasticdl_tpu_torch.common.model_utils import Modes
 from elasticdl_tpu_torch.common.params import (
     flax_leaves,
     load_flax,
+    monolithic_to_staged,
     params_from_flax,
     params_to_flax,
+    staged_to_monolithic,
     state_to_flax,
 )
 from elasticdl_tpu_torch.common.save_utils import save_trainer_checkpoint
@@ -406,6 +433,12 @@ from elasticdl_tpu_torch.models.transformer.transformer_lm import (  # noqa
 def custom_model():
     return _lm.custom_model(_dc.replace(_lm.flagship_config({seq}),
                                         n_layers={layers}))
+
+
+def pipeline_spec(**kw):
+    return _lm.pipeline_spec(
+        config=_dc.replace(_lm.flagship_config({seq}), n_layers={layers}),
+        **kw)
 """
 # The phases that repeat the flagship beyond the main path (proc_lm,
 # client, k8s, allreduce, lm_ps) run it at full width and this depth: what
@@ -422,14 +455,14 @@ def proc_config():
 
 # The Switch-MoE LM at the flagship's widths with 4 experts in every second
 # block (moe_lm.flagship_config: 373,481,496 parameters, capacity 5120 per
-# expert at batch 4 x S 4096), Adam 3e-4 on Markov tokens: 2 warm-up and 5
+# expert at batch 4 x S 4096), Adam 3e-4 on Markov tokens: 2 warm-up and 3
 # timed steps on LocalTrainer, one evaluation, one profiled step. Then a
 # job through the master: 32 training and 4 validation records, tasks of
 # 16, minibatches of 4 (8 steps), evaluation at version 8, the loss logged
 # every 2 steps; then a checkpoint round trip.
 MOE_PARAMS = 373_481_496
 MOE_WARMUP = 2
-MOE_STEPS = 5
+MOE_STEPS = 3
 MOE_JOB_TRAIN = 32
 MOE_JOB_VALID = 4
 MOE_JOB_TASK = 16
@@ -468,7 +501,7 @@ PS_SPEC = "elasticdl_tpu_torch.models.dac_ctr.deepfm_ps"
 PS_BATCH = 16384
 PS_SHARDS = 2
 PS_WARMUP = 4
-PS_STEPS = 8
+PS_STEPS = 4
 # f32 and bf16 pipelined run one after the other in one process, so their
 # comparison shares the host's state; int8 follows them.
 PS_RUNS = (("f32_inline", "float32", False),
@@ -523,13 +556,13 @@ LM_PS_GRAD_RTOL = 1e-4
 
 # The image zoo at full width: ResNet-50 (batch 128, as the JAX package's
 # throughput workload) and MobileNetV2 (batch 256), 224x224, bf16 convs;
-# 3 warm-up and 10 timed steps on 2 distinct batches of synthetic images
+# 2 warm-up and 5 timed steps on 2 distinct batches of synthetic images
 # (ZOO_CLASSES templates plus noise, labels under the 1000-way head).
 PEAK_BF16_FLOPS = 989e12
 ZOO_IMAGE = 224
 ZOO_CLASSES = 10
-ZOO_WARMUP = 3
-ZOO_STEPS = 10
+ZOO_WARMUP = 2
+ZOO_STEPS = 5
 ZOO_DIRECT = (("resnet50", resnet50, 128), ("mobilenetv2", mobilenetv2, 256))
 # ResNet-50 through the master: 1024 training and 256 validation records
 # of float32 images, tasks of 256, minibatches of 128, evaluation every 4
@@ -540,14 +573,14 @@ ZOO_JOB_TASK = 256
 ZOO_JOB_BATCH = 128
 ZOO_JOB_EVAL_STEPS = 4
 # ResNet-50 on ParameterServerTrainer: 2 in-process shards, the f32 wire,
-# batch 128, 2 warm-up and 4 timed steps; its first batch against a direct
+# batch 128, 2 warm-up and 2 timed steps; its first batch against a direct
 # LocalTrainer step at the same weights (loss relative, dense gradients as
 # a share of the push's largest, batch_stats as a share of each tensor's
 # largest).
 ZOO_PS_BATCH = 128
 ZOO_PS_SHARDS = 2
 ZOO_PS_WARMUP = 2
-ZOO_PS_STEPS = 4
+ZOO_PS_STEPS = 2
 ZOO_PS_LOSS_RTOL = 1e-5
 ZOO_PS_GRAD_RTOL = 1e-4
 ZOO_PS_STATS_RTOL = 1e-5
@@ -4851,7 +4884,7 @@ MA_CHECKS = (
 # The timed runs: the bfloat16 flagship (full depth), MA_STEPS steps each.
 MA_TIMED = (("tp2", dict(model_parallel_size=2), 2),
             ("sp2_zigzag", dict(context_parallel_size=2), 2))
-MA_STEPS = 3
+MA_STEPS = 1
 # One job through the entry points: two worker processes of two model
 # shards each sharing the card, the bfloat16 flagship at PROC_LAYERS.
 MA_JOB_RECORDS = 32
@@ -5017,6 +5050,27 @@ def _ma_moe_check(x, y):
     return result
 
 
+def _timed_steps(trainer, batches):
+    """The trainer built, its gloo counters and shard launches cleared,
+    then a step per batch: the losses, ms per step (host clock, each step
+    ending in the loss's copy to the host) and the peak memory."""
+    trainer.init_variables_if_needed(batches[0][0])
+    for stats in getattr(trainer, "axis_stats", {}).values():
+        stats.reset()
+    for counts in getattr(trainer, "shard_launches", []):
+        counts.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for x, y in batches:
+        start = time.perf_counter()
+        _, _, loss = trainer.train_minibatch(x, y)
+        losses.append(loss.item())
+        ms.append(1e3 * (time.perf_counter() - start))
+    return {"losses": losses, "ms_per_step": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def _ma_timed(tokens):
     """The bfloat16 flagship: LocalTrainer, then each MA_TIMED world,
     MA_STEPS steps each on the same batches: ms per step, the gloo legs per
@@ -5026,23 +5080,7 @@ def _ma_timed(tokens):
                 tokens[i * BATCH:(i + 1) * BATCH, 1:])
                for i in range(MA_STEPS)]
 
-    def run(trainer, shards_check=None):
-        trainer.init_variables_if_needed(batches[0][0])
-        for stats in getattr(trainer, "axis_stats", {}).values():
-            stats.reset()
-        for counts in getattr(trainer, "shard_launches", []):
-            counts.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, ms = [], []
-        for x, y in batches:
-            start = time.perf_counter()
-            _, _, loss = trainer.train_minibatch(x, y)
-            losses.append(loss.item())
-            ms.append(1e3 * (time.perf_counter() - start))
-        return {"losses": losses, "ms_per_step": ms,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-
+    run = functools.partial(_timed_steps, batches=batches)
     local = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer(),
                          device=AR_DEVICE)
     out = {"local": run(local)}
@@ -5067,22 +5105,23 @@ def _ma_timed(tokens):
     return out
 
 
-def _ma_job(root):
-    """--multi_host --model_parallel_size 2 through master.main with two
-    worker processes of two model shards each, all on the card."""
+def _allreduce_job(root, name, flags, records, task, workers):
+    """A --multi_host AllReduceStrategy job through master.main with
+    `workers` worker processes of two shards each on the card
+    (ELASTICDL_LOCAL_DEVICES=2), the bfloat16 flagship at PROC_LAYERS,
+    `records` training records in tasks of `task`, and `flags` added."""
     cfg = proc_config()
-    paths, _ = _write_job_inputs(root, cfg, n_train=MA_JOB_RECORDS,
-                                 n_valid=0)
+    paths, _ = _write_job_inputs(root, cfg, n_train=records, n_valid=0)
     obs = os.path.join(root, "metrics")
     argv = ["--model_def", paths["model_def"],
             "--distribution_strategy", "AllreduceStrategy", "--multi_host",
-            "--model_parallel_size", "2",
+            *flags,
             "--training_data", paths["train"],
-            "--records_per_task", str(MA_JOB_TASK), "--num_epochs", "1",
+            "--records_per_task", str(task), "--num_epochs", "1",
             "--minibatch_size", str(BATCH), "--log_loss_steps", "1",
-            "--metrics_dir", obs, "--job_name", "model-axes",
+            "--metrics_dir", obs, "--job_name", name,
             "--seed", "0", "--instance_backend", "local_process",
-            "--num_workers", str(MA_JOB_WORKERS), "--master_port", "0",
+            "--num_workers", str(workers), "--master_port", "0",
             "--coordinator_port", str(_free_port())]
     log = os.path.join(root, "master.log")
     start = time.time()
@@ -5108,7 +5147,19 @@ def _ma_job(root):
             "records_done": trains[-1]["records_done"] if trains else None,
             "losses": [float(g[1]) for _, n, g in marks if n == "step"],
             "ms_per_step": _ms_per_step_by_world(marks),
+            "world_specs": sorted(set(re.findall(
+                r"World spec (\S+):", text))),
+            "pipelined_inits": re.findall(
+                r"Initialized pipelined model with \d+ parameters "
+                r"\((\d+) stage rows, schedule (\S+)\)", text),
             "worker_exits": exits}
+
+
+def _ma_job(root):
+    """--multi_host --model_parallel_size 2 through master.main with two
+    worker processes of two model shards each, all on the card."""
+    return _allreduce_job(root, "model-axes", ["--model_parallel_size", "2"],
+                          MA_JOB_RECORDS, MA_JOB_TASK, MA_JOB_WORKERS)
 
 
 def _job_pids(port):
@@ -5183,7 +5234,7 @@ def phase_model_axes(results):
 # cross-rank BatchNorm): the flagship at full width and PROC_LAYERS layers
 # for the float32 checks, at full depth (bfloat16) for the timed runs.
 DA_CHECK_STEPS = 2
-DA_STEPS = 3
+DA_STEPS = 2
 DA_RTOL = 1e-4
 DA_STATS_RTOL = 1e-5
 DA_WIRE_RATIO = 0.27
@@ -5194,7 +5245,7 @@ DA_CTR_STEPS = 5
 DA_CTR_LOSS_RTOL = 1e-5
 DA_CTR_GRAD_RTOL = 1e-4
 DA_BN_BATCH = 128
-DA_BN_STEPS = 3
+DA_BN_STEPS = 2
 DA_JOB_RECORDS = 32
 DA_JOB_TASK = 16
 DA_JOB_WORKERS = 2
@@ -5604,47 +5655,9 @@ def _da_job(root):
     """--multi_host --zero1 --quantized_grads through master.main with two
     worker processes of two data shards each, all on the card: a world of
     data 2 x zero 2, the bfloat16 flagship at PROC_LAYERS."""
-    cfg = proc_config()
-    paths, _ = _write_job_inputs(root, cfg, n_train=DA_JOB_RECORDS,
-                                 n_valid=0)
-    obs = os.path.join(root, "metrics")
-    argv = ["--model_def", paths["model_def"],
-            "--distribution_strategy", "AllreduceStrategy", "--multi_host",
-            "--zero1", "--quantized_grads",
-            "--training_data", paths["train"],
-            "--records_per_task", str(DA_JOB_TASK), "--num_epochs", "1",
-            "--minibatch_size", str(BATCH), "--log_loss_steps", "1",
-            "--metrics_dir", obs, "--job_name", "data-axis",
-            "--seed", "0", "--instance_backend", "local_process",
-            "--num_workers", str(DA_JOB_WORKERS), "--master_port", "0",
-            "--coordinator_port", str(_free_port())]
-    log = os.path.join(root, "master.log")
-    start = time.time()
-    master = _proc_master(argv, _proc_env(ELASTICDL_LOCAL_DEVICES="2"), log)
-    port = None
-    try:
-        port = _proc_port(log, master)
-        rc = master.wait(timeout=PROC_TIMEOUT)
-        _proc_wait(lambda: not _job_pids(port), "the workers' exit")
-        wall_s = time.time() - start
-    except BaseException:
-        _print_log_tails([log])
-        raise
-    finally:
-        _proc_teardown((master,), port)
-    left = _job_pids(port)
-    text = open(log, errors="replace").read()
-    marks = _log_marks(text)
-    trains = [m for m in _jsonl(os.path.join(obs, "metrics.jsonl"))
-              if m["group"] == "train"]
-    exits = _exit_lines(text, "Worker")
-    return {"master_rc": rc, "wall_s": wall_s, "left": left,
-            "records_done": trains[-1]["records_done"] if trains else None,
-            "losses": [float(g[1]) for _, n, g in marks if n == "step"],
-            "ms_per_step": _ms_per_step_by_world(marks),
-            "world_specs": sorted(set(re.findall(
-                r"World spec (\S+):", text))),
-            "worker_exits": exits}
+    return _allreduce_job(root, "data-axis",
+                          ["--zero1", "--quantized_grads"], DA_JOB_RECORDS,
+                          DA_JOB_TASK, DA_JOB_WORKERS)
 
 
 def _start_splits(exits):
@@ -5716,6 +5729,262 @@ def phase_data_axis(results):
     return out
 
 
+# The stage axis (parallel/pipeline.py): a process's two stage shards as
+# threads sharing the card, the hops on gloo through pinned host buffers.
+# float32 checks at the flagship's widths and PROC_LAYERS layers, one step
+# of each schedule against LocalTrainer on the same weights (the plain
+# tree moved into the staged one through common/params.py); the bfloat16
+# flagship at full depth timed, PP_STEPS steps of each schedule at PP_MICRO
+# microbatches; the named remat policies on LocalTrainer; a two-process
+# 1F1B job.
+PP_STAGES = 2
+PP_RTOL = 1e-4
+PP_LOSS_RTOL = 1e-5
+# (schedule, microbatches, virtual stages) of the float32 checks.
+PP_CHECKS = (("gpipe", 2, 1), ("1f1b", 2, 1), ("interleaved", 4, 2))
+PP_MICRO = 4
+PP_VSTAGES = 2
+PP_STEPS = 3
+PP_REMAT_RTOL = 1e-6
+PP_JOB_RECORDS = 32
+PP_JOB_TASK = 16
+PP_JOB_WORKERS = 2
+PP_JOB_MICRO = 2
+
+
+def _pp_trainer(schedule, micro, vstages, cfg):
+    """An AllReduceTrainer of one process with PP_STAGES stage shards
+    sharing the card, pipelined by the LM's pipeline_spec hook bound to
+    cfg."""
+    with _environ(ELASTICDL_LOCAL_DEVICES=str(PP_STAGES)):
+        return _ArControl().trainer(
+            0, lambda: (tlm.custom_model(cfg), tlm.loss, tlm.optimizer()),
+            pipeline_stages=PP_STAGES, pipeline_schedule=schedule,
+            pipeline_microbatches=micro, pipeline_virtual_stages=vstages,
+            pipeline_spec_fn=functools.partial(tlm.pipeline_spec,
+                                               config=cfg))
+
+
+def _pp_launch_check(trainer, schedule, layers, micro, steps):
+    """Each stage shard's launches against the schedule's count: per step
+    its layers (summed over its chunks) times the microbatches of
+    flash_fwd_lse, flash_dq and flash_dkv, and as many flash_fwd where
+    the forward slots run without autograd (1F1B, interleaved)."""
+    names = ["flash_fwd_lse", "flash_dq", "flash_dkv"]
+    if schedule != "gpipe":
+        names.append("flash_fwd")
+    per = layers // PP_STAGES * micro * steps
+    want = [{n: per for n in names} for _ in range(PP_STAGES)]
+    got = [{k: v for k, v in c.items() if v}
+           for c in trainer.shard_launches]
+    return got, want
+
+
+def _host_grads(model):
+    return {x.name: x.to_flax(x.param.grad).detach().float().cpu().numpy()
+            for x in flax_leaves(model)}
+
+
+def _pp_f32_checks(x, y):
+    cfg = dataclasses.replace(tlm.flagship_config(SEQ),
+                              n_layers=PROC_LAYERS,
+                              activation_dtype="float32")
+    local = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer(),
+                         device=AR_DEVICE)
+    local.init_variables_if_needed(x)
+    named = params_to_flax(local._model)
+    _, _, ref_loss = local.train_minibatch(x, y)
+    ref_loss = ref_loss.item()
+    ref_grads = _host_grads(local._model)
+    del local
+    out = {}
+    for schedule, micro, vstages in PP_CHECKS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = _pp_trainer(schedule, micro, vstages, cfg)
+        try:
+            trainer.load_flax_params(monolithic_to_staged(
+                named, PP_STAGES * vstages))
+            _, _, loss = trainer.train_minibatch(x, y)
+            torch.cuda.synchronize()
+            grads = staged_to_monolithic(_host_grads(trainer._model))
+            errors = {n: float(np.abs(grads[n] - g).max()
+                               / max(float(np.abs(g).max()), 1e-30))
+                      for n, g in ref_grads.items()}
+            loss_err = abs(loss.item() - ref_loss) / abs(ref_loss)
+            got, want = _pp_launch_check(trainer, schedule, cfg.n_layers,
+                                         micro, 1)
+            out[schedule] = {
+                "spec": trainer.world_fingerprint, "microbatches": micro,
+                "loss": loss.item(), "local_loss": ref_loss,
+                "loss_rel_err": loss_err,
+                "max_rel_err": max(errors.values()),
+                "worst": max(errors, key=errors.get),
+                "shard_launches": got}
+        finally:
+            trainer.close()
+        bad = {k: v for k, v in errors.items() if not v <= PP_RTOL}
+        if bad or not loss_err <= PP_LOSS_RTOL or got != want:
+            raise AssertionError(
+                f"pipeline {schedule}: gradients over {PP_RTOL} {bad}, "
+                f"loss error {loss_err}; launches {got}, expected {want}")
+    return out
+
+
+def _pp_timed(tokens):
+    """The bfloat16 flagship: LocalTrainer, then each schedule at PP_MICRO
+    microbatches, PP_STEPS steps each on the same batches: ms per step,
+    the stage axis' gloo legs and bytes per step, peak memory, the losses
+    beside LocalTrainer's (reported, not bounded), exact launches."""
+    cfg = tlm.flagship_config(SEQ)
+    batches = [(tokens[i * BATCH:(i + 1) * BATCH, :-1],
+                tokens[i * BATCH:(i + 1) * BATCH, 1:])
+               for i in range(PP_STEPS)]
+    local = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer(),
+                         device=AR_DEVICE)
+    out = {"local": _timed_steps(local, batches)}
+    del local
+    for schedule in ("gpipe", "1f1b", "interleaved"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = _pp_trainer(schedule, PP_MICRO, PP_VSTAGES, cfg)
+        try:
+            out[schedule] = _timed_steps(trainer, batches)
+            got, want = _pp_launch_check(trainer, schedule, cfg.n_layers,
+                                         PP_MICRO, PP_STEPS)
+            stage = trainer.axis_stats["stage"].as_dict()
+            out[schedule].update(
+                spec=trainer.world_fingerprint, shard_launches=got,
+                stage_gloo_per_step={k: v / PP_STEPS
+                                     for k, v in stage.items()})
+        finally:
+            trainer.close()
+        if got != want:
+            raise AssertionError(f"pipeline timed {schedule}: launches "
+                                 f"{got}, expected {want}")
+    return out
+
+
+def _pp_remat(x, y):
+    """The bfloat16 flagship on LocalTrainer, one forward and backward per
+    remat policy on the same weights and batch: every gradient against
+    remat off (bitwise, else within PP_REMAT_RTOL of its largest value),
+    compared on the card; the peak memory of each (less the reference
+    gradients kept on the card for the comparison) and its launches."""
+    cfg = tlm.flagship_config(SEQ)
+    local = LocalTrainer(tlm.custom_model(cfg), tlm.loss, tlm.optimizer(),
+                         device=AR_DEVICE)
+    local.init_variables_if_needed(x)
+    model = local._model
+    model.train()
+    xt, yt = local._to_device(x), local._to_device(y)
+    # A warm-up step: the first timed step would carry cuBLAS's start.
+    tlm.loss(yt, model(xt)).backward()
+    out, ref, ref_bytes = {}, None, 0
+    for policy in ("off",) + tlm.REMAT_POLICIES:
+        model.config = dataclasses.replace(
+            cfg, remat=policy != "off",
+            remat_policy=None if policy == "off" else policy)
+        model.zero_grad(set_to_none=True)
+        # The allocator keeps its cache across the policies: emptied, each
+        # step would pay for its own cudaMalloc calls in its time.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches = collections.Counter()
+        start = time.perf_counter()
+        with fa.counting_into(launches):
+            tlm.loss(yt, model(xt)).backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start)
+        peak = (torch.cuda.max_memory_allocated() - ref_bytes) / 2**30
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if ref is None:
+            ref = {n: g.detach().clone() for n, g in grads.items()}
+            ref_bytes = sum(t.numel() * t.element_size()
+                            for t in ref.values())
+        errors = [float((g - ref[n]).abs().max()
+                        / ref[n].abs().max().clamp_min(1e-30))
+                  for n, g in grads.items()]
+        out[str(policy)] = {
+            "ms": ms, "peak_gib": peak,
+            "bitwise": all(torch.equal(g, ref[n])
+                           for n, g in grads.items()),
+            "max_rel_err": max(errors),
+            "launches": {k: v for k, v in launches.items() if v}}
+        del grads
+    bad = {k: v["max_rel_err"] for k, v in out.items()
+           if not v["max_rel_err"] <= PP_REMAT_RTOL}
+    if bad:
+        raise AssertionError(f"pipeline remat: gradients over "
+                             f"{PP_REMAT_RTOL} of remat off: {bad}")
+    return out
+
+
+def _pp_job(root):
+    """--multi_host --pipeline_stages 2 --pipeline_schedule 1f1b through
+    master.main with two worker processes of two stage shards each, all on
+    the card: a world of data 2 (across processes) x stage 2 (inside)."""
+    return _allreduce_job(
+        root, "pipeline",
+        ["--pipeline_stages", str(PP_STAGES), "--pipeline_schedule", "1f1b",
+         "--pipeline_microbatches", str(PP_JOB_MICRO)],
+        PP_JOB_RECORDS, PP_JOB_TASK, PP_JOB_WORKERS)
+
+
+def phase_pipeline(results):
+    """The stage axis on the card: the float32 checks of GPipe, 1F1B and
+    interleaved 1F1B against LocalTrainer, the bfloat16 flagship timed
+    under each schedule, the named remat policies, then a two-process
+    1F1B job through master.main."""
+    device = results["device"]
+    card = {"card": device["nvidia_smi"]}
+    tokens = synthetic_lm_tokens(PP_STEPS * BATCH, SEQ, vocab=32768,
+                                 branching=4, seed=0)
+    x, y = tokens[:BATCH, :-1], tokens[:BATCH, 1:]
+    out = {}
+    runs = (("f32_checks", lambda: _pp_f32_checks(x, y)),
+            ("timed_bf16", lambda: _pp_timed(tokens)),
+            ("remat_bf16", lambda: _pp_remat(x, y)))
+    for name, fn in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        out[name] = fn()
+        emit({"phase": "pipeline", "run": name, **card,
+              "seconds": time.perf_counter() - start, **out[name]})
+    with tempfile.TemporaryDirectory() as root:
+        job = _pp_job(root)
+    emit({"phase": "pipeline", "run": "1f1b_job", **card, **job})
+    exits = job["worker_exits"]
+    last = [v[-1] for v in exits.values()]
+    per_step = {n: PROC_LAYERS * PP_JOB_MICRO for n in fa.KERNEL_NAMES}
+    checks_ok = [
+        (job["master_rc"] == 0, "the master's exit code"),
+        (job["records_done"] == PP_JOB_RECORDS, "records_done"),
+        (not job["left"], "no process left"),
+        (job["losses"] and all(math.isfinite(v) for v in job["losses"]),
+         "finite losses"),
+        (sorted(exits) == [f"worker-{i}" for i in range(PP_JOB_WORKERS)],
+         "one exit line per worker"),
+        (job["pipelined_inits"] == [(str(PP_STAGES), "1f1b")]
+         * PP_JOB_WORKERS, "'Initialized pipelined model' in each worker"),
+        (_launch_check(exits, lambda e: {
+            n: c * (e["steps"] + e["failed_steps"])
+            for n, c in per_step.items()}),
+         "each process's launches: 2 stages x layers / 2 x microbatches "
+         "of each kernel per step"),
+        (all(e["spec"] == "data=2,stage=2|pg|p2" for e in last),
+         "data 2 x stage 2 worlds"),
+        (len({(e["version"], e["digest"]) for e in last}) == 1
+         and last[0]["digest"], "equal version and digest"),
+    ]
+    failed = [what for ok, what in checks_ok if not ok]
+    if failed:
+        raise AssertionError(f"pipeline 1f1b_job: {failed}")
+    out["1f1b_job"] = job
+    return out
+
+
 def main():
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", lambda: phase_kernels(results["build"])),
@@ -5730,7 +5999,8 @@ def main():
               ("k8s", lambda: phase_k8s(results)),
               ("allreduce", lambda: phase_allreduce(results)),
               ("model_axes", lambda: phase_model_axes(results)),
-              ("data_axis", lambda: phase_data_axis(results))]
+              ("data_axis", lambda: phase_data_axis(results)),
+              ("pipeline", lambda: phase_pipeline(results))]
     results, seconds = {}, {}
     for name, fn in phases:
         # A finished phase's trainers sit in reference cycles until the
@@ -5825,6 +6095,21 @@ def main():
             **{role: e["kernel_launches"].get(name, 0)
                for role, v in da["zero1_quantized_job"][
                    "worker_exits"].items() for e in v}}
+        # The stage axis: each stage shard of the float32 checks (one
+        # step) and the timed runs (PP_STEPS steps), the remat policies'
+        # one step each, and each process of the 1F1B job.
+        pp = results["pipeline"]
+        report[name]["pipeline_launches"] = {
+            **{f"{run}_{schedule}": [c.get(name, 0)
+                                     for c in r["shard_launches"]]
+               for run in ("f32_checks", "timed_bf16")
+               for schedule, r in pp[run].items()
+               if "shard_launches" in r},
+            **{f"remat_{policy}": r["launches"].get(name, 0)
+               for policy, r in pp["remat_bf16"].items()},
+            **{role: e["kernel_launches"].get(name, 0)
+               for role, v in pp["1f1b_job"]["worker_exits"].items()
+               for e in v}}
     emit({"phase_seconds": seconds})
     emit({"kernels": [report[n] for n in fa.KERNEL_NAMES]})
     device = results["device"]

@@ -34,6 +34,17 @@ output axes in order, which is the (3, H, Dh) order the model splits. It is
 4-D like a conv kernel: the module, not the array's rank, decides the
 layout (`params_from_flax(named, module)`, `load_flax`).
 
+The pipelined LM's staged tree (parallel/pipeline.py:StagedLM) is the JAX
+package's {"embed", "stages", "head"} tree: `embed/tok_emb/embedding`,
+`embed/pos_emb/embedding`, `head/LayerNorm_0/{scale,bias}`,
+`head/lm_head/{kernel,bias}`, and every leaf of a stage row under
+`stages/Block_<j>/...` with a leading dim of rows, the rows stacked in
+layer order. A module marked `stacked_rows` holds such leaves as one
+parameter each, [rows, *torch layout]; the layouts above apply to each row
+(`FlaxLeaf.stacked`). `staged_to_monolithic` and `monolithic_to_staged`
+move a {wire name: array} dict between that tree and the plain LM's
+(`Block_<i>/...` with i = row * layers per row + j).
+
 Non-parameter state is flax's `batch_stats` collection: every buffer of a
 module (BatchNorm's `mean` and `var`) is the leaf of the same name under
 "batch_stats/<module path>", unchanged in layout (`state_to_flax`,
@@ -105,17 +116,31 @@ class FlaxLeaf:
     parameter, and the layout maps between the two frameworks, which also
     carry anything shaped like the parameter (an optimizer's moments)."""
 
-    __slots__ = ("name", "param", "leaf", "features", "conv")
+    __slots__ = ("name", "param", "leaf", "features", "conv", "stacked")
 
-    def __init__(self, name, param, leaf, features, conv=False):
+    def __init__(self, name, param, leaf, features, conv=False,
+                 stacked=False):
         self.name = name
         self.param = param
         self.leaf = leaf
         self.features = features
         self.conv = conv  # a Conv2d kernel
+        # A stage row's leaf stacked over rows: the layout maps apply to
+        # each row of the leading dim.
+        self.stacked = stacked
 
     def to_flax(self, value):
         """torch-layout tensor -> flax-layout tensor (same device)."""
+        if self.stacked:
+            rows = value.shape[0]
+            if self.leaf == "kernel":
+                value = value.transpose(-1, -2)
+                if self.features is not None:
+                    value = value.reshape(rows, value.shape[1],
+                                          *self.features)
+            elif self.leaf == "bias" and self.features is not None:
+                value = value.reshape(rows, *self.features)
+            return value
         if self.conv:
             value = value.permute(2, 3, 1, 0)
         elif self.leaf == "kernel":
@@ -132,6 +157,14 @@ class FlaxLeaf:
         if isinstance(value, torch.Tensor):
             value = value.detach().cpu().numpy()
         value = np.asarray(value, np.float32)
+        if self.stacked:
+            rows = value.shape[0]
+            if self.leaf == "kernel":
+                value = np.ascontiguousarray(value.reshape(
+                    rows, value.shape[1], -1).transpose(0, 2, 1))
+            elif self.leaf == "bias":
+                value = value.reshape(rows, -1)
+            return torch.tensor(value)
         if self.conv:
             value = np.ascontiguousarray(value.transpose(3, 2, 0, 1))
         elif self.leaf == "kernel":
@@ -156,6 +189,7 @@ def flax_leaves(module):
         prefix = mod_name.replace(".", "/")
         features = getattr(mod, "features", None)
         conv = isinstance(mod, nn.Conv2d)
+        stacked = getattr(mod, "stacked_rows", False)
         for leaf_name, param in mod.named_parameters(recurse=False):
             if leaf_name == "weight":
                 if isinstance(mod, (nn.Linear, nn.Conv2d)):
@@ -168,7 +202,7 @@ def flax_leaves(module):
                 leaf = leaf_name
             name = f"{prefix}/{leaf}" if prefix else leaf
             leaves.append(FlaxLeaf(name, param, leaf, features,
-                                   conv and leaf_name == "weight"))
+                                   conv and leaf_name == "weight", stacked))
     return sorted(leaves, key=lambda x: tuple(x.name.split("/")))
 
 
@@ -188,3 +222,58 @@ def params_to_flax(module):
     """The inverse of params_from_flax: module -> {flax wire name: float32
     numpy array}."""
     return leaves_to_flax(flax_leaves(module))
+
+
+# ---------- the pipelined LM's staged tree <-> the plain LM's ----------
+
+_STAGED_EMBED = ("tok_emb/", "pos_emb/")
+
+
+def staged_to_monolithic(named):
+    """{wire name: array} of the staged tree -> the plain LM's names: each
+    stage row's leaves unstacked into the Block_<i> they are, in layer
+    order (row r's Block_j is layer r * layers per row + j)."""
+    blocks = sorted({int(n.split("/")[1].split("_")[1])
+                     for n in named if n.startswith("stages/")})
+    per_row = len(blocks)
+    out = {}
+    for name, value in named.items():
+        head, _, rest = name.partition("/")
+        if head in ("embed", "head"):
+            out[rest] = np.asarray(value)
+            continue
+        if head != "stages":
+            raise ValueError(f"not a staged-tree leaf: {name!r}")
+        block, _, leaf = rest.partition("/")
+        j = int(block.split("_")[1])
+        for r, row in enumerate(np.asarray(value)):
+            out[f"Block_{r * per_row + j}/{leaf}"] = row
+    return out
+
+
+def monolithic_to_staged(named, total_rows):
+    """The plain LM's {wire name: array} -> the staged tree of
+    `total_rows` rows (the layers divide by it): Block_<i> becomes row
+    i // per_row's Block_<i % per_row>, the rows stacked in layer order."""
+    layers = sorted({int(n.split("/")[0].split("_")[1])
+                     for n in named if n.startswith("Block_")})
+    if len(layers) % total_rows:
+        raise ValueError(f"{len(layers)} layers do not divide into "
+                         f"{total_rows} stage rows")
+    per_row = len(layers) // total_rows
+    rows = {}
+    out = {}
+    for name, value in named.items():
+        if name.startswith("Block_"):
+            block, _, leaf = name.partition("/")
+            i = int(block.split("_")[1])
+            key = f"stages/Block_{i % per_row}/{leaf}"
+            rows.setdefault(key, [None] * total_rows)[i // per_row] = \
+                np.asarray(value)
+        elif name.startswith(_STAGED_EMBED):
+            out[f"embed/{name}"] = np.asarray(value)
+        else:
+            out[f"head/{name}"] = np.asarray(value)
+    for key, values in rows.items():
+        out[key] = np.stack(values)
+    return out

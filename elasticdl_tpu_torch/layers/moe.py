@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from elasticdl_tpu_torch.layers import remat
 from elasticdl_tpu_torch.layers.init import lecun_normal_
 
 ROUTING_RANGE = "moe_routing"
@@ -59,7 +60,9 @@ def route(layer, x):
     tokens = x.reshape(-1, x.shape[-1])
     n_tokens, num_experts = tokens.shape[0], layer.num_experts
     capacity = _capacity(layer.capacity_factor, n_tokens, num_experts)
-    probs = torch.softmax(layer.router(tokens.float()), dim=-1)
+    router = layer.router
+    probs = torch.softmax(
+        remat.linear(tokens.float(), router.weight, router.bias), dim=-1)
     expert = probs.argmax(dim=-1)
     # The one-hot choice as [E, T]: the running count per expert is then a
     # scan along the contiguous axis. Along T in [T, E] it is a scan over
@@ -122,11 +125,11 @@ class SwitchMoE(nn.Module):
                                   n_slots)
             gate = _to_slots(r.gate, r.slot, n_slots)
         with torch.profiler.record_function(EXPERTS_RANGE):
-            h = torch.bmm(expert_in.view(self.num_experts, r.capacity, d),
+            h = remat.bmm(expert_in.view(self.num_experts, r.capacity, d),
                           self.w_in.to(dtype))
         h = F.gelu(h, approximate="tanh")
         with torch.profiler.record_function(EXPERTS_RANGE):
-            expert_out = torch.bmm(h, self.w_out.to(dtype))
+            expert_out = remat.bmm(h, self.w_out.to(dtype))
         with torch.profiler.record_function(ROUTING_RANGE):
             weighted = (expert_out.reshape(n_slots, d).float()
                         * gate.to(dtype).float()[:, None]).to(dtype)
@@ -217,11 +220,11 @@ class ExpertParallelMoE(nn.Module):
             expert_in = _to_slots(tokens.to(dtype), slot, n_slots)
             gate = _to_slots(copy_to(r.gate, self.group), slot, n_slots)
         with torch.profiler.record_function(EXPERTS_RANGE):
-            h = torch.bmm(expert_in.view(local, r.capacity, d),
+            h = remat.bmm(expert_in.view(local, r.capacity, d),
                           self.w_in.to(dtype))
         h = F.gelu(h, approximate="tanh")
         with torch.profiler.record_function(EXPERTS_RANGE):
-            expert_out = torch.bmm(h, self.w_out.to(dtype))
+            expert_out = remat.bmm(h, self.w_out.to(dtype))
         with torch.profiler.record_function(ROUTING_RANGE):
             weighted = (expert_out.reshape(n_slots, d).float()
                         * gate.to(dtype).float()[:, None]).to(dtype)

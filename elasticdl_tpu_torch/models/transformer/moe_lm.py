@@ -27,10 +27,9 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
+from elasticdl_tpu_torch.layers import remat as remat_lib
 from elasticdl_tpu_torch.layers.moe import SwitchMoE
 from elasticdl_tpu_torch.models.transformer import transformer_lm as tlm
 from elasticdl_tpu_torch.models.transformer.transformer_lm import (
@@ -103,7 +102,7 @@ class MoEBlock(nn.Module):
         out, aux = self.SwitchMoE_0(self.LayerNorm_1(x))
         if self.config.dropout:
             # Same regularization as the dense Block's FFN output.
-            out = F.dropout(out, self.config.dropout, self.training)
+            out = tlm.dropout(out, self.config.dropout, self.training)
         return x + out, aux
 
 
@@ -137,8 +136,9 @@ class MoETransformerLM(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, name in enumerate(self.block_names):
             block = getattr(self, name)
-            out = checkpoint(block, x, use_reentrant=False) if remat \
-                else block(x)
+            out = (remat_lib.remat_call(block, x, cfg.remat_policy,
+                                        block.parameters())
+                   if remat else block(x))
             if _is_moe(cfg, i):
                 x, aux = out
                 aux_total = aux_total + aux

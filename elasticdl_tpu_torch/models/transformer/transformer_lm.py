@@ -23,25 +23,31 @@ batch. Initializers follow flax's defaults (truncated-normal fan-in for
 kernels and embeddings, zeros for biases, ones for LayerNorm scales), but
 draw other numbers: parity with the JAX package needs imported weights.
 
+remat rematerializes each Block in the backward pass under a named policy
+of jax.checkpoint_policies (layers/remat.py: the six that are policies;
+the factories are refused when the config is built).
+
 Model spec contract (common/model_utils.py): custom_model / loss /
 optimizer / feed / eval_metrics_fn, and the AllReduce trainer's hooks
-param_specs (tensor parallelism) and context_parallel_model (sequence
-parallelism).
+param_specs (tensor parallelism), context_parallel_model (sequence
+parallelism) and pipeline_spec (pipeline parallelism).
 """
 
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.common.evaluation_utils import MeanMetric
 from elasticdl_tpu_torch.common.model_utils import Modes
 from elasticdl_tpu_torch.data.example import batch_examples
+from elasticdl_tpu_torch.layers import remat as remat_lib
 from elasticdl_tpu_torch.ops import optimizers
 from elasticdl_tpu_torch.ops.flash_attention import flash_attention
 from elasticdl_tpu_torch.parallel import tensor_parallel as tp
@@ -55,8 +61,8 @@ LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
 # flax's truncated-normal initializers divide the stddev by this, the std
 # of a unit normal truncated to [-2, 2].
 _TRUNC_STD = 0.87962566103423978
-# remat policies the port has: recompute everything (nn.remat's default).
-REMAT_POLICIES = (None, "nothing_saveable")
+# The remat policies (layers/remat.py).
+REMAT_POLICIES = remat_lib.POLICIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,28 +76,18 @@ class LMConfig:
     # attention(q, k, v) with causal masking baked in; None -> local flash.
     attention: Optional[Callable] = None
     activation_dtype: str = "bfloat16"
-    # Recompute each Block in the backward pass (torch.utils.checkpoint, as
-    # nn.remat(Block) does): activation memory O(layers), ~1/3 more FLOPs.
+    # Recompute each Block in the backward pass (as nn.remat(Block) does):
+    # activation memory O(layers), ~1/3 more FLOPs.
     remat: bool = False
-    # A jax.checkpoint_policies name refining what remat saves; only the
-    # save-nothing policies in REMAT_POLICIES are ported.
+    # A jax.checkpoint_policies name refining what remat saves (None =
+    # recompute everything); REMAT_POLICIES lists them.
     remat_policy: Optional[str] = None
 
     def __post_init__(self):
         validate_remat_policy(self.remat, self.remat_policy)
 
 
-def validate_remat_policy(remat, remat_policy):
-    if remat_policy is not None and not remat:
-        raise ValueError(
-            "remat_policy is set but remat=False — the policy would be "
-            "silently ignored; enable remat or drop the policy"
-        )
-    if remat_policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r} is not ported to "
-            f"elasticdl_tpu_torch; it has {REMAT_POLICIES}"
-        )
+validate_remat_policy = remat_lib.validate_remat_policy
 
 
 def flagship_config(max_len: int = 4096) -> LMConfig:
@@ -128,7 +124,8 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return remat_lib.linear(x.to(dt), self.weight.to(dt),
+                                self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):
@@ -190,8 +187,37 @@ class Block(nn.Module):
         h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
         h = self.Dense_1(h)
         if self.config.dropout:
-            h = F.dropout(h, self.config.dropout, self.training)
+            h = dropout(h, self.config.dropout, self.training)
         return x + h
+
+
+_dropout_local = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_seed(seed, device):
+    """Dropout inside the block draws from a generator of its own, seeded
+    with `seed` (the pipeline's per stage, microbatch and data position
+    seeds), instead of the device's default generator; the threads of a
+    process's shards share that one."""
+    prior = getattr(_dropout_local, "generator", None)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    _dropout_local.generator = generator
+    try:
+        yield
+    finally:
+        _dropout_local.generator = prior
+
+
+def dropout(x, p, training):
+    """F.dropout, or inside dropout_seed the same from its generator."""
+    generator = getattr(_dropout_local, "generator", None)
+    if generator is None or not training or not p:
+        return F.dropout(x, p, training)
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - p, generator=generator)
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 class Embed(nn.Embedding):
@@ -247,11 +273,14 @@ class TransformerLM(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.vocab, torch.float32)
 
     def forward(self, tokens):
+        cfg = self.config
         x = embed_input(self, tokens)
-        remat = self.config.remat and torch.is_grad_enabled()
-        for i in range(self.config.n_layers):
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i in range(cfg.n_layers):
             block = getattr(self, f"Block_{i}")
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+            x = (remat_lib.remat_call(block, x, cfg.remat_policy,
+                                      block.parameters())
+                 if remat else block(x))
         return head_output(self, x)
 
     def init_weights(self, generator: torch.Generator):
@@ -357,6 +386,45 @@ def context_parallel_model(group, head_axis=None, impl="zigzag",
     else:
         raise ValueError(f"unknown context-parallel impl {impl!r}")
     return custom_model(dataclasses.replace(cfg, attention=attn))
+
+
+def pipeline_spec(mesh=None, n_stages=2, num_microbatches=4,
+                  schedule="1f1b", batch_axis=None, virtual_stages=2,
+                  config=None):
+    """Model-spec stage hook for pipeline parallelism (worker
+    --pipeline_stages N --pipeline_schedule {gpipe,1f1b,interleaved}), the
+    staged twin of the param_specs hook: a parallel.pipeline.PipelineBuild
+    binding this LM's Block stack to the requested schedule. All three
+    schedules share one param tree ({embed, stages[rows], head}), so
+    checkpoints and optimizer state transfer between them, and the
+    schedule-free apply_fn (make_lm_sequential) evaluates and predicts in
+    any world. The arguments are the JAX hook's; `mesh` and `batch_axis`
+    name nothing in the port: a schedule runs over the stage group its
+    caller hands it, and parallel/mesh.py:data_shard splits the data
+    axis."""
+    from elasticdl_tpu_torch.parallel import pipeline as plib
+
+    cfg = config or LMConfig()
+    total_rows = n_stages
+    if schedule == "interleaved":
+        from elasticdl_tpu_torch.parallel.pipeline_interleaved import (
+            make_lm_pipeline_interleaved,
+        )
+
+        total_rows = n_stages * virtual_stages
+        init_fn, lg_fn, rows_fn = make_lm_pipeline_interleaved(
+            cfg, n_stages, virtual_stages, num_microbatches)
+    elif schedule == "1f1b":
+        init_fn, lg_fn, rows_fn = plib.make_lm_pipeline_1f1b(
+            cfg, n_stages, num_microbatches)
+    elif schedule == "gpipe":
+        init_fn, lg_fn, rows_fn = plib.make_lm_pipeline(
+            cfg, n_stages, num_microbatches, loss_fn=loss)
+    else:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    apply_fn = plib.make_lm_sequential(cfg, total_rows)
+    return plib.PipelineBuild(init_fn, lg_fn, apply_fn,
+                              plib.lm_pipeline_param_specs, rows_fn)
 
 
 def feed(records, mode, metadata):

@@ -478,6 +478,57 @@ class AxisGroup:
         return self._timed([t.contiguous() for t in tensors], run,
                            tensors[0], "exchange")
 
+    def p2p(self, sends=(), recvs=()):
+        """Point-to-point transfers, posted together and then waited on (a
+        pipeline's hop): `sends` [(tensor, dst, tag)], `recvs` [(like, src,
+        tag)], `like` a tensor of the shape, dtype and device to receive.
+        Returns the received tensors in order. Both sides post from the
+        same schedule, and the tags pair them whatever each side's order.
+        The bytes counted are those this member sends."""
+        if not sends and not recvs:
+            return []
+        like = sends[0][0] if sends else recvs[0][0]
+        staged = like.device.type == "cuda"
+
+        def run(host):
+            works = [self._group.send([h], dst, tag)
+                     for h, (_, dst, tag) in zip(host, sends)]
+            out = []
+            for j, (r, src, tag) in enumerate(recvs):
+                buf = self._recv(r, ("p2p", j), staged)
+                works.append(self._group.recv([buf], src, tag))
+                out.append(buf)
+            for w in works:
+                w.wait()
+            return out
+
+        return self._timed([t.contiguous() for t, _, _ in sends], run,
+                           like, "send")
+
+    def broadcast(self, t, src):
+        """Member src's `t` on every member (the others pass a tensor of
+        its shape and dtype, whose values are not read)."""
+        if self.size == 1:
+            return t
+        import torch.distributed as dist
+
+        opts = dist.BroadcastOptions()
+        opts.rootRank = src
+        opts.rootTensor = 0
+        root = self.rank == src
+        staged = t.device.type == "cuda"
+
+        def run(host):
+            if root:
+                buf = host[0]
+            else:
+                buf = self._recv(t, "broadcast", staged)
+            self._group.broadcast([buf], opts).wait()
+            return [buf]
+
+        return self._timed([t.contiguous()] if root else [], run, t,
+                           "broadcast")[0]
+
     def close(self):
         """Drops the gloo group: members blocked in a collective with this
         one fail at once (its sockets close)."""

@@ -20,9 +20,7 @@ mesh axis it needs; the resolver composes them under one precedence policy
 DP) into a `WorldSpec`. The spec is a pure function of `(ParallelConfig,
 WorldTopology)`: given the same config, an N-device world always maps to
 the same axes, and its fingerprint is the JAX package's. The trainer keeps
-the fingerprint of the world it formed; the pipeline is not ported yet and
-raises in the trainer before a world is resolved, but the resolver keeps
-its branch so that its answers stay the JAX package's.
+the fingerprint of the world it formed.
 """
 
 import math
@@ -105,6 +103,39 @@ class WorldTopology(NamedTuple):
         return self.n_processes > 1
 
 
+def microbatch(x, num_microbatches):
+    """[B, ...] -> [M, B//M, ...]; B must divide evenly."""
+    b = x.shape[0]
+    if b % num_microbatches:
+        raise ValueError(
+            f"batch {b} not divisible by {num_microbatches} microbatches"
+        )
+    return x.reshape(num_microbatches, b // num_microbatches,
+                     *x.shape[1:])
+
+
+def unmicrobatch(y):
+    """[M, mb, ...] -> [M*mb, ...]."""
+    return y.reshape(y.shape[0] * y.shape[1], *y.shape[2:])
+
+
+def data_shard(x, num_microbatches, data_size, index):
+    """Data position `index`'s rows of a batch [B, ...], as JAX shards
+    microbatches over the data axis: of each of the M microbatches [mb]
+    the index-th of data_size equal slices, concatenated in microbatch
+    order (microbatch() of the result gives its [M, mb / data_size])."""
+    x = np.asarray(x)
+    micro = microbatch(x, num_microbatches)
+    mb = micro.shape[1]
+    if mb % data_size:
+        raise ValueError(
+            f"microbatch size {mb} not divisible by 'data' axis size "
+            f"{data_size}; adjust the batch size or num_microbatches"
+        )
+    part = mb // data_size
+    return unmicrobatch(micro[:, index * part:(index + 1) * part])
+
+
 def local_device_count():
     """Shards per worker process: the CUDA devices torch sees (1 without
     any), unless ELASTICDL_LOCAL_DEVICES asks for more, as the JAX tests
@@ -155,8 +186,9 @@ class AxisDemand(NamedTuple):
 
 def stage_axis_demand(n_stages):
     """Pipelining's mesh-axis contribution (the JAX package keeps it in
-    parallel/pipeline.py, which the port has not yet): an intra-process
-    "stage" axis that excludes model/seq."""
+    parallel/pipeline.py, which imports it from here): an intra-process
+    "stage" axis that excludes model/seq — all three lay out the same
+    intra-process device slice."""
     return AxisDemand(STAGE_AXIS, int(n_stages), intra_process=True)
 
 
@@ -418,14 +450,15 @@ class ShardLayout:
     def data_local(self):
         """Data positions inside one process."""
         return self.local_devices // (self.size(MODEL_AXIS)
-                                      * self.size(SEQ_AXIS))
+                                      * self.size(SEQ_AXIS)
+                                      * self.size(STAGE_AXIS))
 
     def coords(self, i):
         """{axis: coordinate} of local shard i (0 on absent axes). The data
         coordinate is the shard's data position: in a ZeRO-1 world (data x
         zero) data * zero size + zero, as the batch shards over both."""
         g = self.process_rank * self.local_devices + i
-        out = {DATA_AXIS: 0, MODEL_AXIS: 0, SEQ_AXIS: 0}
+        out = {DATA_AXIS: 0, MODEL_AXIS: 0, SEQ_AXIS: 0, STAGE_AXIS: 0}
         for name in self._names:
             out[name] = (g // self._strides[name]) % self.sizes[name]
         if ZERO_AXIS in self.sizes:

@@ -1,6 +1,6 @@
 """The shards of one worker process in one resolved world: the intra-process
-model and seq axes (and data positions inside the process) of the JAX
-package's mesh, as threads.
+model, seq and stage axes (and data positions inside the process) of the
+JAX package's mesh, as threads.
 
 A worker process runs `local_devices` shards (parallel/mesh.py). Shard i
 lives on cuda:(i mod device count), or on the CPU when the trainer was
@@ -17,7 +17,9 @@ its part of the parameters:
 - on the seq axis, the same parameters, and a model whose attention the
   model spec's context_parallel_model hook bound to the shard's seq group
   (ring, zigzag or Ulysses attention); the shard embeds its block of
-  positions.
+  positions;
+- on the stage axis (a pipelined world, parallel/pipeline.py), the staged
+  tree's rows its stage holds, with the embedding and the head.
 
 A step copies the full parameters into the shards (device to device), runs
 every shard's forward and backward on its rows and sequence block, and
@@ -31,9 +33,15 @@ the shards' means. The trainer then all-reduces the process's gradients
 over the processes of the world (parallel/distributed.py:World), the data
 axis across processes, and steps its optimizer once.
 
-The model and seq groups are gloo groups among the shard threads over an
-in-process HashStore (parallel/distributed.py:join_axis_group), built with
-the world and dropped with it. Where the step needs the data axis among
+A pipelined step (`pipeline_step`) runs the model spec's schedule in every
+shard instead, over the shard's stage group and its data position's
+microbatches; the rows' gradients go back to their rows of the full tree,
+the embedding's and the head's are summed over the stages, and every
+gradient is averaged over the process's data positions.
+
+The model, seq and stage groups are gloo groups among the shard threads
+over an in-process HashStore (parallel/distributed.py:join_axis_group),
+built with the world and dropped with it. Where the step needs the data axis among
 shards (`data_group`: BatchNorm's statistics over the global batch, or the
 quantized reduction of a one-process world), each shard also joins a group
 of every data position of the world with its model and seq coordinates:
@@ -69,7 +77,9 @@ from elasticdl_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     SEQ_AXIS,
+    STAGE_AXIS,
     ShardLayout,
+    data_shard,
     first_leaf,
     tree_map,
 )
@@ -78,6 +88,13 @@ from elasticdl_tpu_torch.parallel.mesh import (
 def torch_layout(leaf, value):
     """A flax-layout tensor -> the torch layout of `leaf` (FlaxLeaf), on
     value's device: FlaxLeaf.from_flax without the trip through numpy."""
+    if leaf.stacked:
+        rows = value.shape[0]
+        if leaf.leaf == "kernel":
+            return value.reshape(rows, value.shape[1], -1).transpose(1, 2)
+        if leaf.leaf == "bias":
+            return value.reshape(rows, -1)
+        return value
     if leaf.conv:
         return value.permute(3, 2, 0, 1)
     if leaf.leaf == "kernel":
@@ -110,11 +127,15 @@ class ProcessShards:
                  param_specs_fn=None, context_parallel_model_fn=None,
                  context_parallel_impl="zigzag", axis_stats=None,
                  launches=None, local_host="127.0.0.1", data_group=False,
-                 batch_store=None, bind_stats=False):
+                 batch_store=None, bind_stats=False, pipeline=None):
         self.layout = ShardLayout(spec, process_rank)
         self.n = self.layout.local_devices
         self.mp = self.layout.size(MODEL_AXIS)
         self.sp = self.layout.size(SEQ_AXIS)
+        self.pp = self.layout.size(STAGE_AXIS)
+        # The stage rows each shard holds (a pipelined world), else None.
+        self.rows = ([pipeline.stage_rows_fn(self.layout.coords(i)[
+            STAGE_AXIS]) for i in range(self.n)] if self.pp > 1 else None)
         self.impl = context_parallel_impl
         self._full_leaves = {x.name: x for x in flax_leaves(model)}
         self._full_buffers = dict(model.named_buffers())
@@ -122,7 +143,7 @@ class ProcessShards:
         self._specs = (param_specs_fn(meta_variables(self._template))
                        if self.mp > 1 else {})
         self.axis_stats = axis_stats or {}
-        for axis in (MODEL_AXIS, SEQ_AXIS, DATA_AXIS):
+        for axis in (MODEL_AXIS, SEQ_AXIS, STAGE_AXIS, DATA_AXIS):
             self.axis_stats.setdefault(axis, CommStats())
         self._data_group = data_group
         self._batch_store = batch_store
@@ -147,7 +168,7 @@ class ProcessShards:
         layout = self.layout
         coords = layout.coords(i)
         groups = {}
-        for axis in (MODEL_AXIS, SEQ_AXIS):
+        for axis in (MODEL_AXIS, SEQ_AXIS, STAGE_AXIS):
             groups[axis] = join_axis_group(
                 store, epoch, axis, layout.group_key(i, axis),
                 coords[axis], layout.size(axis), self.axis_stats[axis],
@@ -164,6 +185,8 @@ class ProcessShards:
                 group=groups[SEQ_AXIS],
                 head_axis=MODEL_AXIS if self.mp > 1 else None,
                 impl=self.impl)
+        elif self.rows is not None:
+            model = self._template.stage_copy(self.rows[i])
         else:
             model = copy.deepcopy(self._template)
         if self.mp > 1:
@@ -204,6 +227,9 @@ class ProcessShards:
         m = self.layout.coords(i)[MODEL_AXIS]
         for name, leaf in self._leaves[i].items():
             full = self._full_leaves[name]
+            if leaf.stacked and self.rows is not None:
+                leaf.param.copy_(full.param[self.rows[i]])
+                continue
             spec = self._specs.get(name, ())
             if tp.split_dim(spec) is None:
                 leaf.param.copy_(full.param)
@@ -352,6 +378,56 @@ class ProcessShards:
                 loss = loss.to(device)
                 total = loss if total is None else total + loss
         return total
+
+    def pipeline_step(self, build, features, labels, num_microbatches,
+                      rng=None):
+        """A pipelined step: every shard runs its stage of the schedule
+        (build.loss_and_grads_fn) on its data position's microbatches
+        (mesh.data_shard), then the gradients are gathered into the
+        full staged tree. Returns the loss, the mean over this process's
+        data positions (0-d, on the full model's device)."""
+        dl = self.layout.data_local
+        first = self.layout.process_rank * dl
+
+        def shard_step(i):
+            c = self.layout.coords(i)
+            model = self.models[i]
+            self._load_params(i)
+            model.zero_grad(set_to_none=True)
+            index = c[DATA_AXIS] - first
+            feats, labs = (data_shard(t, num_microbatches, dl, index)
+                           for t in (features, labels))
+            return build.loss_and_grads_fn(
+                model, feats, labs, self.groups[i][STAGE_AXIS], rng=rng,
+                data_index=c[DATA_AXIS]).detach()
+
+        losses = self._run(shard_step)
+        self._gather_stage_grads(1.0 / dl)
+        device = next(iter(self._full_leaves.values())).param.device
+        total = None
+        for i, loss in enumerate(losses):
+            if self.layout.coords(i)[STAGE_AXIS] == 0:
+                loss = loss.to(device)
+                total = loss if total is None else total + loss
+        return total / dl
+
+    @torch.no_grad()
+    def _gather_stage_grads(self, scale):
+        """The full staged tree's gradients from the stage shards: a stacked
+        leaf's rows from the shards holding them, every other leaf summed
+        over the shards (the stages' parts), all times `scale`."""
+        for name, full in self._full_leaves.items():
+            total = torch.zeros_like(full.param)
+            for i in range(self.n):
+                grad = self._leaves[i][name].param.grad
+                if grad is None:
+                    continue
+                grad = grad.to(total.device)
+                if full.stacked:
+                    total[self.rows[i]] += grad
+                else:
+                    total += grad
+            full.param.grad = total.mul_(scale) if scale != 1 else total
 
     def close(self):
         for groups in self.groups:

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from elasticdl_tpu_torch.layers import remat
 from elasticdl_tpu_torch.parallel.collectives import copy_to, reduce_from
 from elasticdl_tpu_torch.parallel.mesh import MODEL_AXIS, AxisDemand
 
@@ -244,7 +245,7 @@ class ColumnParallelDense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         x = copy_to(x, self.group)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return remat.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class VocabParallelHead(ColumnParallelDense):
@@ -274,7 +275,7 @@ class RowParallelDense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        partial = F.linear(x.to(dt), self.weight.to(dt))
+        partial = remat.linear(x.to(dt), self.weight.to(dt))
         return reduce_from(partial, self.group) + self.bias.to(dt)
 
 

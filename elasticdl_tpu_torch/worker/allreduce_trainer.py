@@ -1,7 +1,7 @@
 """Elastic AllReduce trainer (counterpart of
 elasticdl_tpu/worker/allreduce_trainer.py): data parallelism across
-processes, and the intra-process model and seq axes of tensor, expert and
-sequence parallelism.
+processes, and the intra-process model, seq and stage axes of tensor,
+expert, sequence and pipeline parallelism.
 
 Two modes, as in the JAX package:
 
@@ -59,9 +59,20 @@ own data positions (the zero leg); the loss is then taken over the whole
 padded batch. BatchNorm takes its statistics over the global batch in the
 plain step (a differentiable all-reduce over every data position of the
 world, layers/conv.py), and each data shard's own in the quantized step,
-whose new running statistics are then averaged, as the JAX step does. The
-pipeline raises NotImplementedError (a later slice, ROADMAP Queue 1 item
-4).
+whose new running statistics are then averaged, as the JAX step does.
+
+The stage axis (parallel/pipeline.py): with pipeline_stages > 1 and the
+model spec's pipeline_spec hook, the trainer's model is the hook's staged
+tree ({embed, stages[rows], head}), which the elastic machinery carries as
+any model. A world that hosts the stage axis runs the hook's schedule
+(GPipe, 1F1B or interleaved 1F1B) across its stage shards, the batch
+padded to a multiple of the data positions times the microbatches; a world
+that cannot host it trains the same tree with the schedule-free sequential
+apply under pure data parallelism; either way the loss is over the padded
+batch and the optimizer steps the same tree. A hook that rejects the
+configuration downgrades the trainer to the monolithic model for good;
+zero1 and quantized_grads are ignored under the pipeline, and the model and
+seq axes cannot be combined with it, as in JAX.
 """
 
 import collections
@@ -92,6 +103,7 @@ from elasticdl_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     SEQ_AXIS,
+    STAGE_AXIS,
     ParallelConfig,
     WorldTopology,
     first_leaf,
@@ -128,13 +140,6 @@ GATE_POLL_SECONDS = 0.25
 # collective errors surface as RuntimeError, master calls fail as RpcError.
 RETRYABLE_ERRORS = (RpcError, RuntimeError)
 
-UNPORTED = {
-    "pipeline_stages": "the pipeline slice (pipeline.py, "
-                       "pipeline_interleaved.py, pipeline_schedule.py), "
-                       "ROADMAP Queue 1 item 4",
-}
-
-
 def join_gate_budget():
     """The join-gate wait budget: ELASTICDL_JOIN_GATE_SECONDS when set, else
     90 s. The JAX function scales the default with the longest step compile
@@ -166,20 +171,54 @@ class AllReduceTrainer(TorchTrainer):
         zero1=False,
         quantized_grads=False,
         pipeline_stages=1,
+        pipeline_schedule="1f1b",
+        pipeline_microbatches=0,
+        pipeline_virtual_stages=2,
+        pipeline_spec_fn=None,
         context_parallel_size=1,
         context_parallel_impl="zigzag",
         context_parallel_model_fn=None,
         device=None,
     ):
-        if (pipeline_stages or 1) != 1:
-            raise NotImplementedError(
-                f"AllReduceTrainer pipeline_stages={pipeline_stages} is not "
-                f"ported to elasticdl_tpu_torch yet: "
-                f"{UNPORTED['pipeline_stages']}")
         super().__init__(model, loss_fn, optimizer_spec, seed=seed,
                          device=device)
         self._model_parallel_size = max(1, int(model_parallel_size or 1))
         self._param_specs_fn = param_specs_fn
+        # Pipeline parallelism (parallel/pipeline.py): the model spec's
+        # pipeline_spec hook builds the staged tree and its schedule; the
+        # world gains an intra-process "stage" axis.
+        self._pipeline_stages = max(1, int(pipeline_stages or 1))
+        self._pipeline_schedule = pipeline_schedule
+        self._pipeline_microbatches = int(pipeline_microbatches or 0) or (
+            2 * self._pipeline_stages)
+        self._pipeline_vstages = max(1, int(pipeline_virtual_stages or 1))
+        self._pipeline_spec_fn = pipeline_spec_fn
+        self._pipeline_build = None
+        if self._pipeline_stages > 1 and pipeline_spec_fn is None:
+            logger.warning(
+                "pipeline_stages %d requested but the model spec has no "
+                "pipeline_spec hook; running unpipelined",
+                self._pipeline_stages)
+            self._pipeline_stages = 1
+        if self._pipeline_stages > 1:
+            if self._model_parallel_size > 1:
+                raise ValueError(
+                    "pipeline_stages and model_parallel_size cannot be "
+                    "combined (both lay out the intra-process device "
+                    "slice); pick one")
+            if zero1:
+                logger.warning(
+                    "zero1 is ignored under pipeline parallelism (stage "
+                    "params already shard over the stage axis; the "
+                    "optimizer layout follows them)")
+                zero1 = False
+            if quantized_grads:
+                logger.warning(
+                    "quantized_grads is ignored under pipeline "
+                    "parallelism (the data-axis reduction happens inside "
+                    "the pipeline's shard_map, which has no quantized "
+                    "variant yet)")
+                quantized_grads = False
         self._context_parallel_size = max(
             1, int(context_parallel_size or 1))
         self._context_parallel_impl = context_parallel_impl
@@ -191,6 +230,11 @@ class AllReduceTrainer(TorchTrainer):
                 "has no context_parallel_model hook; running without "
                 "sequence parallelism", self._context_parallel_size)
             self._context_parallel_size = 1
+        if self._context_parallel_size > 1 and self._pipeline_stages > 1:
+            raise ValueError(
+                "context_parallel_size and pipeline_stages cannot be "
+                "combined (no model spec stages a sequence-parallel "
+                "attention); pick one")
         # zero1 and quantized_grads are suspended while the seq axis is
         # active and apply again in worlds that cannot host it; zero1 is
         # ignored under TP (the JAX trainer's rules and warnings).
@@ -217,7 +261,7 @@ class AllReduceTrainer(TorchTrainer):
         self._spec = None
         self._shards = None
         self.axis_stats = {MODEL_AXIS: CommStats(), SEQ_AXIS: CommStats(),
-                           DATA_AXIS: CommStats()}
+                           STAGE_AXIS: CommStats(), DATA_AXIS: CommStats()}
         # Each local shard's kernel launches, over every world it ran in.
         self.shard_launches = []
         self._seed = seed
@@ -248,6 +292,7 @@ class AllReduceTrainer(TorchTrainer):
         self._broadcast_server = broadcast.BroadcastServer(
             self._state_provider)
         master_client.worker_host = f"{ip}:{self._broadcast_server.port}"
+        self._rebuild_pipeline_build()
 
     @property
     def rank(self):
@@ -421,6 +466,8 @@ class AllReduceTrainer(TorchTrainer):
             model_parallel=self._model_parallel_size,
             has_param_specs=self._param_specs_fn is not None,
             zero1=self._zero1,
+            pipeline_stages=self._pipeline_stages,
+            has_pipeline_spec=self._pipeline_spec_fn is not None,
             context_parallel=self._context_parallel_size,
             has_context_parallel_model=(
                 self._context_parallel_model_fn is not None),
@@ -484,12 +531,86 @@ class AllReduceTrainer(TorchTrainer):
                 local_host=self._world._local_host,
                 data_group=cross_bn or (quantized and not live),
                 batch_store=self._world.shard_store if live else None,
-                bind_stats=cross_bn)
+                bind_stats=cross_bn,
+                pipeline=self._pipeline_build if spec.pp > 1 else None)
         elif cross_bn and live:
             bind_batch_stats(self._model, self._world.axis_group())
         self._place_optimizer()
         logger.info("World spec %s: %d shard(s) per process",
                     self._fingerprint, spec.topology.local_devices)
+
+    # ---------- the stage axis ----------
+
+    def _rebuild_pipeline_build(self):
+        """Binds the model spec's pipeline_spec hook (the port's build
+        binds no world, so once) and makes its staged tree the trainer's
+        model. A hook that rejects the configuration (e.g. layers not
+        divisible by the stage count) downgrades to the monolithic model
+        for good: the rejection is config-determined, so every world would
+        reject it the same way."""
+        self._pipeline_build = None
+        if self._pipeline_stages <= 1 or self._pipeline_spec_fn is None:
+            return
+        try:
+            self._pipeline_build = self._pipeline_spec_fn(
+                mesh=None,
+                n_stages=self._pipeline_stages,
+                num_microbatches=self._pipeline_microbatches,
+                schedule=self._pipeline_schedule,
+                batch_axis=DATA_AXIS,
+                virtual_stages=self._pipeline_vstages,
+            )
+        except ValueError as e:
+            logger.warning(
+                "pipeline_spec hook rejected the configuration (%s); "
+                "running the monolithic model data-parallel", e)
+            self._pipeline_stages = 1
+            return
+        self._model = self._pipeline_build.init_fn()
+
+    def _pp_active(self):
+        """True when the current world really hosts the stage axis (the
+        scheduled pipeline runs); a staged build on a pure-DP fallback
+        world trains sequentially instead."""
+        return (self._pipeline_build is not None
+                and self._spec is not None and self._spec.pp > 1)
+
+    def _init_pipeline_variables(self, features):
+        """Lazy init for pipeline mode: the staged tree materialized from
+        the seed (the base's init, on the hook's model) and the world
+        formed, then the JAX trainer's log line."""
+        with self._state_lock:
+            super().init_variables_if_needed(features)
+        if self._fingerprint is None:
+            self.init_world_if_needed(force=True)
+        n_params = sum(p.numel() for p in self._model.parameters())
+        logger.info(
+            "Initialized pipelined model with %d parameters "
+            "(%d stage rows, schedule %s)", n_params,
+            self._model.total_rows,
+            self._pipeline_schedule if self._pp_active() else "sequential")
+
+    def _run_pipeline_step(self, features, labels):
+        """One scheduled step across the stage shards: the batch padded to
+        a multiple of the data positions times the microbatches (the JAX
+        step's B % (M * dp)), the loss over the padded batch."""
+        world, shards = self._world, self._shards
+        live = world.is_live()
+        m = self._pipeline_microbatches
+        multiple = m * (shards.layout.data_size if live
+                        else shards.layout.data_local)
+        features, _ = pad_batch_to_multiple(features, multiple)
+        labels, _ = pad_batch_to_multiple(labels, multiple)
+        self._optimizer.zero_grad(set_to_none=True)
+        loss = shards.pipeline_step(
+            self._pipeline_build, features, labels, m,
+            rng=step_seed(self._seed, self._version))
+        if live:
+            loss = self._world_mean_grads(loss)
+        with self._state_lock:
+            self._optimizer.step()
+            self._version += 1
+        return loss
 
     def _quantized_active(self):
         """quantized_grads in this world: suspended while the seq axis is
@@ -683,6 +804,9 @@ class AllReduceTrainer(TorchTrainer):
     # ---------- Trainer interface ----------
 
     def init_variables_if_needed(self, features):
+        if self._optimizer is None and self._pipeline_build is not None:
+            self._init_pipeline_variables(features)
+            return
         if self._optimizer is None:
             with self._state_lock:
                 super().init_variables_if_needed(features)
@@ -726,6 +850,8 @@ class AllReduceTrainer(TorchTrainer):
             yield
 
     def _run_step(self, features, labels):
+        if self._pp_active():
+            return self._run_pipeline_step(features, labels)
         if self._shards is not None:
             return self._run_sharded_step(features, labels)
         world = self._world
@@ -752,11 +878,7 @@ class AllReduceTrainer(TorchTrainer):
             loss = self._world_mean_loss(loss)
             self._mean_buffers_over_world()
         elif world.is_live():
-            grads = [p.grad for p in self._model.parameters()]
-            total = loss.reshape(1).clone()
-            world.all_reduce_sum_(grads + [total])
-            torch._foreach_div_(grads, world.size)
-            loss = total[0] / world.size
+            loss = self._world_mean_grads(loss)
         with self._state_lock:
             self._optimizer.step()
             self._version += 1
@@ -776,7 +898,8 @@ class AllReduceTrainer(TorchTrainer):
                     else shards.layout.data_local)
         features, real_n = pad_batch_to_multiple(features, multiple)
         labels, _ = pad_batch_to_multiple(labels, multiple)
-        if live or quantized:
+        if live or quantized or self._pipeline_build is not None:
+            # The staged tree trains over the padded batch in every world.
             real_n = np.shape(first_leaf(labels))[0]
         # The quantized data leg inside the process: each shard's gradients
         # of its own mean loss, reduced among the shards in their threads.
@@ -797,15 +920,21 @@ class AllReduceTrainer(TorchTrainer):
             loss = self._world_mean_loss(loss)
             self._mean_buffers_over_world()
         elif live:
-            grads = [p.grad for p in self._model.parameters()]
-            total = loss.reshape(1).clone()
-            world.all_reduce_sum_(grads + [total])
-            torch._foreach_div_(grads, world.size)
-            loss = total[0] / world.size
+            loss = self._world_mean_grads(loss)
         with self._state_lock:
             self._optimizer.step()
             self._version += 1
         return loss
+
+    def _world_mean_grads(self, loss):
+        """The gradients and the loss averaged over the world's processes
+        (one f32 all-reduce in buckets); returns the loss."""
+        world = self._world
+        grads = [p.grad for p in self._model.parameters()]
+        total = loss.reshape(1).clone()
+        world.all_reduce_sum_(grads + [total])
+        torch._foreach_div_(grads, world.size)
+        return total[0] / world.size
 
     def _world_mean_loss(self, loss):
         """The loss averaged over the world's processes (exact f32)."""

@@ -99,6 +99,10 @@ def build_trainer(args, spec, ps_stubs=None, device=None,
             zero1=args.zero1,
             quantized_grads=args.quantized_grads,
             pipeline_stages=args.pipeline_stages,
+            pipeline_schedule=args.pipeline_schedule,
+            pipeline_microbatches=args.pipeline_microbatches,
+            pipeline_virtual_stages=args.pipeline_virtual_stages,
+            pipeline_spec_fn=getattr(spec.module, "pipeline_spec", None),
             context_parallel_size=args.context_parallel_size,
             context_parallel_impl=args.context_parallel_impl,
             context_parallel_model_fn=getattr(

@@ -450,13 +450,26 @@ def test_batchnorm_in_a_multi_process_world_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(pipeline_stages=2)],
                          ids=lambda kw: next(iter(kw)))
-def test_unported_parallelism_raises(kw):
-    """The pipeline is a later slice; the model and seq axes are
-    tests/test_torch_model_axes.py's, the data axis
+def test_unported_parallelism_raises(kw, monkeypatch):
+    """The pipeline is ported (tests/test_torch_pipeline.py): a model spec
+    without the pipeline_spec hook runs unpipelined, with the JAX warning,
+    and the stage axis combined with the model axis raises, as in JAX. The
+    model and seq axes are tests/test_torch_model_axes.py's, the data axis
     tests/test_torch_data_axis.py's."""
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
+    said = []
+    monkeypatch.setattr(art.logger, "warning",
+                        lambda msg, *a, **k: said.append(msg % a))
+    trainer = AllReduceTrainer(_Linear(), _linear_loss, toptim.sgd(0.1),
+                               _Control().client(0), device="cpu", **kw)
+    trainer.close()
+    assert trainer._pipeline_stages == 1
+    assert any("no pipeline_spec hook; running unpipelined" in w
+               for w in said)
+    with pytest.raises(ValueError, match="cannot be combined"):
         AllReduceTrainer(_Linear(), _linear_loss, toptim.sgd(0.1),
-                         _Control().client(0), device="cpu", **kw)
+                         _Control().client(0), device="cpu",
+                         pipeline_spec_fn=tlm.pipeline_spec,
+                         model_parallel_size=2, **kw)
 
 
 def test_divergences_backend_gate_budget_and_world_hint(monkeypatch):

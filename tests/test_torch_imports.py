@@ -6,8 +6,8 @@ writer import them only where they are used), and loads nothing of the
 JAX package; the control-plane modules among them (the journal, the policy
 engine, the telemetry plane, the chaos seams, the socket transport, the
 process entry points, the instance managers, the `edl` client, the
-elastic AllReduce modules, the model and seq axes and the data axis)
-import without grpc."""
+elastic AllReduce modules, the model, seq and stage axes and the data
+axis) import without grpc."""
 
 import os
 import pkgutil
@@ -78,7 +78,9 @@ def test_port_imports_with_jax_blocked():
                  "worker.allreduce_trainer", "parallel.collectives",
                  "parallel.tensor_parallel", "parallel.ring_attention",
                  "parallel.ulysses", "parallel.shards", "parallel.zero1",
-                 "parallel.quantized", "parallel.sharded_embedding"):
+                 "parallel.quantized", "parallel.sharded_embedding",
+                 "parallel.pipeline", "parallel.pipeline_interleaved",
+                 "parallel.pipeline_schedule", "layers.remat"):
         assert f"elasticdl_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules, "chip_smoke"],
@@ -107,13 +109,41 @@ for spec in (optimizers.adam(), optimizers.momentum(), optimizers.sgd(),
     trainer = LocalTrainer(tlm.custom_model(cfg), tlm.loss, spec,
                            device="cpu")
     trainer.train_minibatch(tokens[:, :-1], tokens[:, 1:])
+for policy in tlm.REMAT_POLICIES:
+    rcfg = tlm.LMConfig(vocab=64, d_model=32, n_heads=2, n_layers=1,
+                        max_len=16, remat=True, remat_policy=policy)
+    trainer = LocalTrainer(tlm.custom_model(rcfg), tlm.loss,
+                           optimizers.adam(), device="cpu")
+    trainer.train_minibatch(tokens[:, :-1], tokens[:, 1:])
+# A 1F1B step of two stage shards through the AllReduce trainer.
+from elasticdl_tpu_torch.common import rpc
+from elasticdl_tpu_torch.master.membership import MembershipManager
+from elasticdl_tpu_torch.master.servicer import MasterServicer
+from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+from elasticdl_tpu_torch.worker.allreduce_trainer import AllReduceTrainer
+from elasticdl_tpu_torch.worker.master_client import MasterClient
+pcfg = tlm.LMConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
+                    max_len=16)
+servicer = MasterServicer(TaskDispatcher({}), None,
+                          MembershipManager(coordinator_port=0))
+client = MasterClient(rpc.InProcessStub(servicer, rpc.MASTER_SERVICE), 0,
+                      worker_host="127.0.0.1")
+trainer = AllReduceTrainer(
+    tlm.custom_model(pcfg), tlm.loss, optimizers.adam(), client,
+    device="cpu", pipeline_stages=2, pipeline_schedule="1f1b",
+    pipeline_spec_fn=lambda **kw: tlm.pipeline_spec(config=pcfg, **kw))
+trainer._local_devices = 2
+trainer.train_minibatch(tokens[:, :-1], tokens[:, 1:])
+assert trainer.world_fingerprint == "data=1,stage=2"
+trainer.close()
 print("ok")
 """
 
 
 def test_a_training_step_imports_no_dynamo():
     """Building the LM on the meta device, materializing it and a step of
-    every optimizer import no torch._dynamo: the import held a worker
+    every optimizer, a step under every remat policy and a 1F1B step of two
+    stage shards import no torch._dynamo: the import held a worker
     process's start 8.8 s on an H100 host (PERF.md), for a compiler the
     port never runs."""
     proc = subprocess.run(

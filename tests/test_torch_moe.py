@@ -303,8 +303,10 @@ def test_moe_lm_bfloat16_and_aux_weight():
 def test_config_guards_names_and_flagship_count():
     with pytest.raises(ValueError, match="remat=False"):
         moe_lm.MoELMConfig(remat_policy="nothing_saveable")
-    with pytest.raises(NotImplementedError):
-        moe_lm.MoELMConfig(remat=True, remat_policy="dots_saveable")
+    with pytest.raises(ValueError, match="factory"):
+        moe_lm.MoELMConfig(remat=True,
+                           remat_policy="offload_dot_with_no_batch_dims")
+    moe_lm.MoELMConfig(remat=True, remat_policy="dots_saveable")
     moe_lm.MoELMConfig(remat=True, remat_policy="nothing_saveable")
     with pytest.raises(ValueError, match="moe_every"):
         moe_lm.MoELMConfig(moe_every=0)

@@ -177,8 +177,9 @@ def test_flagship_names_and_shapes_match_jax():
 
 
 def test_config_guards():
-    with pytest.raises(NotImplementedError):
-        tlm.LMConfig(remat=True, remat_policy="dots_saveable")
+    tlm.LMConfig(remat=True, remat_policy="dots_saveable")
+    with pytest.raises(ValueError, match="factory"):
+        tlm.LMConfig(remat=True, remat_policy="save_only_these_names")
     with pytest.raises(ValueError):
         tlm.LMConfig(remat_policy="dots_saveable")
     tm = tlm.custom_model(tlm.LMConfig(**TINY)).to_empty(device="cpu")

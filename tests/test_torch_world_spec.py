@@ -82,3 +82,35 @@ def test_pure_dp_fingerprint_and_current_topology(monkeypatch):
     assert mesh.WorldTopology.current(2) == mesh.WorldTopology(8, 4, 2)
     monkeypatch.delenv("ELASTICDL_LOCAL_DEVICES")
     assert mesh.local_device_count() == 1  # no CUDA device here
+
+
+@pytest.mark.parametrize("topo", [(4, 4, 1), (8, 4, 2), (16, 8, 2)],
+                         ids=str)
+def test_stage_axis_layout_and_demand(topo):
+    """The stage axis: the process-grouped reshape as for the model and
+    seq axes, each process's data positions times the stages its shards,
+    and the demand the JAX package's pipeline module makes (the port keeps
+    one copy, in parallel/mesh.py)."""
+    from elasticdl_tpu.parallel.pipeline import (
+        stage_axis_demand as jax_demand,
+    )
+    from elasticdl_tpu_torch.parallel import pipeline
+
+    assert pipeline.stage_axis_demand is mesh.stage_axis_demand
+    assert tuple(mesh.stage_axis_demand(2)) == tuple(jax_demand(2))
+    n, local, procs = topo
+    spec = mesh.resolve_world_spec(
+        mesh.ParallelConfig(pipeline_stages=2, has_pipeline_spec=True),
+        mesh.WorldTopology(*topo))
+    assert spec.pp == 2 and spec.axes[-1] == (mesh.STAGE_AXIS, 2)
+    names = [a for a, _ in spec.axes]
+    grid = np.arange(n).reshape([s for _, s in spec.axes])
+    for p in range(procs):
+        layout = mesh.ShardLayout(spec, p)
+        assert layout.data_local * 2 == local
+        for i in range(local):
+            coords = layout.coords(i)
+            assert grid[tuple(coords[a] for a in names)] == p * local + i
+            peer = layout.group_key(i, mesh.STAGE_AXIS)
+            assert [j for j in range(local) if layout.group_key(
+                j, mesh.STAGE_AXIS) == peer] == [i - i % 2, i - i % 2 + 1]
